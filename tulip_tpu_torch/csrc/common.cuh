@@ -1,0 +1,142 @@
+// Shared building blocks of the tulip_tpu_torch kernels.
+//
+// Every kernel works on a tile of kRows = 16 token rows per CTA of 256
+// threads (one 2x8 attention window, or 16 consecutive rows of a token
+// matrix).  Rows are staged in shared memory as fp32; products run on the
+// CUDA cores in fp32 through gemm_rows(), which streams 64 x 32 tiles of a
+// torch-layout (out, in) weight from global memory through shared memory,
+// one tile at a time (no prefetch).  Values the reference rounds to the
+// activation dtype (LN output, q/k/v, probabilities, hidden activations)
+// are rounded with round_to<T>() at the same points.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace tulip {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 16;              // token rows per CTA
+constexpr int kNT = 64;                // output columns per weight tile
+constexpr int kKC = 32;                // reduction depth per weight tile
+constexpr int kWStride = kKC + 1;      // padded: conflict-free column reads
+constexpr int kWTileFloats = kNT * kWStride;
+constexpr size_t kMaxSmem = 232448;    // 227 KB per block on sm_90
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16(v);
+}
+
+// v rounded to the activation dtype T, returned as fp32
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LayerNorm in place over the kRows rows of s (row stride ld, width C),
+// fp32 statistics, result rounded to T.  One warp per row.
+template <typename T>
+__device__ void layer_norm_rows(float* s, int ld, int C, const T* w,
+                                const T* b, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    float* row = s + r * ld;
+    float sum = 0.f;
+    for (int c = lane; c < C; c += 32) sum += row[c];
+    const float mean = warp_sum(sum) / C;
+    float sq = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = row[c] - mean;
+      sq += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / C + eps);
+    for (int c = lane; c < C; c += 32)
+      row[c] = round_to<T>((row[c] - mean) * rstd * to_f(w[c]) + to_f(b[c]));
+  }
+}
+
+// Weight row of output column n: row0 + (n / group) * gstride + n % group.
+struct RowMap {
+  int row0, group, gstride;
+  __device__ __forceinline__ int operator()(int n) const {
+    return row0 + (n / group) * gstride + n % group;
+  }
+};
+__device__ __forceinline__ RowMap identity_rows() {
+  return RowMap{0, 1 << 30, 0};
+}
+
+// out[r][n] = sum_{k < K} A[r][k] * W[map(n)][k] for r < kRows, n < N,
+// handed to epi(r, n, value).  A: fp32 shared memory, row stride lda.
+// W: global, row stride ldw (torch (out, in) layout).  K % kKC == 0.
+// wtile: kWTileFloats of shared memory.  Every thread must call this; it
+// synchronises the block before it first writes wtile, so shared inputs
+// written before the call are visible, and epi may write shared memory
+// that no other thread reads during the call.
+// Thread mapping: warp w owns rows 2w, 2w+1; lane l owns columns l, l+32.
+template <typename T, typename Epi>
+__device__ void gemm_rows(const float* A, int lda, int K, const T* W,
+                          int ldw, RowMap map, int N, float* wtile, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 2;
+  for (int n0 = 0; n0 < N; n0 += kNT) {
+    float acc00 = 0.f, acc01 = 0.f, acc10 = 0.f, acc11 = 0.f;
+    for (int k0 = 0; k0 < K; k0 += kKC) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < kNT * kKC; i += kThreads) {
+        const int n = i / kKC, k = i % kKC;
+        float v = 0.f;
+        if (n0 + n < N) v = to_f(W[(size_t)map(n0 + n) * ldw + k0 + k]);
+        wtile[n * kWStride + k] = v;
+      }
+      __syncthreads();
+      const float* a0p = A + r0 * lda + k0;
+      const float* a1p = a0p + lda;
+      const float* w0p = wtile + lane * kWStride;
+      const float* w1p = w0p + 32 * kWStride;
+#pragma unroll 8
+      for (int k = 0; k < kKC; ++k) {
+        const float a0 = a0p[k], a1 = a1p[k], w0 = w0p[k], w1 = w1p[k];
+        acc00 += a0 * w0;
+        acc01 += a0 * w1;
+        acc10 += a1 * w0;
+        acc11 += a1 * w1;
+      }
+    }
+    const int n_a = n0 + lane, n_b = n0 + lane + 32;
+    if (n_a < N) {
+      epi(r0, n_a, acc00);
+      epi(r0 + 1, n_a, acc10);
+    }
+    if (n_b < N) {
+      epi(r0, n_b, acc01);
+      epi(r0 + 1, n_b, acc11);
+    }
+  }
+}
+
+// Opt in to > 48 KB of dynamic shared memory, or report it cannot fit.
+template <typename Kernel>
+cudaError_t prepare_smem(Kernel kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace tulip

@@ -1,0 +1,342 @@
+"""TULIP Swin U-Net inference forward (port of tulip_tpu/models/tulip.py).
+
+Architecture (base, DurLAR config): (B,1,32,2048) -> circular patch embed
+(1,4) -> token grid 32x512x96 -> 4 encoder stages with patch merging ->
+4x64x768 -> patch unmerging -> 3 decoder stages with concat + linear skip
+fuse -> 32x512x96 -> norm_up + pixel-shuffle head (x4) + 1x1 prediction
+conv, folded into one fused two-matmul -> (B,1,128,2048).
+
+Parameter names are the reference state-dict keys, in torch layouts, so
+``load_state_dict(strict=True)`` takes a reference checkpoint or the JAX
+package's weights (``tulip_tpu_torch.utils.checkpoint``).  Activations are
+NHWC inside the model; :func:`apply_model` takes and returns NCHW.
+
+Only the configuration the shipped scripts use is ported:
+``--pixel_shuffle --circular_padding --patch_unmerging`` with Swin-v1
+blocks; other heads, PatchExpanding and Swin-v2 raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig, model_config
+from ..ops.mlp import fused_ln_linear, fused_two_matmul
+from ..parallel.halo import circular_pad_w
+from . import layers as L
+from .swin import SwinBlockV1, make_block_static
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.swin_v2:
+        raise NotImplementedError("Swin-v2 blocks are not ported yet")
+    if not cfg.pixel_shuffle:
+        raise NotImplementedError(
+            "only the pixel-shuffle head is ported (FinalPatchExpanding is not)")
+    if not cfg.patch_unmerging:
+        raise NotImplementedError(
+            "only patch unmerging is ported (PatchExpanding is not)")
+    if cfg.in_chans != 1:
+        raise NotImplementedError("the fused head takes in_chans == 1")
+    if not cfg.qkv_bias:
+        raise NotImplementedError("the window-MSA kernel takes a qkv bias")
+
+
+def _pixel_shuffle_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
+    """torch.nn.PixelShuffle in NHWC: channel c*r*r + i*r + j maps to
+    output (h*r+i, w*r+j, c)."""
+    B, H, W, CR2 = x.shape
+    C = CR2 // (r * r)
+    x = x.reshape(B, H, W, C, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, H * r, W * r, C)
+
+
+class PatchEmbed(nn.Module):
+    """(B, H, W, Cin) -> (B, H/ph, W/pw, C): circular pad (2, 2) and a
+    (ph, 8) kernel at stride (ph, pw), as im2col + one matmul."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = 8 if cfg.circular_padding else cfg.patch_size[1]
+        self.proj = L.Conv2d(cfg.in_chans, cfg.embed_dim, cfg.patch_size[0],
+                             kw, True, device=device, dtype=dtype)
+        self.norm = (L.LayerNorm(cfg.embed_dim, cfg.layer_norm_eps,
+                                 device=device, dtype=dtype)
+                     if cfg.patch_norm else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ph, pw = self.cfg.patch_size
+        B, H, W, Cin = x.shape
+        if H % ph or W % pw:
+            raise ValueError(f"input {H}x{W} not divisible by patch "
+                             f"{self.cfg.patch_size}")
+        if self.cfg.circular_padding:
+            x = circular_pad_w(x, 2, 2)
+        kw = self.proj.weight.shape[3]
+        taps = x.unfold(2, kw, pw)                      # B, H, Wo, Cin, kw
+        Wo = taps.shape[2]
+        taps = taps.reshape(B, H // ph, ph, Wo, Cin, kw)
+        patches = taps.permute(0, 1, 3, 2, 5, 4).reshape(B, H // ph, Wo, -1)
+        w = self.proj.weight.permute(0, 2, 3, 1).reshape(
+            self.proj.weight.shape[0], -1)              # O, (ph, kw, Cin)
+        y = L.linear(patches, w, self.proj.bias)
+        return y if self.norm is None else self.norm(y)
+
+
+class PatchMerging(nn.Module):
+    """2x2 space-to-depth (channel blocks (0,0),(1,0),(0,1),(1,1)) then the
+    fused LN(4C) + bias-free 4C -> 2C reduction."""
+
+    def __init__(self, dim: int, eps: float, *, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.norm = L.LayerNorm(4 * dim, eps, device=device, dtype=dtype)
+        self.reduction = L.Linear(4 * dim, 2 * dim, False, device=device,
+                                  dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        if H % 2 or W % 2:
+            x = nn.functional.pad(x, (0, 0, 0, W % 2, 0, H % 2))
+            H, W = x.shape[1], x.shape[2]
+        x = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 4, 2, 5)
+        x = x.reshape(-1, 4 * C)
+        d = x.dtype
+        out = fused_ln_linear(x, self.norm.weight.to(d), self.norm.bias.to(d),
+                              self.reduction.weight.to(d), eps=self.eps)
+        return out.reshape(B, H // 2, W // 2, 2 * C)
+
+
+class PatchUnmerging(nn.Module):
+    """1x1 conv C -> 2C then PixelShuffle(2): C/2 channels at 2x res."""
+
+    def __init__(self, dim: int, *, device=None, dtype=None):
+        super().__init__()
+        self.expand = L.Conv2d(dim, 2 * dim, 1, 1, True, device=device,
+                               dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _pixel_shuffle_nhwc(
+            L.conv1x1(x, self.expand.weight, self.expand.bias), 2)
+
+
+class Stage(nn.Module):
+    def __init__(self, cfg: ModelConfig, stage, *, device=None, dtype=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            SwinBlockV1(stage.dim, make_block_static(stage, j, cfg.window_size),
+                        cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
+                        cfg.layer_norm_eps, device=device, dtype=dtype)
+            for j in range(stage.depth))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+
+class TULIP(nn.Module):
+    """The TULIP model for one :class:`ModelConfig` (reference: class TULIP,
+    tulip/model/tulip.py:530-755).  Parameters are allocated empty: fill
+    them with ``load_state_dict(init_params(cfg, generator))`` or from a
+    checkpoint."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        n = cfg.num_layers
+        self.patch_embed = PatchEmbed(cfg, **kw)
+        self.layers = nn.ModuleList()
+        for i, st in enumerate(cfg.encoder_stages):
+            stage = Stage(cfg, st, **kw)
+            if i < n - 1:
+                stage.downsample = PatchMerging(st.dim, cfg.layer_norm_eps,
+                                                **kw)
+            self.layers.append(stage)
+        self.first_patch_expanding = PatchUnmerging(
+            cfg.embed_dim * 2 ** (n - 1), **kw)
+        self.layers_up = nn.ModuleList()
+        for i, st in enumerate(cfg.decoder_stages):
+            stage = Stage(cfg, st, **kw)
+            if i < n - 2:
+                stage.upsample = PatchUnmerging(st.dim, **kw)
+            self.layers_up.append(stage)
+        self.skip_connection_layers = nn.ModuleList(
+            L.Linear(st.dim * 2, st.dim, True, **kw)
+            for st in cfg.decoder_stages)
+        self.norm_up = L.LayerNorm(cfg.embed_dim, cfg.layer_norm_eps, **kw)
+        r2 = cfg.upscale_factor ** 2
+        self.ps_head = nn.Module()
+        self.ps_head.conv_expand = nn.ModuleList(
+            [L.Conv2d(cfg.embed_dim, cfg.embed_dim * r2, 1, 1, True, **kw)])
+        self.decoder_pred = L.Conv2d(cfg.embed_dim, cfg.in_chans, 1, 1, False,
+                                     **kw)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """norm_up + ps_head + decoder_pred as one fused two-matmul: the 1x1
+        prediction conv commutes with PixelShuffle, so it folds into a dense
+        (r^2, C*r^2) second weight whose row s reads the expanded channels
+        {c*r^2 + s}; the (tokens, C*r^2) expansion never reaches memory."""
+        B, H, W, C = x.shape
+        s = self.cfg.upscale_factor
+        r2 = s * s
+        d = x.dtype
+        conv = self.ps_head.conv_expand[0]
+        w1 = conv.weight.reshape(C * r2, C).to(d)
+        wpred = self.decoder_pred.weight.reshape(C).to(d)
+        rows = torch.arange(C * r2, device=x.device)
+        w2 = torch.zeros(r2, C * r2, device=x.device, dtype=d)
+        w2[rows % r2, rows] = wpred.repeat_interleave(r2)
+        out = fused_two_matmul(
+            x.reshape(-1, C), self.norm_up.weight.to(d),
+            self.norm_up.bias.to(d), w1, conv.bias.to(d), w2, None,
+            act="leaky", residual=False, eps=self.cfg.layer_norm_eps)
+        out = out.reshape(B, H, W, s, s).permute(0, 1, 3, 2, 4)
+        return out.reshape(B, H * s, W * s, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC input image -> NHWC prediction (reference: TULIP.forward,
+        tulip.py:702-731)."""
+        n = self.cfg.num_layers
+        x = self.patch_embed(x)
+        x_save = []
+        for i, stage in enumerate(self.layers):
+            x_save.append(x)
+            x = stage(x)
+            if i < n - 1:
+                x = stage.downsample(x)
+        x = self.first_patch_expanding(x)
+        for i, stage in enumerate(self.layers_up):
+            x = torch.cat([x, x_save[n - i - 2]], dim=-1)
+            x = self.skip_connection_layers[i](x)
+            x = stage(x)
+            if i < n - 2:
+                x = stage.upsample(x)
+        return self._head(x)
+
+
+def forward_loss(pred: torch.Tensor, target: torch.Tensor,
+                 log_transform: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """L1 loss (+ de-logged pixel loss when log_transform), fp32
+    (reference: tulip.py:690-700)."""
+    pred32, tgt32 = pred.float(), target.float()
+    loss = (pred32 - tgt32).abs().mean()
+    if log_transform:
+        pixel_loss = (torch.expm1(pred32) - torch.expm1(tgt32)).abs().mean()
+    else:
+        pixel_loss = loss
+    return loss, pixel_loss
+
+
+def apply_model(model: TULIP, x: torch.Tensor,
+                target: Optional[torch.Tensor] = None, *, mode: str = "eval",
+                mc_drop: bool = False, compute_dtype=torch.float32):
+    """Public forward.  ``x``/``target`` are NCHW.  ``mode`` 'eval' is
+    deterministic; 'mc' is model.eval() + active dropout, which is the
+    identity at the shipped rates of 0.  Returns pred (NCHW) if
+    ``mc_drop`` else (pred, total_loss, pixel_loss), as
+    tulip_tpu.models.tulip.apply_model does."""
+    cfg = model.cfg
+    if mode == "train":
+        raise NotImplementedError("training (drop-path) is not ported yet")
+    if mode not in ("eval", "mc"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "mc" and (cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0):
+        raise NotImplementedError("active dropout at a non-zero rate is not "
+                                  "ported yet")
+    with torch.no_grad():
+        xh = x.permute(0, 2, 3, 1).to(compute_dtype).contiguous()
+        pred = model(xh).permute(0, 3, 1, 2)
+    if mc_drop:
+        return pred
+    total_loss, pixel_loss = forward_loss(pred, target, cfg.log_transform)
+    return pred, total_loss, pixel_loss
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialization (torch defaults, explicit generator)
+# ---------------------------------------------------------------------------
+
+def _block_params(dim: int, nh: int, cfg: ModelConfig,
+                  g: torch.Generator) -> Dict[str, torch.Tensor]:
+    wh, ww = cfg.window_size
+    hidden = int(dim * cfg.mlp_ratio)
+    p = {}
+    for k in ("norm1", "norm2"):
+        p.update({f"{k}.{n}": t for n, t in L.layer_norm_init(dim).items()})
+    sub = {"attn.qkv": L.torch_linear_trunc_init(dim, 3 * dim, cfg.qkv_bias, g),
+           "attn.proj": L.torch_linear_trunc_init(dim, dim, True, g),
+           "mlp.fc1": L.torch_linear_trunc_init(dim, hidden, True, g),
+           "mlp.fc2": L.torch_linear_trunc_init(hidden, dim, True, g)}
+    for k, d in sub.items():
+        p.update({f"{k}.{n}": t for n, t in d.items()})
+    p["attn.relative_position_bias_table"] = L.trunc_normal(
+        ((2 * wh - 1) * (2 * ww - 1), nh), 0.02, g)
+    return p
+
+
+def init_params(cfg: ModelConfig,
+                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Full fp32 CPU state dict for :class:`TULIP` (reference init:
+    TULIP.init_weights + torch module defaults, tulip.py:586-594)."""
+    _check_supported(cfg)
+    g = generator
+    n = cfg.num_layers
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(prefix, d):
+        out.update({f"{prefix}.{k}": v for k, v in d.items()})
+
+    kw = 8 if cfg.circular_padding else cfg.patch_size[1]
+    put("patch_embed.proj", L.torch_conv_init(
+        cfg.embed_dim, cfg.in_chans, cfg.patch_size[0], kw, True, g))
+    if cfg.patch_norm:
+        put("patch_embed.norm", L.layer_norm_init(cfg.embed_dim))
+    for i, st in enumerate(cfg.encoder_stages):
+        for j in range(st.depth):
+            put(f"layers.{i}.blocks.{j}", _block_params(st.dim, st.num_heads,
+                                                        cfg, g))
+        if i < n - 1:
+            put(f"layers.{i}.downsample.norm", L.layer_norm_init(4 * st.dim))
+            put(f"layers.{i}.downsample.reduction",
+                L.torch_linear_trunc_init(4 * st.dim, 2 * st.dim, False, g))
+    bott = cfg.embed_dim * 2 ** (n - 1)
+    put("first_patch_expanding.expand",
+        L.torch_conv_init(2 * bott, bott, 1, 1, True, g))
+    for i, st in enumerate(cfg.decoder_stages):
+        for j in range(st.depth):
+            put(f"layers_up.{i}.blocks.{j}", _block_params(
+                st.dim, st.num_heads, cfg, g))
+        if i < n - 2:
+            put(f"layers_up.{i}.upsample.expand",
+                L.torch_conv_init(2 * st.dim, st.dim, 1, 1, True, g))
+    for i, st in enumerate(cfg.decoder_stages):
+        put(f"skip_connection_layers.{i}",
+            L.torch_linear_trunc_init(2 * st.dim, st.dim, True, g))
+    put("norm_up", L.layer_norm_init(cfg.embed_dim))
+    put("ps_head.conv_expand.0", L.torch_conv_init(
+        cfg.embed_dim * cfg.upscale_factor ** 2, cfg.embed_dim, 1, 1, True, g))
+    out["decoder_pred.weight"] = L.torch_conv_init(
+        cfg.in_chans, cfg.embed_dim, 1, 1, False, g)["weight"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Factories (reference: tulip/model/tulip.py:739-755)
+# ---------------------------------------------------------------------------
+
+def tulip_base(*, device=None, dtype=torch.float32, **kwargs) -> TULIP:
+    return TULIP(model_config("tulip_base", **kwargs), device=device,
+                 dtype=dtype)
+
+
+def tulip_large(*, device=None, dtype=torch.float32, **kwargs) -> TULIP:
+    return TULIP(model_config("tulip_large", **kwargs), device=device,
+                 dtype=dtype)

@@ -10,13 +10,24 @@ Phases, one line or more each; any failure raises and exits non-zero:
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
-   median kernel and plain times from CUDA events.
+   median kernel and plain times from CUDA events.  Then the three chamfer
+   kernels (K5, K6, K7; fp32) on 262,144-point clouds of a synthetic DurLAR
+   scan and a perturbed copy, and on a ragged, a uniform and a degenerate
+   cloud: each against its plain version and against K7.
 4. main path: a synthetic DurLAR folder read by tulip_tpu.data, TULIP-base
    32x2048 -> 128x2048 with random weights from a seeded generator, bf16
    forwards through apply_model at batches 1, 4 and 8; launches per forward,
    finite pred / loss / pixel_loss, forward img/s (median of timed runs).
 5. whole model: the batch-1 cuda preds (bf16 and fp32) against the same
    weights run in fp32 on the CPU through the plain versions.
+6. eval: the port's evaluate (fp32 and bf16) and MCdrop (50 iterations,
+   noise threshold 0.0005, as bash_scripts/tulip_evaluation_durlar.sh) on
+   four samples of the phase-4 folder, with the on-device metrics: one K5
+   launch per sample, the results files' schema and finite values; the
+   same engine with the plain chamfer (chamfer_impl "xla") and with K7
+   ("pallas") must agree; the MC full loop must equal its shortcut; K6
+   through the metric API (chamfer_distance without pad_to); forward and
+   metric ms per sample.
 
 Then one JSON line with the per-kernel results and, last, the device line
 {"ok": true, "device": {...}}.  The card's machine has no JAX: nothing here
@@ -26,6 +37,7 @@ imports it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -53,7 +65,18 @@ SOURCES = {
                    {"K3": "tulip_tpu/ops/pallas/mlp.py:28"}),
     "ln_linear": ("tulip_tpu_torch/csrc/mlp.cu",
                   {"K4": "tulip_tpu/ops/pallas/mlp.py:339"}),
+    "nn_h2": ("tulip_tpu_torch/csrc/chamfer.cu",
+              {"K5": "tulip_tpu/ops/pallas/chamfer_h.py:205"}),
+    "nn_h": ("tulip_tpu_torch/csrc/chamfer.cu",
+             {"K6": "tulip_tpu/ops/pallas/chamfer_h.py:62"}),
+    "nn_brute": ("tulip_tpu_torch/csrc/chamfer.cu",
+                 {"K7": "tulip_tpu/ops/pallas/chamfer.py:26"}),
 }
+# chamfer kernels against their plain versions: the kernel fuses two FMAs
+# where the plain version rounds each product and sum, <= 2 ulp (1.2e-7
+# relative) of each squared distance; the limit leaves room for that
+CHAMFER_RTOL, CHAMFER_ATOL = 1e-5, 1e-6
+NUM_EVAL = 4
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -184,6 +207,119 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
     return cases
 
 
+def timed_once(torch, fn):
+    """(fn(), its device time in ms from CUDA events)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def chamfer_clouds(torch, device):
+    """(label, a, b, real rows of b, on_path): a synthetic DurLAR scan and a
+    perturbed copy, projected by the port (262,144 points each, the eval
+    path's clouds), then clouds the path never gives: a ragged a against a
+    sentinel-padded b, uniform clouds and a degenerate all-equal cloud."""
+    from tulip_tpu_torch.eval.geometry import img_to_pcd_durlar_torch
+    rng = np.random.default_rng(1)
+    scan = durlar_scan(rng, 2048)
+    pert = np.clip(scan + rng.normal(0, 0.05, scan.shape), 0.5, 119.0)
+
+    def project(img):
+        x = torch.from_numpy((img / 120.0).astype(np.float32)).to(device)
+        return img_to_pcd_durlar_torch(x)
+
+    gt, pred = project(scan), project(pert)
+    P = gt.shape[0]
+    n = P - 1000
+    sentinels = torch.full((1000, 3), 1e8, device=device)
+    uni = torch.from_numpy(rng.uniform(-60, 60, (2, 65536, 3))
+                           .astype(np.float32)).to(device)
+    same = torch.full((8192, 3), 7.0, device=device)
+    return [(f"scan vs perturbed copy N=M={P}", gt, pred, P, True),
+            (f"ragged N={n}, b sentinel-padded to {P}", gt[:n].contiguous(),
+             torch.cat([pred[:n], sentinels]), n, False),
+            ("uniform N=M=65536", uni[0], uni[1], 65536, False),
+            ("degenerate all-equal N=M=8192", same, same, 8192, False)]
+
+
+def chamfer_checks(torch, device):
+    """Table rows of K5, K6, K7 against their plain versions and against
+    K7, with kernel and plain ms (CUDA events) for the on-path clouds."""
+    from tulip_tpu_torch.ops import chamfer as C
+
+    def excess(out, ref):
+        """max |out - ref| / (rtol |ref| + atol): <= 1 passes."""
+        return float(((out - ref).abs()
+                      / (CHAMFER_RTOL * ref.abs() + CHAMFER_ATOL)).max())
+
+    rows = []
+    for label, a, b, m_real, on_path in chamfer_clouds(torch, device):
+        # K7's chunk on the path is the default 4096 (it has no
+        # preferred_chunk); K5 / K6 use their preferred 1024
+        c7 = 4096 if on_path else 1024
+        pad = (-a.shape[0]) % c7
+        a_pad = torch.cat([a, torch.full((pad, 3), 1e8, device=device)])
+        ref_a, plain_a_ms = timed_once(
+            torch, lambda: C.min_sq_dists_plain(a, b, 1024))
+        ref_b, plain_b_ms = timed_once(
+            torch, lambda: C._min_sq_dists(b, a, 1024))
+        k7 = C.min_sq_dists_brute(a, b, c7)
+        k7b = C.min_sq_dists_brute(b, a_pad, c7)[:m_real]
+        k6 = C.min_sq_dists_h(a, b, 1024)
+        k5a, k5b = C.min_sq_dists_h2(a, b, 1024)
+        torch.cuda.synchronize()
+        checks = {
+            "K7": {"plain": excess(k7, ref_a)},
+            "K6": {"plain": excess(k6, ref_a), "K7": excess(k6, k7)},
+            "K5": {"plain a->b": excess(k5a, ref_a),
+                   "plain b->a": excess(k5b, ref_b),
+                   "K7 a->b": excess(k5a, k7),
+                   "K7 b->a": excess(k5b[:m_real], k7b)}}
+        abs_err = {"K7": float((k7 - ref_a).abs().max()),
+                   "K6": float((k6 - ref_a).abs().max()),
+                   "K5": max(float((k5a - ref_a).abs().max()),
+                             float((k5b - ref_b).abs().max()))}
+        times = {"K7": (None, None), "K6": (None, None), "K5": (None, None)}
+        if on_path:
+            _, plain7 = timed_once(
+                torch, lambda: C.min_sq_dists_plain(a, b, c7))
+            times = {
+                "K7": (cuda_ms(torch, lambda: C.min_sq_dists_brute(a, b, c7),
+                               iters=10, warmup=2), plain7),
+                "K6": (cuda_ms(torch, lambda: C.min_sq_dists_h(a, b, 1024),
+                               iters=10, warmup=2), plain_a_ms),
+                "K5": (cuda_ms(torch, lambda: C.min_sq_dists_h2(a, b, 1024),
+                               iters=10, warmup=2), plain_a_ms + plain_b_ms)}
+        for knum, kernel in (("K7", "nn_brute"), ("K6", "nn_h"),
+                             ("K5", "nn_h2")):
+            worst = max(checks[knum].values())
+            ms, plain_ms = times[knum]
+            rows.append(dict(kernel=kernel, knum=knum, dtype="float32",
+                             label=f"{kernel} {knum} fp32 {label}",
+                             on_path=on_path, checks=checks[knum],
+                             max_abs_err=abs_err[knum], ms=ms,
+                             plain_ms=plain_ms, ok=worst <= 1.0))
+            r = rows[-1]
+            t = ("" if ms is None else
+                 f" kernel {ms:.3f} ms plain {plain_ms:.1f} ms")
+            print(f"kernel {'ok ' if r['ok'] else 'BAD'} {r['label']}: "
+                  f"excess over {CHAMFER_RTOL:.0e}|ref|+{CHAMFER_ATOL:.0e} "
+                  f"(limit 1) {checks[knum]}, max abs err "
+                  f"{abs_err[knum]:.3e}{t}", flush=True)
+    return rows
+
+
+def durlar_scan(rng, width):
+    """A synthetic DurLAR range image in metres (128 x width): a range per
+    beam plus jitter."""
+    base = rng.uniform(5, 100, (128, 1)) * np.ones((1, width))
+    return np.clip(base + rng.uniform(-2, 2, (128, width)), 0.5, 119.0)
+
+
 def write_durlar(root, n, width):
     """Synthetic DurLAR split (range + intensity, 128 x width), as a real
     sensor folder holds it: <root>/val/<i>.npy."""
@@ -191,8 +327,7 @@ def write_durlar(root, n, width):
     d = os.path.join(root, "val")
     os.makedirs(d, exist_ok=True)
     for i in range(n):
-        base = rng.uniform(5, 100, (128, 1)) * np.ones((1, width))
-        img = np.clip(base + rng.uniform(-2, 2, (128, width)), 0.5, 119.0)
+        img = durlar_scan(rng, width)
         arr = np.stack([img.astype(np.float32),
                         rng.uniform(0, 1, (128, width)).astype(np.float32)],
                        -1)
@@ -211,19 +346,181 @@ def load_batches(root, batch, width):
 
 
 def counts():
-    from tulip_tpu_torch.ops import mlp, window_msa as wm
+    from tulip_tpu_torch.ops import chamfer, mlp, window_msa as wm
     return {"window_msa": wm.window_msa.launches,
             "window_msa_many_heads": wm.window_msa.launches_many_heads,
             "two_matmul": mlp.fused_two_matmul.launches,
-            "ln_linear": mlp.fused_ln_linear.launches}
+            "ln_linear": mlp.fused_ln_linear.launches,
+            "nn_h2": chamfer.min_sq_dists_h2.launches,
+            "nn_h": chamfer.min_sq_dists_h.launches,
+            "nn_brute": chamfer.min_sq_dists_brute.launches}
 
 
 def reset_counts():
-    from tulip_tpu_torch.ops import mlp, window_msa as wm
+    from tulip_tpu_torch.ops import chamfer, mlp, window_msa as wm
     wm.window_msa.launches = 0
     wm.window_msa.launches_many_heads = 0
     mlp.fused_two_matmul.launches = 0
     mlp.fused_ln_linear.launches = 0
+    chamfer.min_sq_dists_h2.launches = 0
+    chamfer.min_sq_dists_h.launches = 0
+    chamfer.min_sq_dists_brute.launches = 0
+
+
+RESULT_KEYS = ["chamfer_dist", "f1", "iou", "mae", "precision", "recall"]
+
+
+def eval_args(out_dir, **kw):
+    """The CLI namespace of bash_scripts/tulip_evaluation_durlar.sh."""
+    a = dict(dataset_select="durlar", img_size_low_res=[32, 2048],
+             img_size_high_res=[128, 2048], log_transform=True,
+             keep_close_scan=False, save_pcd=False, grid_size=0.1,
+             num_mcdropout_iterations=50, noise_threshold=0.0005, seed=0,
+             output_dir=out_dir)
+    a.update(kw)
+    return types.SimpleNamespace(**a)
+
+
+def compare_results(name, x, y, rtol, vox_atol):
+    """Per-sample results of two eval runs: mae and chamfer within rtol
+    relative, iou / precision / recall / f1 within vox_atol."""
+    worst = {}
+    for k in RESULT_KEYS:
+        a, b = np.asarray(x[k]), np.asarray(y[k])
+        d = np.abs(a - b)
+        if k in ("mae", "chamfer_dist"):
+            d = d / np.abs(b)
+        worst[k] = float(d.max())
+        if worst[k] > (rtol if k in ("mae", "chamfer_dist") else vox_atol):
+            raise SystemExit(f"eval {name}: {k} {x[k]} vs {y[k]}")
+    print(f"eval {name}: agree (max rel diff mae {worst['mae']:.2e}, "
+          f"chamfer {worst['chamfer_dist']:.2e}, limit {rtol:.0e}; max abs "
+          f"diff iou {worst['iou']:.2e}, precision {worst['precision']:.2e},"
+          f" recall {worst['recall']:.2e}, limit {vox_atol:.0e})",
+          flush=True)
+    return worst
+
+
+def run_eval_phase(torch, dev, data_root, model16, model32):
+    """Phase 6: the port's evaluate and MCdrop on NUM_EVAL samples of the
+    synthetic DurLAR folder, each run with the counts set to 0 before it
+    and read after it."""
+    from tulip_tpu_torch.eval import engine as E
+    from tulip_tpu_torch.eval.geometry import img_to_pcd_durlar_torch
+    from tulip_tpu_torch.eval.metrics import chamfer_distance
+    from tulip_tpu_torch.ops import chamfer as C
+    from tulip_tpu_torch.utils.writer import TBWriter
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke_eval")
+    os.makedirs(out_dir, exist_ok=True)
+    samples = load_batches(data_root, 1, 2048)[:NUM_EVAL]
+    writer = TBWriter(os.path.join(out_dir, "tb"))
+    nn_keys = ("nn_h2", "nn_h", "nn_brute")
+    total = {k: 0 for k in nn_keys}
+    report = dict(runs={})
+
+    def run(name, engine, model, dtype, nn, forwards, impl="auto",
+            data=samples, args=None):
+        C.set_default_chamfer_impl(impl)
+        reset_counts()
+        t0 = time.perf_counter()
+        getattr(E, engine)(data, model, writer,
+                           args=args or eval_args(out_dir), device=dev,
+                           compute_dtype=dtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        C.set_default_chamfer_impl("auto")
+        fname = "results.txt" if engine == "evaluate" else "results_mcdrop.txt"
+        with open(os.path.join(out_dir, fname)) as f:
+            res = json.load(f)
+        if (sorted(res) != RESULT_KEYS
+                or any(len(v) != len(data) for v in res.values())
+                or not all(math.isfinite(x) for v in res.values()
+                           for x in v)):
+            raise SystemExit(f"eval {name}: bad {fname}: {res}")
+        got_nn = {k: got[k] for k in nn_keys}
+        got_fwd = {k: got[k] for k in PER_FORWARD}
+        want_fwd = {k: v * forwards for k, v in PER_FORWARD.items()}
+        if got_nn != nn or got_fwd != want_fwd:
+            raise SystemExit(f"eval {name}: launches {got}, expected {nn} "
+                             f"and {want_fwd}")
+        for k in nn_keys:
+            total[k] += got[k]
+        print(f"eval {name}: {len(data)} samples, {wall / len(data) * 1e3:.1f}"
+              f" ms/sample wall, chamfer launches {got_nn}, {fname} "
+              f"chamfer_dist {res['chamfer_dist']} mae {res['mae']} iou "
+              f"{res['iou']} (random weights: a check that the path runs, "
+              f"not a result)", flush=True)
+        report["runs"][name] = dict(results=res, launches=got,
+                                    ms_per_sample=wall / len(data) * 1e3)
+        return res
+
+    k5 = {"nn_h2": NUM_EVAL, "nn_h": 0, "nn_brute": 0}
+    f32, b16 = torch.float32, torch.bfloat16
+    ev = run("evaluate fp32", "evaluate", model32, f32, k5, NUM_EVAL)
+    run("evaluate bf16", "evaluate", model16, b16, k5, NUM_EVAL)
+    mc = run("MCdrop fp32", "MCdrop", model32, f32, k5, NUM_EVAL)
+    plain = run("evaluate fp32, plain chamfer", "evaluate", model32, f32,
+                {k: 0 for k in nn_keys}, NUM_EVAL, impl="xla")
+    k7 = run("evaluate fp32, K7", "evaluate", model32, f32,
+             {"nn_h2": 0, "nn_h": 0, "nn_brute": 2 * NUM_EVAL}, NUM_EVAL,
+             impl="pallas")
+    a10 = eval_args(out_dir, num_mcdropout_iterations=10)
+    one = {"nn_h2": 1, "nn_h": 0, "nn_brute": 0}
+    short = run("MCdrop 10 iterations", "MCdrop", model32, f32, one, 1,
+                data=samples[:1], args=a10)
+    os.environ["TULIP_TPU_MC_FULL"] = "1"
+    full = run("MCdrop 10 iterations, full loop", "MCdrop", model32, f32,
+               one, 2, data=samples[:1], args=a10)
+    os.environ.pop("TULIP_TPU_MC_FULL")
+    # the same clouds and minima: chamfer to rounding of the means,
+    # the rest equal
+    report["plain_vs_k5"] = compare_results("plain chamfer vs K5", plain, ev,
+                                            1e-5, 0.0)
+    report["k7_vs_k5"] = compare_results("K7 vs K5", k7, ev, 1e-5, 0.0)
+    # the mean of 50 equal passes rounds; voxel edges may flip (1e-3)
+    report["mc_vs_eval"] = compare_results("MCdrop vs evaluate", mc, ev,
+                                           1e-4, 1e-3)
+    # batch 8 against batch 1 forwards: cuBLAS may pick another algorithm
+    report["full_vs_shortcut"] = compare_results(
+        "MC full loop vs shortcut", full, short, 1e-5, 1e-3)
+
+    # K6 through the metric API (no pad_to), and ms per sample
+    fwd32 = E._make_eval_forward(model32, "durlar", True, E._GATES, f32)
+    fwd16 = E._make_eval_forward(model16, "durlar", True, E._GATES, b16)
+    metrics_fn = E._make_device_metrics("durlar", eval_args(out_dir),
+                                        mc=False)
+    low = torch.from_numpy(samples[0][0]["sample"]).to(dev)
+    high = torch.from_numpy(samples[0][1]["sample"]).to(dev)
+    with torch.no_grad():
+        outs = fwd32(low, high)
+        dm = metrics_fn(*outs[:3])
+        pcd_pred = img_to_pcd_durlar_torch(dm["pred_inj"])
+        pcd_gt = img_to_pcd_durlar_torch(dm["high_gated"])
+        reset_counts()
+        cd = chamfer_distance(pcd_gt, pcd_pred)
+        got = counts()
+        if {k: got[k] for k in nn_keys} != {"nn_h2": 0, "nn_h": 2,
+                                             "nn_brute": 0}:
+            raise SystemExit(f"chamfer_distance launches {got}")
+        total["nn_h"] += got["nn_h"]
+        cd5 = float(dm["stats"][1])
+        if abs(cd - cd5) > 1e-5 * abs(cd5):
+            raise SystemExit(f"chamfer_distance {cd} (K6) vs {cd5} (K5)")
+        print(f"eval chamfer_distance (K6 x2) {cd:.6f} vs the K5 stats "
+              f"{cd5:.6f}", flush=True)
+        ms = dict(forward_fp32=cuda_ms(torch, lambda: fwd32(low, high),
+                                       iters=5, warmup=1),
+                  forward_bf16=cuda_ms(torch, lambda: fwd16(low, high),
+                                       iters=5, warmup=1),
+                  metrics_k5=cuda_ms(torch, lambda: metrics_fn(*outs[:3]),
+                                     iters=5, warmup=1))
+    print(f"eval ms per sample (CUDA events, median of 5): forward fp32 "
+          f"{ms['forward_fp32']:.2f}, forward bf16 {ms['forward_bf16']:.2f},"
+          f" metrics with K5 {ms['metrics_k5']:.2f}", flush=True)
+    report.update(launches=total, ms_per_sample=ms)
+    return report
 
 
 def main() -> int:
@@ -279,6 +576,7 @@ def main() -> int:
         print(f"kernel {'ok ' if ok else 'BAD'} {label}: err/max|ref| "
               f"{err:.3e} (limit {TOL[dn]:.0e}) kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms", flush=True)
+    table += chamfer_checks(torch, dev)
     bad = [r["label"] for r in table if not r["ok"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
@@ -355,13 +653,18 @@ def main() -> int:
     if not (err_bf16 <= 3e-2 and err_fp32 <= 1e-3):
         raise SystemExit("whole-model check failed")
 
+    # -- 6. eval -----------------------------------------------------------
+    eval_report = run_eval_phase(torch, dev, data_root, model, model32)
+
     # -- summary -----------------------------------------------------------
     kernels = []
     for kernel, (src, knums) in SOURCES.items():
         for knum, replaces in knums.items():
+            dtype = "float32" if kernel.startswith("nn_") else "bfloat16"
             rows = [r for r in table if r["knum"] == knum
-                    and r["dtype"] == "bfloat16" and r["on_path"]]
-            n = launches[kernel]
+                    and r["dtype"] == dtype and r["on_path"]]
+            n = (eval_report["launches"] if kernel.startswith("nn_")
+                 else launches)[kernel]
             if kernel == "window_msa":
                 many = launches["window_msa_many_heads"]
                 n = many if knum == "K2" else n - many
@@ -376,6 +679,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi_line, device=kind, table=table,
                        img_per_s=throughput, kernels=kernels,
+                       eval=eval_report,
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -39,6 +39,12 @@ SIGNATURES = {
     "tulip_two_matmul": [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _P],
     # dtype, x, out, lnw, lnb, w, N, K, O, eps, stream
     "tulip_ln_linear": [_I] + [_P] * 5 + [_I] * 3 + [_F, _P],
+    # a, b, out, N, M, chunk, stream
+    "tulip_nn_brute": [_P] * 3 + [_I] * 3 + [_P],
+    # a_s, b_s, lb_sorted, order, out, N, M, chunk, tile, stream
+    "tulip_nn_h": [_P] * 5 + [_I] * 4 + [_P],
+    # a_s, b_s, lb_sorted, order, out_a, out_b, N, M, chunk, tile, stream
+    "tulip_nn_h2": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,289 @@
+"""Exact nearest-neighbour squared distances, min_j |a_i - b_j|^2, for the
+chamfer metric, and the chamfer impl registry.
+
+Replaces tulip_tpu/ops/chamfer.py (``min_sq_dists_xla``), the Pallas
+kernels tulip_tpu/ops/pallas/chamfer.py ``_kernel`` (K7, brute force) and
+chamfer_h.py ``_kernel_h`` (K6, one direction with tile skipping) and
+``_kernel_h2`` (K5, both directions from one sweep), and the registry of
+tulip_tpu/ops/__init__.py.  The kernels are in ``csrc/chamfer.cu``.
+
+Every wrapper takes the plain version (:func:`min_sq_dists_plain`, the
+same minimum without skipping) for a CPU tensor and launches its kernel for
+a CUDA tensor; any other device raises.  All forms compute the direct
+difference dx^2 + dy^2 + dz^2 in fp32, so kernel and plain agree to
+rounding.  a: (N, 3); b: (M, 3) with M a multiple of ``chunk`` (callers pad
+with 1e8 sentinels, ``tulip_tpu.eval.metrics._PAD_VALUE``); N is free.
+
+Registry names are the JAX package's: ``xla`` is the plain version,
+``pallas`` K7, ``pallas_h`` K6 with ``.pair`` = K5, ``auto`` = ``pallas_h``
+(or ``$TULIP_TPU_CHAMFER``).  ``preferred_chunk`` (1024 for pallas_h, 4096
+otherwise) decides the callers' padding and the ``P % chunk`` branch.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from . import build
+
+QUERY_TILE = 512        # query rows per CUDA block (csrc/chamfer.cu kTile)
+_PLAIN_ROWS = 16384     # query rows per step of the plain version
+_BOUND_SLACK = 1e-3     # m, absorbs fp32 rounding in bounds and distances
+
+
+def min_sq_dists_plain(a, b, chunk: int = 4096):
+    """Plain version: a chunked loop over b (and over blocks of a rows, to
+    bound memory) carrying a running min of the direct-form distances."""
+    if b.shape[0] % chunk:
+        raise ValueError(f"M={b.shape[0]} is not a multiple of "
+                         f"chunk={chunk}")
+    return _min_sq_dists(a, b, chunk)
+
+
+def _min_sq_dists(a, b, chunk):
+    a = a.float()
+    b = b.float()
+    N, M = a.shape[0], b.shape[0]
+    out = torch.empty(N, device=a.device, dtype=torch.float32)
+    for r0 in range(0, N, _PLAIN_ROWS):
+        ax, ay, az = a[r0:r0 + _PLAIN_ROWS].unbind(1)
+        best = torch.full((ax.shape[0],), 1e30, device=a.device)
+        for c0 in range(0, M, chunk):
+            bx, by, bz = b[c0:c0 + chunk].unbind(1)
+            d = ((ax[:, None] - bx) ** 2 + (ay[:, None] - by) ** 2
+                 + (az[:, None] - bz) ** 2)
+            best = torch.minimum(best, d.amin(1))
+        out[r0:r0 + _PLAIN_ROWS] = best
+    return out
+
+
+def _check(a, b, chunk):
+    dev = a.device
+    N, M = a.shape[0], b.shape[0]
+    if M % chunk or chunk % 32:
+        raise ValueError(f"kernels take chunk % 32 == 0 and M % chunk == 0; "
+                         f"got M={M}, chunk={chunk}")
+    if N == 0:
+        raise ValueError("a has no points")
+    build.require(a, "a", dev, torch.float32, (N, 3))
+    build.require(b, "b", dev, torch.float32, (M, 3))
+
+
+def _launch(fn, *args):
+    lib = build.load()
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn)(*[x.data_ptr() if torch.is_tensor(x) else x
+                                 for x in args], stream)
+    build.check(lib, err, fn)
+
+
+def min_sq_dists_brute(a, b, chunk: int = 4096):
+    """K7: min_j |a_i - b_j|^2 over every chunk of b."""
+    if a.device.type == "cpu":
+        return min_sq_dists_plain(a, b, chunk)
+    if a.device.type != "cuda":
+        raise build.not_cuda(a)
+    a, b = a.float().contiguous(), b.float().contiguous()
+    _check(a, b, chunk)
+    out = torch.empty(a.shape[0], device=a.device, dtype=torch.float32)
+    _launch("tulip_nn_brute", a, b, out, a.shape[0], b.shape[0], chunk)
+    min_sq_dists_brute.launches += 1
+    return out
+
+
+min_sq_dists_brute.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Host-side glue of K5 / K6 (chamfer_h.py:39-59, 108-162, 196-202, 264-311),
+# plain torch on the tensors' device.
+# ---------------------------------------------------------------------------
+
+def _morton10(x, lo, span):
+    """10-bit-per-axis 3-D Morton codes (int64) for (N, 3) fp32 points."""
+    q = torch.clamp(((x - lo) / span) * 1023.0, 0.0, 1023.0).to(torch.int64)
+
+    def part1by2(v):
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return (part1by2(q[:, 0]) | (part1by2(q[:, 1]) << 1)
+            | (part1by2(q[:, 2]) << 2))
+
+
+def _real_box(x):
+    """Bounding box of the points that are not 1e8 sentinels."""
+    real = (x.abs() < 1e7).all(dim=-1, keepdim=True)
+    inf = torch.tensor(float("inf"), device=x.device)
+    lo = torch.where(real, x, inf).amin(0)
+    hi = torch.where(real, x, -inf).amax(0)
+    return lo, hi
+
+
+def _morton_order(a, b):
+    """Stable Morton argsorts of a and b over the joint box of their real
+    points (the sentinels would otherwise stretch the box so that every real
+    point falls in one cell; they clip to the last cell and sort last)."""
+    lo_a, hi_a = _real_box(a)
+    lo_b, hi_b = _real_box(b)
+    lo = torch.minimum(lo_a, lo_b)
+    span = torch.clamp(torch.maximum(hi_a, hi_b) - lo, min=1e-6)
+    return (torch.argsort(_morton10(a, lo, span), stable=True),
+            torch.argsort(_morton10(b, lo, span), stable=True))
+
+
+def _tiles(pts, tile):
+    """(T, tile, 3) view of pts; a ragged last tile is filled with copies of
+    the last point, which leave its box and enclosing sphere valid."""
+    pad = (-pts.shape[0]) % tile
+    if pad:
+        pts = torch.cat([pts, pts[-1:].expand(pad, 3)])
+    return pts.reshape(-1, tile, 3)
+
+
+def _tile_bounds(pts, tile):
+    """Centers (T, 3) and radii (T,) of each tile's enclosing sphere."""
+    t = _tiles(pts, tile)
+    c = t.mean(1)
+    r = torch.sqrt(((t - c[:, None, :]) ** 2).sum(-1).amax(1))
+    return c, r
+
+
+def _tile_boxes(pts, tile):
+    """AABB centers (T, 3) and half-extents (T, 3) of each tile: a tighter
+    bound than the spheres for elongated scan tiles."""
+    t = _tiles(pts, tile)
+    lo = t.amin(1)
+    hi = t.amax(1)
+    return 0.5 * (lo + hi), 0.5 * (hi - lo)
+
+
+def _sphere_lb(a_s, b_s, tile, chunk):
+    ca, ra = _tile_bounds(a_s, tile)
+    cb, rb = _tile_bounds(b_s, chunk)
+    dc = torch.sqrt(((ca[:, None, :] - cb[None, :, :]) ** 2).sum(-1))
+    return torch.clamp(dc - ra[:, None] - rb[None, :] - _BOUND_SLACK, min=0.0)
+
+
+def _box_lb(a_s, b_s, tile, chunk):
+    ca, ha = _tile_boxes(a_s, tile)
+    cb, hb = _tile_boxes(b_s, chunk)
+    gap = torch.clamp((ca[:, None, :] - cb[None, :, :]).abs()
+                      - ha[:, None, :] - hb[None, :, :], min=0.0)
+    return torch.clamp(torch.sqrt((gap * gap).sum(-1)) - _BOUND_SLACK,
+                       min=0.0)
+
+
+def plan(a, b, chunk, tile=QUERY_TILE, bounds="box"):
+    """The tables K5 / K6 walk: (pa, pb, a_s, b_s, lb_sorted, order).
+
+    pa / pb sort a / b in Morton order; lb (ceil(N / tile), M / chunk) is
+    the squared lower bound on the distance between query tile i of a_s and
+    target chunk j of b_s (``bounds``: "sphere" for K6, "box" for K5), with
+    1e-3 m of slack before squaring; each row of ``order`` lists the chunks
+    by ascending bound (stable, as jnp.argsort) and ``lb_sorted`` the
+    bounds in that order."""
+    pa, pb = _morton_order(a, b)
+    a_s = a[pa].contiguous()
+    b_s = b[pb].contiguous()
+    lb_lin = (_sphere_lb if bounds == "sphere" else _box_lb)(a_s, b_s, tile,
+                                                            chunk)
+    lb = lb_lin * lb_lin
+    order = torch.argsort(lb, dim=1, stable=True)
+    lb_sorted = torch.take_along_dim(lb, order, dim=1).contiguous()
+    return pa, pb, a_s, b_s, lb_sorted, order.to(torch.int32).contiguous()
+
+
+def _unsort(d_sorted, perm):
+    """Scatter sorted-order values back to the caller's point order."""
+    out = torch.empty_like(d_sorted)
+    out[perm] = d_sorted
+    return out
+
+
+def min_sq_dists_h(a, b, chunk: int = 1024):
+    """K6: min_j |a_i - b_j|^2, exact, skipping target chunks whose lower
+    bound cannot beat the query tile's worst current minimum."""
+    if a.device.type == "cpu":
+        return min_sq_dists_plain(a, b, chunk)
+    if a.device.type != "cuda":
+        raise build.not_cuda(a)
+    a, b = a.float().contiguous(), b.float().contiguous()
+    _check(a, b, chunk)
+    pa, _, a_s, b_s, lb_sorted, order = plan(a, b, chunk, bounds="sphere")
+    out = torch.empty(a.shape[0], device=a.device, dtype=torch.float32)
+    _launch("tulip_nn_h", a_s, b_s, lb_sorted, order, out, a.shape[0],
+            b.shape[0], chunk, QUERY_TILE)
+    min_sq_dists_h.launches += 1
+    return _unsort(out, pa)
+
+
+min_sq_dists_h.launches = 0
+
+
+def min_sq_dists_h2_plain(a, b, chunk: int = 1024):
+    """Plain version of K5: both directions by brute force.  Unlike the
+    JAX kernel, which pads a ragged ``a`` with sentinels that then appear in
+    the column minima, the b-direction minimum runs over a's N rows only."""
+    return min_sq_dists_plain(a, b, chunk), _min_sq_dists(b, a, chunk)
+
+
+def min_sq_dists_h2(a, b, chunk: int = 1024):
+    """K5: (min_j |a_i - b_j|^2 over i, min_i |a_i - b_j|^2 over j) from one
+    sweep with exact bidirectional skipping."""
+    if a.device.type == "cpu":
+        return min_sq_dists_h2_plain(a, b, chunk)
+    if a.device.type != "cuda":
+        raise build.not_cuda(a)
+    a, b = a.float().contiguous(), b.float().contiguous()
+    _check(a, b, chunk)
+    pa, pb, a_s, b_s, lb_sorted, order = plan(a, b, chunk, bounds="box")
+    out_a = torch.empty(a.shape[0], device=a.device, dtype=torch.float32)
+    out_b = torch.full((b.shape[0],), 1e30, device=a.device,
+                       dtype=torch.float32)
+    _launch("tulip_nn_h2", a_s, b_s, lb_sorted, order, out_a, out_b,
+            a.shape[0], b.shape[0], chunk, QUERY_TILE)
+    min_sq_dists_h2.launches += 1
+    return _unsort(out_a, pa), _unsort(out_b, pb)
+
+
+min_sq_dists_h2.launches = 0
+
+min_sq_dists_h.preferred_chunk = 1024
+min_sq_dists_h.pair = min_sq_dists_h2
+min_sq_dists_h2.preferred_chunk = 1024
+
+# ---------------------------------------------------------------------------
+# Registry (tulip_tpu/ops/__init__.py)
+# ---------------------------------------------------------------------------
+
+_CHAMFER_IMPLS = {"xla": min_sq_dists_plain, "pallas": min_sq_dists_brute,
+                  "pallas_h": min_sq_dists_h}
+_DEFAULT_CHAMFER = "auto"
+
+
+def set_default_chamfer_impl(name: str) -> None:
+    """Wire the --chamfer_impl flag (auto | xla | pallas | pallas_h)."""
+    global _DEFAULT_CHAMFER
+    if name != "auto" and name not in _CHAMFER_IMPLS:
+        raise ValueError(f"unknown chamfer impl {name!r}")
+    _DEFAULT_CHAMFER = name
+
+
+def get_chamfer_impl(name: str | None = None):
+    """The impl for ``name``, or the default: ``auto`` resolves to
+    ``$TULIP_TPU_CHAMFER`` if set, else ``pallas_h``."""
+    if name is None:
+        name = _DEFAULT_CHAMFER
+    if name == "auto":
+        name = os.environ.get("TULIP_TPU_CHAMFER") or "pallas_h"
+    if name not in _CHAMFER_IMPLS:
+        raise ValueError(f"unknown chamfer impl {name!r}")
+    return _CHAMFER_IMPLS[name]

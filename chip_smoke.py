@@ -28,6 +28,25 @@ Phases, one line or more each; any failure raises and exits non-zero:
    ("pallas") must agree; the MC full loop must equal its shortcut; K6
    through the metric API (chamfer_distance without pad_to); forward and
    metric ms per sample.
+7. training: a synthetic DurLAR train split, TULIP-base 32x2048 ->
+   128x2048, bf16 over fp32 master weights, batch 8, drop_path_rate 0.1
+   drawn from a device generator, AdamW (lr 5e-4, wd 0.01, warmup-cosine
+   LR of bash_scripts/tulip_upsampling_durlar.sh), 20 steps through the
+   port's train_one_epoch: finite losses, the launches per step of every
+   kernel (K1/K2 none), median step ms, img/s, peak memory; 10 steps on one
+   repeated batch, drop-path off, constant LR: the last loss below the
+   first; and the whole step at batch 1 (drop-path 0) against the same
+   step on the CPU through the plain versions: fp32 loss within 1e-4
+   relative and each parameter's gradient within 1e-3 of its max|ref|;
+   bf16 loss within 3e-2 and the flattened gradient's cosine >= 0.99.
+
+Phase 3 also holds the training kernels against their plain versions at
+the train step's shapes (batch 8): K8 (attention core forward) and K9 (its
+backward: dqkv, dbias) at the four stages, shifted and unshifted; K10 (the
+two-matmul backward: dx, dlnw, dlnb, dW1, db1, dW2, db2) at the four MLP
+widths and the head; K11 (LN + matmul backward: dx, dlnw, dlnb, dW) at the
+three merges; every output within the bf16 / fp32 limits of its own
+max|ref|.
 
 Then one JSON line with the per-kernel results and, last, the device line
 {"ok": true, "device": {...}}.  The card's machine has no JAX: nothing here
@@ -57,6 +76,10 @@ STAGES = [((32, 512), 96, 3), ((16, 256), 192, 6), ((8, 128), 384, 12),
           ((4, 64), 768, 24)]
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 PER_FORWARD = {"window_msa": 14, "two_matmul": 15, "ln_linear": 3}
+PER_STEP = {"window_msa": 0, "attn_core_fwd": 14, "attn_core_bwd": 14,
+            "two_matmul": 15, "two_matmul_bwd": 15, "ln_linear": 3,
+            "ln_linear_bwd": 3}
+TRAIN_BATCH, TRAIN_STEPS = 8, 20
 SOURCES = {
     "window_msa": ("tulip_tpu_torch/csrc/window_msa.cu",
                    {"K1": "tulip_tpu/ops/pallas/window_msa.py:476",
@@ -71,7 +94,17 @@ SOURCES = {
              {"K6": "tulip_tpu/ops/pallas/chamfer_h.py:62"}),
     "nn_brute": ("tulip_tpu_torch/csrc/chamfer.cu",
                  {"K7": "tulip_tpu/ops/pallas/chamfer.py:26"}),
+    "attn_core_fwd": ("tulip_tpu_torch/csrc/attn_core.cu",
+                      {"K8": "tulip_tpu/ops/pallas/attn_core.py:139"}),
+    "attn_core_bwd": ("tulip_tpu_torch/csrc/attn_core.cu",
+                      {"K9": "tulip_tpu/ops/pallas/attn_core.py:173"}),
+    "two_matmul_bwd": ("tulip_tpu_torch/csrc/mlp_bwd.cu",
+                       {"K10": "tulip_tpu/ops/pallas/mlp.py:184"}),
+    "ln_linear_bwd": ("tulip_tpu_torch/csrc/mlp_bwd.cu",
+                      {"K11": "tulip_tpu/ops/pallas/mlp.py:351"}),
 }
+TRAIN_KERNELS = ("attn_core_fwd", "attn_core_bwd", "two_matmul_bwd",
+                 "ln_linear_bwd")
 # chamfer kernels against their plain versions: the kernel fuses two FMAs
 # where the plain version rounds each product and sum, <= 2 ulp (1.2e-7
 # relative) of each squared distance; the limit leaves room for that
@@ -101,6 +134,26 @@ def rel_err(torch, out, ref):
     if not bool(torch.isfinite(out).all()):
         return float("inf")
     return float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-12))
+
+
+def compare(torch, out, ref):
+    """({output: err / max|ref|}, max abs err) of one output or a tuple of
+    them (the gradients of a backward kernel; None entries skipped)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    errs, abs_err = {}, 0.0
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        if (o is None) != (r is None):
+            raise SystemExit(f"output {i}: kernel {o is None}, plain "
+                             f"{r is None}")
+        if o is None:
+            continue
+        if o.shape != r.shape or o.dtype != r.dtype:
+            raise SystemExit(f"output {i}: kernel {tuple(o.shape)} {o.dtype}"
+                             f", plain {tuple(r.shape)} {r.dtype}")
+        errs[i] = rel_err(torch, o, r)
+        abs_err = max(abs_err, float((o.float() - r.float()).abs().max()))
+    return errs, abs_err
 
 
 def kernel_cases(torch, device, batch=2, stages=STAGES):
@@ -204,6 +257,102 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                           lambda x=x, a=args: mlp.fused_ln_linear(x, *a),
                           lambda x=x, a=args: mlp.fused_ln_linear_ref(x, *a),
                           on_path))
+    return cases
+
+
+def kink_guard(torch, x, args, gr, to, rn):
+    """Keep the leaky head's check off the kink.  The slope jumps from 0.01
+    to 1 at h = 0, and a pre-activation that rounds to opposite sides of 0
+    in the kernel and the plain version (another summation order) takes
+    another slope: with b1 ~ N(0, 0.1) that alone gave dx 2.3e-2 of
+    max|ref| in fp32 on an H100.  So b1 = +-2 (both branches, half the hidden units
+    each), W1 at half scale, and the upstream gradient is zeroed on the
+    tokens with any |h| < 1e-2 (h in float64 from the rounded inputs; the
+    two versions' h differ by < 1e-3 even in bf16).  Edits args[2:4] and
+    gr in place; returns a label suffix."""
+    from tulip_tpu_torch.models.layers import layer_norm
+    lnw, lnb, w1, b1 = args[:4]
+    w1.mul_(0.5)
+    b1.copy_(to(torch.where(rn(b1.shape[0]) >= 0, 2.0, -2.0)))
+    y = layer_norm(x, lnw, lnb, 1e-6).double()
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for i in range(0, x.shape[0], 16384):
+        h = y[i:i + 16384] @ w1.double().T + b1.double()
+        near[i:i + 16384] = (h.abs() < 1e-2).any(1)
+    gr[near] = 0
+    return f" (g zeroed on {int(near.sum())} tokens near the kink)"
+
+
+def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
+    """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path) for
+    K8-K11 at the train step's shapes; the backward cases return every
+    gradient output."""
+    from tulip_tpu_torch.models import layers as L
+    from tulip_tpu_torch.ops import attn_core as A, mlp
+
+    g = torch.Generator().manual_seed(1)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    cases = []
+    idx = torch.as_tensor(L.relative_position_index((2, 8))).reshape(-1)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        to = lambda t: t.to(device=device, dtype=dtype)
+        for (H, W), C, nh in stages:
+            for shifted in (False, True):
+                shift = (1, 4) if shifted else (0, 0)
+                qkv = to(rn(batch, H, W, 3 * C))
+                dout = to(rn(batch, H, W, C))
+                bias = rn(45, nh, scale=0.5)[idx].reshape(16, 16, nh)
+                bias = bias.permute(2, 0, 1).contiguous().to(device)
+                mask = (torch.as_tensor(L.shift_attention_mask(
+                    (H, W), (2, 8), (1, 4))).to(device) if shifted else None)
+                kw = dict(window=(2, 8), shift=shift)
+                what = (f"{dn} B={batch} grid={H}x{W} C={C} nh={nh} "
+                        f"shift={shift}")
+                a = (qkv, bias, mask)
+                cases.append((
+                    "attn_core_fwd", "K8", f"attn_core_fwd K8 {what}",
+                    lambda a=a, kw=kw: A.attn_core_fwd(*a, **kw),
+                    lambda a=a, kw=kw: A.attn_core_ref(*a, **kw), True))
+                cases.append((
+                    "attn_core_bwd", "K9", f"attn_core_bwd K9 {what}",
+                    lambda a=a, d=dout, kw=kw: A.attn_core_bwd(*a, d, **kw),
+                    lambda a=a, d=dout, kw=kw: A.attn_core_bwd_ref(*a, d,
+                                                                   **kw),
+                    True))
+        mlps = [(batch * H * W, C, 4 * C, C, "gelu", f"mlp C={C}")
+                for (H, W), C, nh in stages]
+        mlps.append((batch * 32 * 512, 96, 1536, 16, "leaky", "head C=96"))
+        for N, C, Hd, O, act, what in mlps:
+            x, gr = to(rn(N, C)), to(rn(N, O))
+            args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
+                    to(rn(Hd, C, scale=C ** -0.5)), to(rn(Hd, scale=0.1)),
+                    to(rn(O, Hd, scale=Hd ** -0.5)),
+                    to(rn(O, scale=0.1)) if act == "gelu" else None]
+            if act == "leaky":
+                what += kink_guard(torch, x, args, gr, to, rn)
+            kw = dict(act=act, residual=False)
+            cases.append((
+                "two_matmul_bwd", "K10",
+                f"two_matmul_bwd K10 {dn} {what} N={N} Hd={Hd} O={O}",
+                lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd(
+                    x, *a, gr, **kw),
+                lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd_ref(
+                    x, *a, gr, **kw), True))
+        for (H, W), C, nh in stages[:-1]:
+            N, K = batch * (H // 2) * (W // 2), 4 * C
+            x, gr = to(rn(N, K)), to(rn(N, K // 2))
+            args = [to(rn(K, scale=0.1, shift=1.0)), to(rn(K, scale=0.1)),
+                    to(rn(K // 2, K, scale=K ** -0.5))]
+            cases.append((
+                "ln_linear_bwd", "K11",
+                f"ln_linear_bwd K11 {dn} merge N={N} K={K} O={K // 2}",
+                lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd(x, *a, gr),
+                lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd_ref(x, *a, gr),
+                True))
     return cases
 
 
@@ -320,11 +469,11 @@ def durlar_scan(rng, width):
     return np.clip(base + rng.uniform(-2, 2, (128, width)), 0.5, 119.0)
 
 
-def write_durlar(root, n, width):
+def write_durlar(root, n, width, split="val"):
     """Synthetic DurLAR split (range + intensity, 128 x width), as a real
-    sensor folder holds it: <root>/val/<i>.npy."""
-    rng = np.random.default_rng(0)
-    d = os.path.join(root, "val")
+    sensor folder holds it: <root>/<split>/<i>.npy."""
+    rng = np.random.default_rng(0 if split == "val" else 1)
+    d = os.path.join(root, split)
     os.makedirs(d, exist_ok=True)
     for i in range(n):
         img = durlar_scan(rng, width)
@@ -334,37 +483,44 @@ def write_durlar(root, n, width):
         np.save(os.path.join(d, f"{i:05d}.npy"), arr)
 
 
-def load_batches(root, batch, width):
+def load_batches(root, batch, width, split="val"):
     from tulip_tpu.data import DataLoader
     from tulip_tpu.data.datasets import build_durlar_upsampling_dataset
     args = types.SimpleNamespace(
         img_size_low_res=[32, width], img_size_high_res=[128, width],
         log_transform=True, roll=False, data_path_low_res=root,
         data_path_high_res=root)
-    ds = build_durlar_upsampling_dataset(False, args)
+    ds = build_durlar_upsampling_dataset(split == "train", args)
     return list(DataLoader(ds, batch_size=batch, num_workers=2))
 
 
+def counted():
+    """{name: wrapper} of every kernel wrapper with a launch count."""
+    from tulip_tpu_torch.ops import attn_core, chamfer, mlp, window_msa as wm
+    return {"window_msa": wm.window_msa,
+            "two_matmul": mlp.fused_two_matmul,
+            "ln_linear": mlp.fused_ln_linear,
+            "nn_h2": chamfer.min_sq_dists_h2,
+            "nn_h": chamfer.min_sq_dists_h,
+            "nn_brute": chamfer.min_sq_dists_brute,
+            "attn_core_fwd": attn_core.attn_core_fwd,
+            "attn_core_bwd": attn_core.attn_core_bwd,
+            "two_matmul_bwd": mlp.two_matmul_bwd,
+            "ln_linear_bwd": mlp.ln_linear_bwd}
+
+
 def counts():
-    from tulip_tpu_torch.ops import chamfer, mlp, window_msa as wm
-    return {"window_msa": wm.window_msa.launches,
-            "window_msa_many_heads": wm.window_msa.launches_many_heads,
-            "two_matmul": mlp.fused_two_matmul.launches,
-            "ln_linear": mlp.fused_ln_linear.launches,
-            "nn_h2": chamfer.min_sq_dists_h2.launches,
-            "nn_h": chamfer.min_sq_dists_h.launches,
-            "nn_brute": chamfer.min_sq_dists_brute.launches}
+    from tulip_tpu_torch.ops import window_msa as wm
+    out = {k: fn.launches for k, fn in counted().items()}
+    out["window_msa_many_heads"] = wm.window_msa.launches_many_heads
+    return out
 
 
 def reset_counts():
-    from tulip_tpu_torch.ops import chamfer, mlp, window_msa as wm
-    wm.window_msa.launches = 0
+    from tulip_tpu_torch.ops import window_msa as wm
+    for fn in counted().values():
+        fn.launches = 0
     wm.window_msa.launches_many_heads = 0
-    mlp.fused_two_matmul.launches = 0
-    mlp.fused_ln_linear.launches = 0
-    chamfer.min_sq_dists_h2.launches = 0
-    chamfer.min_sq_dists_h.launches = 0
-    chamfer.min_sq_dists_brute.launches = 0
 
 
 RESULT_KEYS = ["chamfer_dist", "f1", "iou", "mae", "precision", "recall"]
@@ -523,6 +679,130 @@ def run_eval_phase(torch, dev, data_root, model16, model32):
     return report
 
 
+def train_grads(torch, model, x, t, dtype):
+    """(loss, {param: fp32 CPU gradient}) of one train-mode forward +
+    backward, drop-path off (no generator)."""
+    from tulip_tpu_torch.models.tulip import apply_model
+    model.zero_grad(set_to_none=True)
+    _, loss, _ = apply_model(model, x, t, mode="train", compute_dtype=dtype)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()}
+
+
+def grad_check(torch, got, ref):
+    """Loss relative error, {param: err / max|ref|} and the cosine of the
+    flattened gradients of two train_grads results."""
+    (l_got, g_got), (l_ref, g_ref) = got, ref
+    errs = {n: rel_err(torch, g_got[n], g_ref[n]) for n in g_ref}
+    a = torch.cat([g_got[n].reshape(-1) for n in g_ref]).double()
+    b = torch.cat([g_ref[n].reshape(-1) for n in g_ref]).double()
+    cos = float(a @ b / (a.norm() * b.norm()))
+    return abs(l_got - l_ref) / abs(l_ref), errs, cos
+
+
+def run_train_phase(torch, dev, data_root, weights):
+    """Phase 7: the port's train_one_epoch at the flagship size, with the
+    counts set to 0 just before it and read just after; then the
+    repeated-batch descent and the whole-step checks (not counted)."""
+    from tulip_tpu_torch.models.tulip import tulip_base
+    from tulip_tpu_torch.train.engine import train_one_epoch
+    from tulip_tpu_torch.train.step import make_optimizer, make_train_step
+
+    width = FLAGSHIP["img_size"][1]
+    write_durlar(data_root, 2 * TRAIN_BATCH, width, split="train")
+    batches = load_batches(data_root, TRAIN_BATCH, width, split="train")
+    loader = batches * (TRAIN_STEPS // len(batches))
+    args = types.SimpleNamespace(accum_iter=1, lr=5e-4, min_lr=0.0,
+                                 warmup_epochs=60, epochs=600, seed=0,
+                                 log_transform=True)
+
+    def fresh(rate, dtype=torch.float32, device=dev):
+        m = tulip_base(drop_path_rate=rate, **FLAGSHIP)
+        m.load_state_dict(weights, strict=True)
+        return m.to(device=device, dtype=dtype)
+
+    model = fresh(0.1)
+    step = make_train_step(model, make_optimizer(model, 0.01),
+                           compute_dtype=torch.bfloat16)
+    times, losses = [], []
+
+    def timed_step(low, high, lr, generator):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(low, high, lr, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(out)
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    stats = train_one_epoch(timed_step, loader, 0, device=dev, args=args)
+    got = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
+    if {k: got[k] for k in PER_STEP} != want:
+        raise SystemExit(f"train launches {got}, expected {want}")
+    vals = [(l.item(), p.item()) for l, p in losses]
+    if len(vals) != TRAIN_STEPS or not all(
+            math.isfinite(v) for pair in vals for v in pair):
+        raise SystemExit(f"train losses {vals}")
+    med = statistics.median(times[2:])
+    print(f"train: {TRAIN_STEPS} bf16 steps of batch {TRAIN_BATCH} through "
+          f"train_one_epoch, drop_path_rate 0.1, launches/step "
+          f"{ {k: got[k] // TRAIN_STEPS for k in PER_STEP} }; step median "
+          f"{med * 1e3:.2f} ms = {TRAIN_BATCH / med:.2f} img/s (min "
+          f"{min(times[2:]) * 1e3:.2f}, max {max(times[2:]) * 1e3:.2f}, "
+          f"first {times[0] * 1e3:.1f} ms), peak mem {peak / 2 ** 20:.0f} "
+          f"MiB; losses {[round(v[0], 5) for v in vals]} (random weights: "
+          f"a check that the path runs, not a result); mean {stats}",
+          flush=True)
+    report = dict(launches={k: got[k] for k in TRAIN_KERNELS},
+                  launches_per_step={k: got[k] // TRAIN_STEPS
+                                     for k in PER_STEP},
+                  step_ms=[t * 1e3 for t in times], step_ms_median=med * 1e3,
+                  img_per_s=TRAIN_BATCH / med, peak_mib=peak / 2 ** 20,
+                  losses=vals)
+
+    # one repeated batch, drop-path off, constant LR: the loss falls
+    model = fresh(0.1)
+    step = make_train_step(model, make_optimizer(model, 0.01),
+                           compute_dtype=torch.bfloat16)
+    low = torch.from_numpy(batches[0][0]["sample"]).to(dev)
+    high = torch.from_numpy(batches[0][1]["sample"]).to(dev)
+    rep = [step(low, high, 5e-4, None)[0].item() for _ in range(10)]
+    print(f"train: repeated batch, 10 steps at lr 5e-4: loss {rep[0]:.5f} "
+          f"-> {rep[-1]:.5f}", flush=True)
+    if not rep[-1] < rep[0]:
+        raise SystemExit(f"repeated-batch loss did not fall: {rep}")
+    report["repeated_batch_losses"] = rep
+
+    # the whole step at batch 1 against the CPU plain path
+    x1, t1 = low[:1], high[:1]
+    ref = train_grads(torch, fresh(0.0, device=torch.device("cpu")),
+                      x1.cpu(), t1.cpu(), torch.float32)
+    got32 = train_grads(torch, fresh(0.0), x1, t1, torch.float32)
+    got16 = train_grads(torch, fresh(0.0), x1, t1, torch.bfloat16)
+    rel32, errs, cos32 = grad_check(torch, got32, ref)
+    rel16, _, cos16 = grad_check(torch, got16, ref)
+    worst = max(errs, key=errs.get)
+    print(f"train whole step batch 1 vs the fp32 cpu plain path: fp32 loss "
+          f"{got32[0]:.7f} vs {ref[0]:.7f} (rel {rel32:.2e}, limit 1e-4), "
+          f"worst gradient {worst} err/max|ref| {errs[worst]:.2e} (limit "
+          f"1e-3), cosine {cos32:.7f}; bf16 loss {got16[0]:.6f} (rel "
+          f"{rel16:.2e}, limit 3e-2), gradient cosine {cos16:.5f} (limit "
+          f"0.99)", flush=True)
+    if not (rel32 <= 1e-4 and errs[worst] <= 1e-3 and rel16 <= 3e-2
+            and cos16 >= 0.99):
+        raise SystemExit("train whole-step check failed")
+    report["whole_step"] = dict(loss_fp32=got32[0], loss_cpu=ref[0],
+                                loss_bf16=got16[0], worst_grad=worst,
+                                worst_grad_err=errs[worst], cos_fp32=cos32,
+                                cos_bf16=cos16)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -550,7 +830,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     nvcc_s = build.build_seconds
-    print(f"build: {time.perf_counter() - t0:.1f} s, nvcc "
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s, nvcc "
           f"{'not run (cached)' if nvcc_s is None else f'{nvcc_s:.1f} s'}"
           f" -> {build.library_path().name}")
     for line in build.build_log.splitlines():
@@ -560,22 +841,28 @@ def main() -> int:
 
     # -- 3. kernels vs plain ----------------------------------------------
     table = []
-    for kernel, knum, label, kfn, pfn, on_path in kernel_cases(torch, dev):
+    cases = [c + (20,) for c in kernel_cases(torch, dev)]
+    cases += [c + (5,) for c in train_kernel_cases(torch, dev)]
+    for kernel, knum, label, kfn, pfn, on_path, iters in cases:
         out = kfn()
         ref = pfn()
         torch.cuda.synchronize()
-        err = rel_err(torch, out, ref)
-        dn = str(out.dtype).replace("torch.", "")
-        ms, plain_ms = cuda_ms(torch, kfn), cuda_ms(torch, pfn)
+        errs, abs_err = compare(torch, out, ref)
+        err = max(errs.values())
+        dn = str((out[0] if isinstance(out, tuple) else out).dtype)
+        dn = dn.replace("torch.", "")
+        ms = cuda_ms(torch, kfn, iters=iters)
+        plain_ms = cuda_ms(torch, pfn, iters=iters)
         ok = err <= TOL[dn]
         table.append(dict(kernel=kernel, knum=knum, label=label, dtype=dn,
-                          on_path=on_path,
+                          on_path=on_path, errs=errs,
                           max_abs_err_rel=err, ms=ms, plain_ms=plain_ms,
-                          max_abs_err=float((out.float() - ref.float())
-                                            .abs().max()), ok=ok))
+                          max_abs_err=abs_err, ok=ok))
+        each = "" if len(errs) == 1 else f" (outputs {list(errs.values())})"
         print(f"kernel {'ok ' if ok else 'BAD'} {label}: err/max|ref| "
-              f"{err:.3e} (limit {TOL[dn]:.0e}) kernel {ms:.4f} ms "
+              f"{err:.3e}{each} (limit {TOL[dn]:.0e}) kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms", flush=True)
+        del out, ref
     table += chamfer_checks(torch, dev)
     bad = [r["label"] for r in table if not r["ok"]]
     if bad:
@@ -656,6 +943,11 @@ def main() -> int:
     # -- 6. eval -----------------------------------------------------------
     eval_report = run_eval_phase(torch, dev, data_root, model, model32)
 
+    # -- 7. training -------------------------------------------------------
+    del model, model32, cpu_model
+    torch.cuda.empty_cache()
+    train_report = run_train_phase(torch, dev, data_root, weights)
+
     # -- summary -----------------------------------------------------------
     kernels = []
     for kernel, (src, knums) in SOURCES.items():
@@ -664,6 +956,7 @@ def main() -> int:
             rows = [r for r in table if r["knum"] == knum
                     and r["dtype"] == dtype and r["on_path"]]
             n = (eval_report["launches"] if kernel.startswith("nn_")
+                 else train_report["launches"] if kernel in TRAIN_KERNELS
                  else launches)[kernel]
             if kernel == "window_msa":
                 many = launches["window_msa_many_heads"]
@@ -679,7 +972,8 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi_line, device=kind, table=table,
                        img_per_s=throughput, kernels=kernels,
-                       eval=eval_report,
+                       eval=eval_report, train=train_report,
+                       build=dict(seconds=build_s, nvcc_seconds=nvcc_s),
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -269,7 +269,9 @@ def test_evaluate_real_tulip(tmp_path):
 def test_eval_imports_no_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import tulip_tpu_torch.eval.engine, tulip_tpu_torch.ops.chamfer;"
-            " import tulip_tpu_torch.utils.writer")
+            " import tulip_tpu_torch.utils.writer, "
+            "tulip_tpu_torch.train.engine, tulip_tpu_torch.train.step, "
+            "tulip_tpu_torch.ops.attn_core")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

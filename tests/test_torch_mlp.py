@@ -10,6 +10,7 @@ tanh form, which is within 3e-3 of the exact erf GELU the port uses."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -23,7 +24,7 @@ JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
 def _rel(out, ref):
-    out = out.float().numpy() if isinstance(out, torch.Tensor) else out
+    out = out.detach().float().numpy() if isinstance(out, torch.Tensor) else out
     ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
     return np.abs(out - ref).max() / np.abs(ref).max()
 
@@ -148,3 +149,135 @@ def test_cpu_dispatch_is_the_plain_version():
                        TM.fused_ln_linear_ref(x, lnw, lnb, w))
     assert (TM.fused_two_matmul.launches,
             TM.fused_ln_linear.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# Backward: TwoMatmul (K3 forward, K10 backward) and LnLinear (K4, K11)
+# against the JAX package's custom VJPs (Pallas in interpret mode, or its
+# XLA recompute where _bwd_vmem_ok rejects the shape), with the same limits.
+# In bf16 the JAX VJP differentiates the tanh GELU (mlp.py:156-165), the
+# port the exact erf GELU its forward computes (< 3e-3 apart per unit,
+# inside the 2e-2).
+# ---------------------------------------------------------------------------
+
+def _t(a, dtype, grad=True):
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(getattr(torch, dtype))
+    return t.requires_grad_() if grad else t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["mlp", "head", "stage3"])
+def test_two_matmul_grads_match_jax_vjp(case, dtype):
+    """mlp: GELU with LN and residual, N 256, C 96 (Pallas backward);
+    head: leaky, C 96 -> 1536 -> 16, no LN, no residual (Pallas);
+    stage3: GELU with LN and residual, N 32, C 768 -> 3072 (JAX's XLA
+    recompute fallback)."""
+    N, C, Hd, O, act, ln, res = {
+        "mlp": (256, 96, 384, 96, "gelu", True, True),
+        "head": (128, 96, 1536, 16, "leaky", False, False),
+        "stage3": (32, 768, 3072, 768, "gelu", True, True)}[case]
+    rng = np.random.default_rng(5)
+    f = np.float32
+    x = rng.normal(0, 1, (N, C)).astype(f)
+    g = rng.normal(0, 1, (N, O)).astype(f)
+    lnw, lnb = _ln(rng, C)
+    w1 = (rng.normal(size=(C, Hd)) * C ** -0.5).astype(f)          # (in, out)
+    b1 = (rng.normal(size=(Hd,)) * 0.1).astype(f)
+    w2 = (rng.normal(size=(Hd, O)) * Hd ** -0.5).astype(f)
+    b2 = (rng.normal(size=(O,)) * 0.1).astype(f)
+    jd = JD[dtype]
+    j = lambda a: jnp.asarray(a).astype(jd)
+    fn = lambda *a: JM.fused_two_matmul_vjp(*a, 1e-6, act, ln, res)
+    jargs = (j(x), j(lnw)[None], j(lnb)[None], j(w1), j(b1)[None], j(w2),
+             j(b2)[None])
+    ref, vjp = jax.vjp(fn, *jargs)
+    jg = vjp(j(g))
+    targs = [_t(x, dtype), _t(lnw, dtype) if ln else None,
+             _t(lnb, dtype) if ln else None, _t(w1.T, dtype), _t(b1, dtype),
+             _t(w2.T, dtype), _t(b2, dtype)]
+    before = (TM.fused_two_matmul.launches, TM.two_matmul_bwd.launches)
+    out = TM.two_matmul(*targs, act=act, residual=res)
+    out.backward(_t(g, dtype, grad=False))
+    assert (TM.fused_two_matmul.launches,
+            TM.two_matmul_bwd.launches) == before
+    names = ["out", "dx", "dlnw", "dlnb", "dw1", "db1", "dw2", "db2"]
+    got = [out, targs[0].grad,
+           *(t.grad if t is not None else None for t in targs[1:3]),
+           targs[3].grad.T, targs[4].grad, targs[5].grad.T, targs[6].grad]
+    want = [ref, jg[0], jg[1][0], jg[2][0], jg[3], jg[4][0], jg[5], jg[6][0]]
+    errs = {n: _rel(a, b) for n, a, b in zip(names, got, want)
+            if a is not None}
+    assert len(errs) == (8 if ln else 6)
+    assert max(errs.values()) <= TOL[dtype], errs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,K", [(128, 384), (32, 1536)])
+def test_ln_linear_grads_match_jax_vjp(dtype, N, K):
+    rng = np.random.default_rng(6)
+    f = np.float32
+    x = rng.normal(0, 1, (N, K)).astype(f)
+    g = rng.normal(0, 1, (N, K // 2)).astype(f)
+    lnw, lnb = _ln(rng, K)
+    w = (rng.normal(size=(K, K // 2)) * K ** -0.5).astype(f)       # (in, out)
+    jd = JD[dtype]
+    j = lambda a: jnp.asarray(a).astype(jd)
+    ref, vjp = jax.vjp(lambda *a: JM.fused_ln_linear(*a, 1e-6), j(x),
+                       j(lnw)[None], j(lnb)[None], j(w))
+    jg = vjp(j(g))
+    targs = [_t(x, dtype), _t(lnw, dtype), _t(lnb, dtype), _t(w.T, dtype)]
+    before = (TM.fused_ln_linear.launches, TM.ln_linear_bwd.launches)
+    out = TM.ln_linear(*targs)
+    out.backward(_t(g, dtype, grad=False))
+    assert (TM.fused_ln_linear.launches, TM.ln_linear_bwd.launches) == before
+    errs = {n: _rel(a, b) for n, a, b in zip(
+        ["out", "dx", "dlnw", "dlnb", "dw"],
+        [out, targs[0].grad, targs[1].grad, targs[2].grad, targs[3].grad.T],
+        [ref, jg[0], jg[1][0], jg[2][0], jg[3]])}
+    assert max(errs.values()) <= TOL[dtype], errs
+
+
+@pytest.mark.parametrize("act,ln,res,b2", [("gelu", True, True, True),
+                                           ("leaky", False, False, False),
+                                           ("leaky", True, False, True)])
+def test_two_matmul_plain_backward_equals_autograd_float64(act, ln, res, b2):
+    """two_matmul_bwd_ref (written out) against autograd of
+    fused_two_matmul_ref in float64, where its rounding points are the
+    identity: 1e-10 of max|ref| (summation order only)."""
+    rng = np.random.default_rng(8)
+    N, C, Hd = 48, 64, 160
+    O = C if res else 16
+    t = lambda *s: torch.from_numpy(rng.normal(0, 1, s)).requires_grad_()
+    args = [t(N, C), t(C) if ln else None, t(C) if ln else None, t(Hd, C),
+            t(Hd), t(O, Hd), t(O) if b2 else None]
+    g = torch.from_numpy(rng.normal(0, 1, (N, O)))
+    TM.fused_two_matmul_ref(*args, act=act, residual=res).backward(g)
+    got = TM.two_matmul_bwd_ref(*(None if a is None else a.detach()
+                                  for a in args), g, act=act, residual=res)
+    for a, dg in zip(args, got):
+        assert (a is None) == (dg is None)
+        if a is not None:
+            assert dg.dtype == torch.float64
+            assert (dg - a.grad).abs().max() <= 1e-10 * a.grad.abs().max()
+
+
+def test_ln_linear_plain_backward_equals_autograd_float64():
+    rng = np.random.default_rng(9)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 1, s)).requires_grad_()
+    args = [t(40, 128), t(128), t(128), t(64, 128)]
+    g = torch.from_numpy(rng.normal(0, 1, (40, 64)))
+    TM.fused_ln_linear_ref(*args).backward(g)
+    got = TM.ln_linear_bwd_ref(*(a.detach() for a in args), g)
+    for a, dg in zip(args, got):
+        assert (dg - a.grad).abs().max() <= 1e-10 * a.grad.abs().max()
+
+
+def test_backward_wrappers_refuse_other_devices():
+    m = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        TM.two_matmul_bwd(m(16, 96), m(96), m(96), m(384, 96), m(384),
+                          m(96, 384), m(96), m(16, 96), act="gelu",
+                          residual=True)
+    with pytest.raises(ValueError, match="cuda"):
+        TM.ln_linear_bwd(m(16, 384), m(384), m(384), m(192, 384),
+                         m(16, 192))

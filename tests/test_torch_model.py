@@ -85,8 +85,15 @@ def test_apply_model_arity_and_modes(pair):
     out = TT.apply_model(model, xt, torch.from_numpy(t[:1]))
     assert len(out) == 3 and out[1].ndim == 0 and out[2].ndim == 0
     torch.testing.assert_close(out[0], pred)
-    with pytest.raises(NotImplementedError):
-        TT.apply_model(model, xt, mode="train")
+    assert not out[1].requires_grad       # eval runs without autograd
+    # train mode: autograd on, a loss whose backward reaches the weights
+    _, loss, _ = TT.apply_model(model, xt, torch.from_numpy(t[:1]),
+                                mode="train")
+    assert loss.requires_grad and loss.ndim == 0
+    loss.backward()
+    grad = model.layers[0].blocks[1].attn.relative_position_bias_table.grad
+    assert grad is not None and bool(grad.abs().sum() > 0)
+    model.zero_grad(set_to_none=True)
 
 
 @pytest.mark.parametrize("flag", ["swin_v2", "pixel_shuffle",

@@ -12,11 +12,14 @@ replaced by a CUDA kernel written for Hopper (``csrc/``).  It imports
 - ``tulip_tpu_torch.ops``       kernel wrappers: a CPU tensor takes the plain
   PyTorch version, a CUDA tensor launches the kernel (``ops/build.py``
   compiles ``csrc/*.cu`` with ``nvcc`` on first use).
+- ``tulip_tpu_torch.train``     the train step (AdamW over fp32 master
+  weights, bf16 compute) and train_one_epoch.
 - ``tulip_tpu_torch.eval``      the evaluate / MCdrop engines, device
   projections and metrics (chamfer, voxel counts).
-- ``tulip_tpu_torch.parallel``  grid rolls and circular padding.
+- ``tulip_tpu_torch.parallel``  grid rolls and circular padding; the
+  single-process metric reduction.
 - ``tulip_tpu_torch.utils``     weight exchange with the JAX package, the
-  TensorBoard / PLY writers.
+  TensorBoard / PLY writers, the LR schedule and the metric logger.
 """
 
 __version__ = "0.1.0"

@@ -24,24 +24,6 @@
 
 namespace tulip {
 
-constexpr int kHidChunk = 64;
-
-enum Act { kGelu = 0, kLeaky = 1 };
-
-template <int ACT> __device__ __forceinline__ float activate(float h) {
-  if (ACT == kGelu) return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
-  return h >= 0.f ? h : 0.01f * h;
-}
-
-// Stage rows [r0, r0 + 16) of x (N x C) as fp32, zero beyond N.
-template <typename T>
-__device__ void load_rows(const T* x, float* s, long long r0, int N, int C) {
-  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
-    const long long r = r0 + i / C;
-    s[i] = r < N ? to_f(x[r * C + i % C]) : 0.f;
-  }
-}
-
 template <typename T, int ACT>
 __global__ void __launch_bounds__(kThreads) two_matmul_kernel(
     const T* __restrict__ x, T* __restrict__ out, const T* __restrict__ lnw,

@@ -1,0 +1,165 @@
+// Cross-block reductions of the backward kernels: column sums and the
+// token-contracted weight-gradient product.
+//
+// The TPU backward kernels (tulip_tpu/ops/pallas/attn_core.py:_bwd_kernel,
+// mlp.py:_bwd_kernel, mlp.py:_kernel_ln_mm_bwd) accumulate their weight and
+// bias gradients across grid steps in one VMEM block, because the TPU grid
+// runs in order.  CUDA blocks run in no order, so here every producer
+// writes per-block partials and these kernels reduce them in a fixed order:
+// the results are deterministic (no atomics).
+//
+// tulip_colsum: out[m] = sum_r in[r][m] over an (R, M) matrix, fp32 sums.
+//   256-thread blocks of 32 columns x 8 row lanes; a first pass reduces
+//   256 rows per block into a scratch (ceil(R / 256), M), a second pass
+//   reduces those.  Bound: HBM reads of the input (one pass over it).
+// tulip_tn_gemm: part[s][m][n] = sum_{t in split s} A[t][m] B[t][n] for
+//   A (T, M), B (T, N) token-major (dW = dh^T y, g^T a, g^T y), split-K
+//   over the token axis so that enough blocks run (stage 0 has 131,072
+//   tokens against a 384 x 96 output); the splits are then summed by
+//   tulip_colsum.  64 x 64 output tile per block, 4 x 4 per thread, fp32
+//   FMA on the CUDA cores from 16-token slices staged in shared memory.
+//   Bound: the FMA issue rate (each staged value feeds 64 FMAs).
+//   Tensor cores are later work.
+#include "common.cuh"
+
+namespace tulip {
+
+constexpr int kColBlockRows = 256;   // rows per block of the first pass
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) colsum_kernel(
+    const T* __restrict__ in, float* __restrict__ out, long long R, int M,
+    long long rows_per_block) {
+  __shared__ float part[kThreads / 32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const long long m = (long long)blockIdx.x * 32 + tx;
+  const long long r0 = (long long)blockIdx.y * rows_per_block;
+  const long long r1 = min(R, r0 + rows_per_block);
+  float s = 0.f;
+  if (m < M)
+    for (long long r = r0 + ty; r < r1; r += kThreads / 32)
+      s += to_f(in[r * M + m]);
+  part[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && m < M) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) t += part[i][tx];
+    out[(long long)blockIdx.y * M + m] = t;
+  }
+}
+
+template <typename T>
+cudaError_t launch_colsum(const void* in, float* out, float* scratch,
+                          long long R, int M, cudaStream_t stream) {
+  if (R <= 0 || M <= 0) return cudaErrorInvalidValue;
+  const unsigned gx = (unsigned)((M + 31) / 32);
+  if (R <= 2 * kColBlockRows) {
+    colsum_kernel<T><<<dim3(gx, 1), kThreads, 0, stream>>>(
+        static_cast<const T*>(in), out, R, M, R);
+    return cudaGetLastError();
+  }
+  const long long S = (R + kColBlockRows - 1) / kColBlockRows;
+  if (!scratch || S > 65535) return cudaErrorInvalidValue;
+  colsum_kernel<T><<<dim3(gx, (unsigned)S), kThreads, 0, stream>>>(
+      static_cast<const T*>(in), scratch, R, M, kColBlockRows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  colsum_kernel<float><<<dim3(gx, 1), kThreads, 0, stream>>>(scratch, out, S,
+                                                            M, S);
+  return cudaGetLastError();
+}
+
+constexpr int kTT = 16;              // tokens per staged slice
+constexpr int kTile = 64;            // output tile edge
+constexpr int kTileLd = kTile + 4;   // padded row, 16-byte aligned
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) tn_gemm_kernel(
+    const T* __restrict__ A, const T* __restrict__ B,
+    float* __restrict__ part, long long Tt, int M, int N, long long tps) {
+  __shared__ __align__(16) float As[kTT][kTileLd];
+  __shared__ __align__(16) float Bs[kTT][kTileLd];
+  const int tid = threadIdx.x;
+  const int tm = tid / 16, tn = tid % 16;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const long long t0 = (long long)blockIdx.z * tps;
+  const long long t1 = min(Tt, t0 + tps);
+  float acc[4][4] = {};
+  for (long long tt = t0; tt < t1; tt += kTT) {
+    __syncthreads();
+    for (int i = tid; i < kTT * kTile; i += kThreads) {
+      const int k = i / kTile, c = i % kTile;
+      const long long t = tt + k;
+      As[k][c] = (t < t1 && m0 + c < M) ? to_f(A[t * M + m0 + c]) : 0.f;
+      Bs[k][c] = (t < t1 && n0 + c < N) ? to_f(B[t * N + n0 + c]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kTT; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[k][tm * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tn * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    }
+  }
+  float* out = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + tm * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tn * 4 + j;
+      if (n < N) out[(size_t)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_tn_gemm(const void* A, const void* B, float* part,
+                           long long Tt, int M, int N, long long tps,
+                           cudaStream_t stream) {
+  if (Tt <= 0 || M <= 0 || N <= 0 || tps <= 0 || tps % kTT)
+    return cudaErrorInvalidValue;
+  const long long S = (Tt + tps - 1) / tps;
+  if (S > 65535 || (M + kTile - 1) / kTile > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile,
+                  (unsigned)S);
+  tn_gemm_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(A), static_cast<const T*>(B), part, Tt, M, N,
+      tps);
+  return cudaGetLastError();
+}
+
+}  // namespace tulip
+
+// dtype of in (colsum) or of A and B (tn_gemm): 0 fp32, 1 bf16; the
+// outputs and the scratch are fp32
+extern "C" int tulip_colsum(int dtype, const void* in, void* out,
+                            void* scratch, long long R, int M, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<float*>(out);
+  auto sc = static_cast<float*>(scratch);
+  if (dtype == 0) return tulip::launch_colsum<float>(in, o, sc, R, M, s);
+  if (dtype == 1)
+    return tulip::launch_colsum<__nv_bfloat16>(in, o, sc, R, M, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int tulip_tn_gemm(int dtype, const void* A, const void* B,
+                             void* part, long long Tt, int M, int N,
+                             long long tps, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto p = static_cast<float*>(part);
+  if (dtype == 0)
+    return tulip::launch_tn_gemm<float>(A, B, p, Tt, M, N, tps, s);
+  if (dtype == 1)
+    return tulip::launch_tn_gemm<__nv_bfloat16>(A, B, p, Tt, M, N, tps, s);
+  return cudaErrorInvalidValue;
+}

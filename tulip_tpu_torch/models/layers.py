@@ -6,10 +6,13 @@ state-dict names: Linear ``weight`` (out, in), Conv2d ``weight`` OIHW.
 Activations are NHWC.  Matmuls run in the activation dtype; LayerNorm
 statistics and GELU are computed in fp32.
 
-The parameter containers allocate their tensors with ``torch.empty`` and
-draw nothing from any random generator: weights come from
+The parameter containers allocate trainable tensors with ``torch.empty``
+and draw nothing from any random generator: weights come from
 :func:`tulip_tpu_torch.models.tulip.init_params` (explicit
 ``torch.Generator``) or from a checkpoint, through ``load_state_dict``.
+Statistics that are fp32 for fp32 / bf16 inputs stay float64 for float64
+inputs (:func:`wide`), so the plain versions can be checked against
+autograd in float64.
 """
 
 from __future__ import annotations
@@ -35,23 +38,44 @@ def conv1x1(x: torch.Tensor, w: torch.Tensor,
     return linear(x, w.reshape(w.shape[0], w.shape[1]), b)
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """t in the accumulation dtype: fp32, or float64 for a float64 t."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics."""
-    x32 = x.float()
+    x32 = wide(x)
     mean = x32.mean(-1, keepdim=True)
     var = (x32 - mean).square().mean(-1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * w.float() + b.float()).to(x.dtype)
+    return (y * w.to(x32.dtype) + b.to(x32.dtype)).to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU evaluated in fp32."""
-    return F.gelu(x.float()).to(x.dtype)
+    return F.gelu(wide(x)).to(x.dtype)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator],
+              active: bool) -> torch.Tensor:
+    """Per-sample stochastic depth (reference: tulip/model/tulip.py:16-30;
+    tulip_tpu/models/layers.py:drop_path): each sample of the batch is kept
+    with probability 1 - rate and scaled by 1 / (1 - rate), or zeroed.  The
+    draw comes from ``generator``, which lives on x's device."""
+    if not active or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -59,8 +83,7 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _empty(shape, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 class Linear(nn.Module):

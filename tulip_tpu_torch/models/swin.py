@@ -1,9 +1,16 @@
-"""Swin-v1 block (port of tulip_tpu/models/swin.py, inference path).
+"""Swin-v1 block (port of tulip_tpu/models/swin.py:swin_block_v1).
 
-The block is x = x + attn(LN1(x)); x = x + MLP(LN2(x)), as two fused ops:
-the attention half through :func:`tulip_tpu_torch.ops.window_msa.window_msa`
-(the shifted-window roll is addressing inside it) and the MLP half through
-:func:`tulip_tpu_torch.ops.mlp.fused_ln_mlp`.
+The block is x = x + attn(LN1(x)); x = x + MLP(LN2(x)).  Inference runs it
+as two fused ops: the attention half through
+:func:`tulip_tpu_torch.ops.window_msa.window_msa` (the shifted-window roll
+is addressing inside it) and the MLP half through
+:func:`tulip_tpu_torch.ops.mlp.fused_ln_mlp`.  Training follows the JAX
+package's pallas branch (swin.py:609-667): LN1, the qkv linear, the
+differentiable attention core (:func:`~tulip_tpu_torch.ops.attn_core.
+attn_core`, shift as addressing), the proj linear, drop-path and the
+residual; then the MLP half through
+:func:`~tulip_tpu_torch.ops.mlp.two_matmul` without its residual, drop-path
+and the residual.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ import torch
 from torch import nn
 
 from ..config import StageConfig
-from ..ops.mlp import fused_ln_mlp
+from ..ops.attn_core import attn_core
+from ..ops.mlp import fused_ln_mlp, two_matmul
 from ..ops.window_msa import window_msa
 from . import layers as L
 
@@ -58,7 +66,7 @@ class WindowAttention(nn.Module):
         self.proj = L.Linear(dim, dim, True, device=device, dtype=dtype)
         self.relative_position_bias_table = nn.Parameter(
             torch.empty((2 * wh - 1) * (2 * ww - 1), st.num_heads,
-                        device=device, dtype=dtype), requires_grad=False)
+                        device=device, dtype=dtype))
         self.register_buffer("relative_position_index",
                              torch.as_tensor(st.rel_index, device=device),
                              persistent=False)
@@ -79,8 +87,9 @@ class Mlp(nn.Module):
 
 
 class SwinBlockV1(nn.Module):
-    """Pre-norm Swin block (reference: tulip/model/tulip.py:326-352),
-    inference only: drop-path and dropout are the identity."""
+    """Pre-norm Swin block (reference: tulip/model/tulip.py:326-352).
+    Dropout is the identity (the shipped rates are 0); drop-path is active
+    in training only."""
 
     def __init__(self, dim: int, st: BlockStatic, config_window,
                  mlp_ratio: float, qkv_bias: bool, eps: float, *,
@@ -97,7 +106,10 @@ class SwinBlockV1(nn.Module):
                                                             device=device)
         self.register_buffer("attn_mask", mask, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train:
+            return self._forward_train(x, generator)
         d = x.dtype
         a = self.attn
         cast = lambda t: t.to(d)
@@ -114,3 +126,21 @@ class SwinBlockV1(nn.Module):
             cast(m.fc1.weight), cast(m.fc1.bias), cast(m.fc2.weight),
             cast(m.fc2.bias), eps=self.eps)
         return y.reshape(B, H, W, C)
+
+    def _forward_train(self, x: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        B, H, W, C = x.shape
+        d, rate = x.dtype, self.st.drop_path
+        a, m = self.attn, self.mlp
+        mask = None if self.attn_mask is None else self.attn_mask.float()
+        y = L.layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps)
+        qkv = L.linear(y, a.qkv.weight, a.qkv.bias)
+        y = attn_core(qkv, a.gathered_bias(), mask, window=self.st.window,
+                      shift=self.st.shift)
+        y = L.linear(y, a.proj.weight, a.proj.bias)
+        x = x + L.drop_path(y, rate, generator, True)
+        y = two_matmul(
+            x.reshape(-1, C), self.norm2.weight.to(d), self.norm2.bias.to(d),
+            m.fc1.weight.to(d), m.fc1.bias.to(d), m.fc2.weight.to(d),
+            m.fc2.bias.to(d), act="gelu", residual=False, eps=self.eps)
+        return x + L.drop_path(y.reshape(B, H, W, C), rate, generator, True)

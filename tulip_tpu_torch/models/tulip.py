@@ -1,4 +1,4 @@
-"""TULIP Swin U-Net inference forward (port of tulip_tpu/models/tulip.py).
+"""TULIP Swin U-Net forward (port of tulip_tpu/models/tulip.py).
 
 Architecture (base, DurLAR config): (B,1,32,2048) -> circular patch embed
 (1,4) -> token grid 32x512x96 -> 4 encoder stages with patch merging ->
@@ -10,6 +10,12 @@ Parameter names are the reference state-dict keys, in torch layouts, so
 ``load_state_dict(strict=True)`` takes a reference checkpoint or the JAX
 package's weights (``tulip_tpu_torch.utils.checkpoint``).  Activations are
 NHWC inside the model; :func:`apply_model` takes and returns NCHW.
+
+``apply_model(mode="train")`` runs with autograd on: drop-path is active,
+the attention core, the MLP halves, the merges and the head are
+``torch.autograd.Function``s over the CUDA kernels (forward and backward);
+the patch-embed im2col, the skip-fuse linears, the unmerging 1x1 convs and
+the loss are plain autograd.
 
 Only the configuration the shipped scripts use is ported:
 ``--pixel_shuffle --circular_padding --patch_unmerging`` with Swin-v1
@@ -24,7 +30,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig, model_config
-from ..ops.mlp import fused_ln_linear, fused_two_matmul
+from ..ops.mlp import ln_linear, two_matmul
 from ..parallel.halo import circular_pad_w
 from . import layers as L
 from .swin import SwinBlockV1, make_block_static
@@ -106,8 +112,8 @@ class PatchMerging(nn.Module):
         x = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 4, 2, 5)
         x = x.reshape(-1, 4 * C)
         d = x.dtype
-        out = fused_ln_linear(x, self.norm.weight.to(d), self.norm.bias.to(d),
-                              self.reduction.weight.to(d), eps=self.eps)
+        out = ln_linear(x, self.norm.weight.to(d), self.norm.bias.to(d),
+                        self.reduction.weight.to(d), eps=self.eps)
         return out.reshape(B, H // 2, W // 2, 2 * C)
 
 
@@ -133,9 +139,9 @@ class Stage(nn.Module):
                         cfg.layer_norm_eps, device=device, dtype=dtype)
             for j in range(stage.depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, **kw) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, **kw)
         return x
 
 
@@ -194,29 +200,32 @@ class TULIP(nn.Module):
         rows = torch.arange(C * r2, device=x.device)
         w2 = torch.zeros(r2, C * r2, device=x.device, dtype=d)
         w2[rows % r2, rows] = wpred.repeat_interleave(r2)
-        out = fused_two_matmul(
+        out = two_matmul(
             x.reshape(-1, C), self.norm_up.weight.to(d),
             self.norm_up.bias.to(d), w1, conv.bias.to(d), w2, None,
             act="leaky", residual=False, eps=self.cfg.layer_norm_eps)
         out = out.reshape(B, H, W, s, s).permute(0, 1, 3, 2, 4)
         return out.reshape(B, H * s, W * s, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """NHWC input image -> NHWC prediction (reference: TULIP.forward,
-        tulip.py:702-731)."""
+        tulip.py:702-731).  ``train`` selects the blocks' training path
+        (drop-path drawn from ``generator``)."""
         n = self.cfg.num_layers
+        kw = dict(train=train, generator=generator)
         x = self.patch_embed(x)
         x_save = []
         for i, stage in enumerate(self.layers):
             x_save.append(x)
-            x = stage(x)
+            x = stage(x, **kw)
             if i < n - 1:
                 x = stage.downsample(x)
         x = self.first_patch_expanding(x)
         for i, stage in enumerate(self.layers_up):
             x = torch.cat([x, x_save[n - i - 2]], dim=-1)
             x = self.skip_connection_layers[i](x)
-            x = stage(x)
+            x = stage(x, **kw)
             if i < n - 2:
                 x = stage.upsample(x)
         return self._head(x)
@@ -237,23 +246,25 @@ def forward_loss(pred: torch.Tensor, target: torch.Tensor,
 
 def apply_model(model: TULIP, x: torch.Tensor,
                 target: Optional[torch.Tensor] = None, *, mode: str = "eval",
-                mc_drop: bool = False, compute_dtype=torch.float32):
+                mc_drop: bool = False, compute_dtype=torch.float32,
+                generator: Optional[torch.Generator] = None):
     """Public forward.  ``x``/``target`` are NCHW.  ``mode`` 'eval' is
     deterministic; 'mc' is model.eval() + active dropout, which is the
-    identity at the shipped rates of 0.  Returns pred (NCHW) if
-    ``mc_drop`` else (pred, total_loss, pixel_loss), as
-    tulip_tpu.models.tulip.apply_model does."""
+    identity at the shipped rates of 0; 'train' runs with autograd on and
+    drop-path active, drawn from ``generator`` (on x's device; None turns
+    drop-path off).  Returns pred (NCHW) if ``mc_drop`` else (pred,
+    total_loss, pixel_loss), as tulip_tpu.models.tulip.apply_model does."""
     cfg = model.cfg
-    if mode == "train":
-        raise NotImplementedError("training (drop-path) is not ported yet")
-    if mode not in ("eval", "mc"):
+    if mode not in ("train", "eval", "mc"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "mc" and (cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0):
+    if mode != "eval" and (cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0):
         raise NotImplementedError("active dropout at a non-zero rate is not "
                                   "ported yet")
-    with torch.no_grad():
+    train = mode == "train"
+    with torch.set_grad_enabled(train):
         xh = x.permute(0, 2, 3, 1).to(compute_dtype).contiguous()
-        pred = model(xh).permute(0, 3, 1, 2)
+        pred = model(xh, train=train,
+                     generator=generator).permute(0, 3, 1, 2)
     if mc_drop:
         return pred
     total_loss, pixel_loss = forward_loss(pred, target, cfg.log_transform)

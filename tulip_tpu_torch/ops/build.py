@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``tulip_tpu_torch/csrc``.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``.  The
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/tulip_tpu_torch/`` under the repository root, named
 by a hash of the sources and flags, so an edited source is rebuilt on first
 use and an unchanged one is loaded as it is.
@@ -26,9 +27,10 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tulip_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: every one returns cudaGetLastError() after its launch
 SIGNATURES = {
     # dtype, x, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask,
@@ -45,6 +47,21 @@ SIGNATURES = {
     "tulip_nn_h": [_P] * 5 + [_I] * 4 + [_P],
     # a_s, b_s, lb_sorted, order, out_a, out_b, N, M, chunk, tile, stream
     "tulip_nn_h2": [_P] * 6 + [_I] * 4 + [_P],
+    # dtype, qkv, out, bias, mask, B, H, W, C, nh, wh, ww, sh, sw, scale,
+    # stream
+    "tulip_attn_fwd": [_I] + [_P] * 4 + [_I] * 9 + [_F, _P],
+    # dtype, qkv, dout, dqkv, bias, mask, part, B, H, W, C, nh, wh, ww, sh,
+    # sw, nsplit, scale, stream
+    "tulip_attn_bwd": [_I] + [_P] * 6 + [_I] * 10 + [_F, _P],
+    # dtype, act, x, g, lnw, lnb, w1, b1, w2, dx, y, a, dh, part,
+    # N, C, Hd, O, residual, eps, stream
+    "tulip_two_matmul_bwd": [_I, _I] + [_P] * 12 + [_I] * 5 + [_F, _P],
+    # dtype, x, g, lnw, lnb, w, dx, y, part, N, K, O, eps, stream
+    "tulip_ln_linear_bwd": [_I] + [_P] * 8 + [_I] * 3 + [_F, _P],
+    # dtype, in, out, scratch, R, M, stream
+    "tulip_colsum": [_I] + [_P] * 3 + [_L, _I, _P],
+    # dtype, A, B, part, T, M, N, tokens per split, stream
+    "tulip_tn_gemm": [_I] + [_P] * 3 + [_L, _I, _I, _L, _P],
 }
 
 _lock = threading.Lock()
@@ -84,18 +101,34 @@ def library_path() -> Path:
 
 
 def _compile(out: Path) -> None:
+    """One nvcc per source, all running at once, then one link."""
     global build_seconds, build_log
     nvcc = find_nvcc()
     cu, _ = _sources()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    obj_dir = out.with_suffix(f".{os.getpid()}.obj")
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    objs = [obj_dir / f"{f.stem}.o" for f in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for f, o in zip(cu, objs)]
+    logs = [f"== {f.name}\n{p.communicate()[0]}" for f, p in zip(cu, procs)]
+    failed = [f.name for f, p in zip(cu, procs) if p.returncode != 0]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "\n".join(logs)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)
 
 

@@ -14,7 +14,7 @@ Phases, one line or more each; any failure raises and exits non-zero:
    kernels (K5, K6, K7; fp32) on 262,144-point clouds of a synthetic DurLAR
    scan and a perturbed copy, and on a ragged, a uniform and a degenerate
    cloud: each against its plain version and against K7.
-4. main path: a synthetic DurLAR folder read by tulip_tpu.data, TULIP-base
+4. main path: a synthetic DurLAR folder read by tulip_tpu_torch.data, TULIP-base
    32x2048 -> 128x2048 with random weights from a seeded generator, bf16
    forwards through apply_model at batches 1, 4 and 8; launches per forward,
    finite pred / loss / pixel_loss, forward img/s (median of timed runs).
@@ -40,6 +40,37 @@ Phases, one line or more each; any failure raises and exits non-zero:
    relative and each parameter's gradient within 1e-3 of its max|ref|;
    bf16 loss within 3e-2 and the flattened gradient's cosine >= 0.99.
 
+8. the command line: a synthetic DurLAR folder (16 train, 4 val scans),
+   then tulip_tpu_torch.main_lidar_upsampling.main with the flags of
+   bash_scripts/tulip_upsampling_durlar.sh (batch 8, bf16, lr 5e-4, wd
+   0.01) and TULIP_TPU_LN_PALLAS=1: --epochs 2 (finite train_loss in both
+   log.txt lines, both checkpoints, the launches per step of K14, K15, K8,
+   K9, K3, K10, K4, K11); an uninterrupted --epochs 3 run and its third
+   epoch again from its own checkpoint-1.pth with --resume (prints "With
+   optim & sched!", starts at epoch 2, the same loss, weights and moments);
+   --eval with --output_dir at the .pth and at the directory (results.txt:
+   six keys, four finite values each, one K5 launch per sample) and --eval
+   --mc_drop (results_mcdrop.txt); one forward of those weights at batch 2
+   with TULIP_TPU_MSA_GROUPED=1 (14 launches of K12) and one with
+   TULIP_TPU_MSA_NAT=1 (6 launches of K13), each pred within 2e-2 of the
+   default path's max; the module in a process of its own (python3 -m ...
+   --epochs 1, exit code 0); and the train step's median ms with and
+   without TULIP_TPU_LN_PALLAS=1.
+
+Phase 3 also holds K12 (the grouped window-major entry, four stages,
+shifted and not) and K13 (the natural row-strip entry, the stages with more
+than 8 heads) at batch 2, and K14 / K15 (LayerNorm forward and backward: y,
+dx, dw, db) at the four norm1 shapes of the batch-8 train step, against
+their plain versions; beside K14 / K15 it times F.layer_norm and its
+backward, beside K8 / K9 F.scaled_dot_product_attention and its backward,
+on the same tensors (the library call: a yardstick, used nowhere in the
+port).  Every case also gets its bound: the larger of its bytes over 3.35
+TB/s and its operations over the H100's peak for the type.  The two
+skipping nearest-neighbour searches (K5, K6) are bound by their bytes; the
+brute-force one (K7) by its N x M pairs.  How many pairs an exact tiled
+sweep of the run's clouds cannot skip is printed apart, as the
+"nn_needed_pair_share" line: a diagnostic, no part of a bound.
+
 Phase 3 also holds the training kernels against their plain versions at
 the train step's shapes (batch 8): K8 (attention core forward) and K9 (its
 backward: dqkv, dbias) at the four stages, shifted and unshifted; K10 (the
@@ -48,7 +79,9 @@ widths and the head; K11 (LN + matmul backward: dx, dlnw, dlnb, dW) at the
 three merges; every output within the bf16 / fp32 limits of its own
 max|ref|.
 
-Then one JSON line with the per-kernel results and, last, the device line
+Then one JSON line with the per-kernel results of all fifteen kernels
+(launches on the main paths, error, kernel / plain / library ms, bound) and,
+last, the device line
 {"ok": true, "device": {...}}.  The card's machine has no JAX: nothing here
 imports it.
 """
@@ -102,9 +135,22 @@ SOURCES = {
                        {"K10": "tulip_tpu/ops/pallas/mlp.py:184"}),
     "ln_linear_bwd": ("tulip_tpu_torch/csrc/mlp_bwd.cu",
                       {"K11": "tulip_tpu/ops/pallas/mlp.py:351"}),
+    "window_msa_grouped": ("tulip_tpu_torch/csrc/window_msa.cu",
+                           {"K12": "tulip_tpu/ops/pallas/window_msa.py:96"}),
+    "window_msa_nat": ("tulip_tpu_torch/csrc/window_msa.cu",
+                       {"K13": "tulip_tpu/ops/pallas/window_msa.py:531"}),
+    "ln_fwd": ("tulip_tpu_torch/csrc/ln.cu",
+               {"K14": "tulip_tpu/ops/pallas/ln.py:44"}),
+    "ln_bwd": ("tulip_tpu_torch/csrc/ln.cu",
+               {"K15": "tulip_tpu/ops/pallas/ln.py:53"}),
 }
 TRAIN_KERNELS = ("attn_core_fwd", "attn_core_bwd", "two_matmul_bwd",
                  "ln_linear_bwd")
+CLI_KERNELS = ("window_msa_grouped", "window_msa_nat", "ln_fwd", "ln_bwd")
+# launches per train step of the command line with TULIP_TPU_LN_PALLAS=1
+PER_STEP_CLI = dict(PER_STEP, ln_fwd=14, ln_bwd=14)
+CLI_BATCH, CLI_TRAIN, CLI_VAL = 8, 16, 4
+PAIR_OPS = 8   # operations per point pair of a nearest-neighbour sweep
 # chamfer kernels against their plain versions: the kernel fuses two FMAs
 # where the plain version rounds each product and sum, <= 2 ulp (1.2e-7
 # relative) of each squared distance; the limit leaves room for that
@@ -127,6 +173,66 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
         events.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+# published peaks of one H100 SXM: dense bf16 tensor cores, fp32 outside
+# them, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(nbytes, flops, dtype):
+    """(least ms the card could take, what binds): the larger of bytes over
+    the memory rate (each input read once, each output written once) and
+    operations over the peak rate of the type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def work_msa(T, C, nh, n_mask, e):
+    """(bytes, flops) of one attention half-block over T tokens: x in, out;
+    the four weights; bias and mask tables; qkv + proj products and the two
+    16 x 16 x 32 products per head and window."""
+    return (2 * T * C * e + (4 * C * C + 6 * C) * e + (nh + n_mask) * 1024,
+            T * (8 * C * C + 64 * C))
+
+
+def work_two_matmul(N, C, Hd, O, e):
+    return ((N * C + N * O + Hd * C + Hd + O * Hd + O + 2 * C) * e,
+            2 * N * Hd * (C + O))
+
+
+def work_ln_linear(N, K, O, e):
+    return (N * K + N * O + O * K + 2 * K) * e, 2 * N * K * O
+
+
+def work_attn(T, C, nh, n_mask, e, backward):
+    """Attention core: qkv in, out; backward also dout in and dqkv, dbias
+    out, and five 16 x 16 x 32 products per head and window for two."""
+    tables = (nh + n_mask) * 1024
+    if backward:
+        return 7 * T * C * e + tables + nh * 1024, 160 * T * C
+    return 4 * T * C * e + tables, 64 * T * C
+
+
+def work_two_matmul_bwd(N, C, Hd, O, e):
+    """x, g in; dx out; both weights in; every gradient out in fp32; the
+    hidden recomputed, da, dW2, dy, dW1."""
+    return ((2 * N * C + N * O + Hd * C + O * Hd) * e
+            + (Hd * C + O * Hd + Hd + O + 2 * C) * 4,
+            2 * N * Hd * (3 * C + 2 * O))
+
+
+def work_ln_linear_bwd(N, K, O, e):
+    return ((2 * N * K + N * O + O * K) * e + (O * K + 2 * K) * 4,
+            4 * N * K * O)
+
+
+def work_ln(N, C, e, backward):
+    if backward:
+        return 3 * N * C * e + 12 * C, 14 * N * C
+    return 2 * N * C * e + 8 * C, 8 * N * C
 
 
 def rel_err(torch, out, ref):
@@ -157,9 +263,11 @@ def compare(torch, out, ref):
 
 
 def kernel_cases(torch, device, batch=2, stages=STAGES):
-    """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path) at the
-    main path's shapes (on_path False for a case the forward never runs),
-    with inputs drawn from one seeded generator."""
+    """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path, extra)
+    at the main path's shapes (on_path False for a case the forward never
+    runs), with inputs drawn from one seeded generator.  extra: work =
+    (bytes, flops) of the case and, where one PyTorch call computes the
+    same function, library = that call."""
     from tulip_tpu_torch.models import layers as L
     from tulip_tpu_torch.ops import mlp, window_msa as wm
 
@@ -172,6 +280,7 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         to = lambda t: t.to(device=device, dtype=dtype)
+        e = 2 if dtype == torch.bfloat16 else 4
         for (H, W), C, nh in stages:
             for shifted in (False, True):
                 shift = (1, 4) if shifted else (0, 0)
@@ -196,7 +305,10 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                     lambda x=x, a=args, b=bias, m=mask, kw=kw:
                         wm.window_msa(x, *a, b, m, **kw),
                     lambda x=x, a=args, b=bias, m=mask, kw=kw:
-                        wm.window_msa_ref(x, *a, b, m, **kw), True))
+                        wm.window_msa_ref(x, *a, b, m, **kw), True,
+                    dict(work=work_msa(
+                        batch * H * W, C, nh,
+                        0 if mask is None else mask.shape[0], e))))
         for (H, W), C, nh in stages:
             N = batch * H * W
             x = to(rn(N, C))
@@ -209,7 +321,8 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                 f"two_matmul K3 {dn} mlp N={N} C={C} Hd={4 * C}",
                 lambda x=x, a=args: mlp.fused_ln_mlp(x, *a),
                 lambda x=x, a=args: mlp.fused_two_matmul_ref(
-                    x, *a, act="gelu", residual=True), True))
+                    x, *a, act="gelu", residual=True), True,
+                dict(work=work_two_matmul(N, C, 4 * C, C, e))))
         # the folded norm_up + ps_head + decoder_pred head (tulip._head)
         N, C = batch * 32 * 512, 96
         rows = torch.arange(C * 16)
@@ -225,7 +338,7 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                       lambda x=x, a=args: mlp.fused_two_matmul(x, *a, **hk),
                       lambda x=x, a=args: mlp.fused_two_matmul_ref(x, *a,
                                                                    **hk),
-                      True))
+                      True, dict(work=work_two_matmul(N, C, 16 * C, 16, e))))
         # the same without the LayerNorm (lnw=None), a path of K3's API
         nln = [None, None] + args[2:]
         cases.append(("two_matmul", "K3",
@@ -233,7 +346,7 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                       lambda x=x, a=nln: mlp.fused_two_matmul(x, *a, **hk),
                       lambda x=x, a=nln: mlp.fused_two_matmul_ref(x, *a,
                                                                   **hk),
-                      False))
+                      False, dict(work=work_two_matmul(N, C, 16 * C, 16, e))))
         # ragged token counts (N % 16 != 0): the row masking of both kernels
         N, C = 1000, 96
         x = to(rn(N, C))
@@ -244,7 +357,8 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                       f"two_matmul K3 {dn} ragged N={N} C={C} Hd={4 * C}",
                       lambda x=x, a=args: mlp.fused_ln_mlp(x, *a),
                       lambda x=x, a=args: mlp.fused_two_matmul_ref(
-                          x, *a, act="gelu", residual=True), False))
+                          x, *a, act="gelu", residual=True), False,
+                      dict(work=work_two_matmul(N, C, 4 * C, C, e))))
         merges = [(batch * (H // 2) * (W // 2), 4 * C, True)
                   for (H, W), C, nh in stages[:-1]] + [(1000, 384, False)]
         for N, K, on_path in merges:
@@ -256,7 +370,7 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                           f"ln_linear K4 {dn} {what} N={N} K={K} O={K // 2}",
                           lambda x=x, a=args: mlp.fused_ln_linear(x, *a),
                           lambda x=x, a=args: mlp.fused_ln_linear_ref(x, *a),
-                          on_path))
+                          on_path, dict(work=work_ln_linear(N, K, K // 2, e))))
     return cases
 
 
@@ -284,9 +398,14 @@ def kink_guard(torch, x, args, gr, to, rn):
 
 
 def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
-    """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path) for
-    K8-K11 at the train step's shapes; the backward cases return every
-    gradient output."""
+    """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path, extra)
+    for K8-K11 at the train step's shapes; the backward cases return every
+    gradient output.  The library call beside K8 / K9 is
+    F.scaled_dot_product_attention on the same windows, already split into
+    q, k, v of (windows, heads, 16, 32), with bias + mask as its additive
+    mask, and its backward to q, k, v (not to the bias, which it cannot
+    give): timed here, used nowhere in the port."""
+    import torch.nn.functional as F
     from tulip_tpu_torch.models import layers as L
     from tulip_tpu_torch.ops import attn_core as A, mlp
 
@@ -300,6 +419,7 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         to = lambda t: t.to(device=device, dtype=dtype)
+        e = 2 if dtype == torch.bfloat16 else 4
         for (H, W), C, nh in stages:
             for shifted in (False, True):
                 shift = (1, 4) if shifted else (0, 0)
@@ -313,16 +433,37 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                 what = (f"{dn} B={batch} grid={H}x{W} C={C} nh={nh} "
                         f"shift={shift}")
                 a = (qkv, bias, mask)
+                T, n_mask = batch * H * W, 0 if mask is None else mask.shape[0]
+                # the library call's operands: windows split out beforehand
+                win = (qkv.reshape(batch, H // 2, 2, W // 8, 8, 3, nh, 32)
+                       .permute(5, 0, 1, 3, 6, 2, 4, 7)
+                       .reshape(3, T // 16, nh, 16, 32))
+                q, k, v = (t.contiguous().requires_grad_() for t in win)
+                add = bias[None]
+                if mask is not None:
+                    add = (add + mask[:, None]).repeat(T // 16 // n_mask, 1,
+                                                       1, 1)
+                add = add.to(dtype).contiguous()
+                sdpa = lambda q=q, k=k, v=v, add=add: \
+                    F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+                o = sdpa()
+                do = torch.randn(o.shape, device=device, dtype=dtype)
+                sdpa_bwd = lambda o=o, q=q, k=k, v=v, do=do: \
+                    torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
                 cases.append((
                     "attn_core_fwd", "K8", f"attn_core_fwd K8 {what}",
                     lambda a=a, kw=kw: A.attn_core_fwd(*a, **kw),
-                    lambda a=a, kw=kw: A.attn_core_ref(*a, **kw), True))
+                    lambda a=a, kw=kw: A.attn_core_ref(*a, **kw), True,
+                    dict(work=work_attn(T, C, nh, n_mask, e, False),
+                         library=sdpa)))
                 cases.append((
                     "attn_core_bwd", "K9", f"attn_core_bwd K9 {what}",
                     lambda a=a, d=dout, kw=kw: A.attn_core_bwd(*a, d, **kw),
                     lambda a=a, d=dout, kw=kw: A.attn_core_bwd_ref(*a, d,
                                                                    **kw),
-                    True))
+                    True,
+                    dict(work=work_attn(T, C, nh, n_mask, e, True),
+                         library=sdpa_bwd)))
         mlps = [(batch * H * W, C, 4 * C, C, "gelu", f"mlp C={C}")
                 for (H, W), C, nh in stages]
         mlps.append((batch * 32 * 512, 96, 1536, 16, "leaky", "head C=96"))
@@ -341,7 +482,8 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                 lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd(
                     x, *a, gr, **kw),
                 lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd_ref(
-                    x, *a, gr, **kw), True))
+                    x, *a, gr, **kw), True,
+                dict(work=work_two_matmul_bwd(N, C, Hd, O, e))))
         for (H, W), C, nh in stages[:-1]:
             N, K = batch * (H // 2) * (W // 2), 4 * C
             x, gr = to(rn(N, K)), to(rn(N, K // 2))
@@ -352,8 +494,129 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                 f"ln_linear_bwd K11 {dn} merge N={N} K={K} O={K // 2}",
                 lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd(x, *a, gr),
                 lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd_ref(x, *a, gr),
-                True))
+                True, dict(work=work_ln_linear_bwd(N, K, K // 2, e))))
     return cases
+
+
+def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
+                        stages=STAGES):
+    """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path, extra)
+    for K12 (grouped window-major MSA, all four stages, shifted and not),
+    K13 (natural row-strip MSA, the stages with more than 8 heads) at batch
+    2, and K14 / K15 (LayerNorm forward / backward: y; dx, dw, db) at the
+    four norm1 shapes of the batch-8 train step, with fp32 w and b as the
+    train step holds them.  The library call beside K14 / K15 is
+    F.layer_norm and its backward on the same tensors."""
+    import torch.nn.functional as F
+    from tulip_tpu_torch.models import layers as L
+    from tulip_tpu_torch.ops import ln, window_msa as wm
+
+    g = torch.Generator().manual_seed(2)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    cases = []
+    idx = torch.as_tensor(L.relative_position_index((2, 8))).reshape(-1)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        to = lambda t: t.to(device=device, dtype=dtype)
+        e = 2 if dtype == torch.bfloat16 else 4
+        for (H, W), C, nh in stages:
+            for shifted in (False, True):
+                x = to(rn(batch, H, W, C))
+                args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
+                        to(rn(3 * C, C, scale=C ** -0.5)),
+                        to(rn(3 * C, scale=0.1)),
+                        to(rn(C, C, scale=C ** -0.5)), to(rn(C, scale=0.1))]
+                bias = rn(45, nh, scale=0.5)[idx].reshape(16, 16, nh)
+                bias = bias.permute(2, 0, 1).contiguous().to(device)
+                mask = (torch.as_tensor(L.shift_attention_mask(
+                    (H, W), (2, 8), (1, 4))).to(device) if shifted else None)
+                work = work_msa(batch * H * W, C, nh,
+                                0 if mask is None else mask.shape[0], e)
+                what = (f"{dn} B={batch} grid={H}x{W} C={C} nh={nh} "
+                        f"{'shifted' if shifted else 'unshifted'}")
+                xg = wm.group_partition(x, (2, 8), 8).contiguous()
+                cases.append((
+                    "window_msa_grouped", "K12",
+                    f"window_msa_grouped K12 {what} xg={tuple(xg.shape)}",
+                    lambda xg=xg, a=args, b=bias, m=mask:
+                        wm.window_msa_grouped(xg, *a, b, m, eps=1e-6),
+                    lambda xg=xg, a=args, b=bias, m=mask:
+                        wm.window_msa_grouped_ref(xg, *a, b, m, eps=1e-6),
+                    True, dict(work=work)))
+                if nh <= 8:
+                    continue
+                x4 = x.reshape(batch * (H // 2), 2, W, C)
+                cases.append((
+                    "window_msa_nat", "K13",
+                    f"window_msa_nat K13 {what} x4={tuple(x4.shape)}",
+                    lambda x4=x4, a=args, b=bias, m=mask, n=H // 2:
+                        wm.window_msa_nat(x4, *a, b, m, nH=n, eps=1e-6),
+                    lambda x4=x4, a=args, b=bias, m=mask, n=H // 2:
+                        wm.window_msa_nat_ref(x4, *a, b, m, nH=n, eps=1e-6),
+                    True, dict(work=work)))
+        for (H, W), C, nh in stages:
+            N = train_batch * H * W
+            x = to(rn(N, C, scale=2.0, shift=0.5))
+            gr = to(rn(N, C))
+            w = rn(C, scale=0.1, shift=1.0).to(device)
+            b = rn(C, scale=0.1).to(device)
+            xl = x.clone().requires_grad_()
+            wl, bl = to(w).requires_grad_(), to(b).requires_grad_()
+            lib_fwd = lambda xl=xl, wl=wl, bl=bl, C=C: F.layer_norm(
+                xl, (C,), wl, bl, 1e-6)
+            yl = lib_fwd()
+            lib_bwd = lambda yl=yl, xl=xl, wl=wl, bl=bl, gr=gr: \
+                torch.autograd.grad(yl, (xl, wl, bl), gr, retain_graph=True)
+            cases.append((
+                "ln_fwd", "K14", f"ln_fwd K14 {dn} N={N} C={C}",
+                lambda x=x, w=w, b=b: ln.ln_fwd(x, w, b, 1e-6),
+                lambda x=x, w=w, b=b: ln.layer_norm_ref(x, w, b, 1e-6),
+                True, dict(work=work_ln(N, C, e, False), library=lib_fwd)))
+            cases.append((
+                "ln_bwd", "K15", f"ln_bwd K15 {dn} N={N} C={C}",
+                lambda x=x, w=w, gr=gr: ln.ln_bwd(x, w, gr, 1e-6),
+                lambda x=x, w=w, gr=gr: ln.layer_norm_bwd_ref(x, w, gr, 1e-6),
+                True, dict(work=work_ln(N, C, e, True), library=lib_bwd)))
+    return cases
+
+
+def check_kernel_cases(torch, cases):
+    """Run each case's kernel and plain version once and compare, then time
+    both (and the library call, where the case has one) with CUDA events.
+    Returns the table rows; prints one line per case."""
+    table = []
+    for kernel, knum, label, kfn, pfn, on_path, extra, iters in cases:
+        out = kfn()
+        ref = pfn()
+        torch.cuda.synchronize()
+        errs, abs_err = compare(torch, out, ref)
+        err = max(errs.values())
+        dn = str((out[0] if isinstance(out, tuple) else out).dtype)
+        dn = dn.replace("torch.", "")
+        del out, ref
+        ms = cuda_ms(torch, kfn, iters=iters)
+        plain_ms = cuda_ms(torch, pfn, iters=iters)
+        lib = extra.get("library")
+        library_ms = None if lib is None else cuda_ms(torch, lib, iters=iters)
+        nbytes, flops = extra["work"]
+        b_ms, b_by = bound_ms(nbytes, flops, dn)
+        ok = err <= TOL[dn]
+        table.append(dict(kernel=kernel, knum=knum, label=label, dtype=dn,
+                          on_path=on_path, errs=errs,
+                          max_abs_err_rel=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bytes=nbytes, flops=flops,
+                          bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=abs_err, ok=ok))
+        each = "" if len(errs) == 1 else f" (outputs {list(errs.values())})"
+        libs = "" if library_ms is None else f" library {library_ms:.4f} ms"
+        print(f"kernel {'ok ' if ok else 'BAD'} {label}: err/max|ref| "
+              f"{err:.3e}{each} (limit {TOL[dn]:.0e}) kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms{libs} bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    return table
 
 
 def timed_once(torch, fn):
@@ -395,6 +658,54 @@ def chamfer_clouds(torch, device):
             ("degenerate all-equal N=M=8192", same, same, 8192, False)]
 
 
+def morton_order(torch, p, lo, hi):
+    """Permutation that sorts the points of p along a 30-bit Morton curve
+    over the box lo..hi."""
+    q = ((p - lo) / (hi - lo).clamp_min(1e-12) * 1023).clamp(0, 1023).long()
+
+    def spread(v):   # 10 bits, two zero bits between neighbours
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
+
+    return (spread(q[:, 0]) | spread(q[:, 1]) << 1
+            | spread(q[:, 2]) << 2).argsort()
+
+
+def needed_pair_share(torch, a, b, d_a, d_b=None, tile=256, chunk=1024):
+    """Share of all point pairs that an exact sweep over Morton-ordered tiles
+    of `tile` queries and `chunk` targets has to evaluate: a (tile, chunk)
+    pair is needed when the gap between the two bounding boxes is no larger
+    than the tile's worst true minimum d_a (or, for both directions, the
+    chunk's worst d_b), so that no box bound could skip it.  A diagnostic
+    of the clouds: it reads the inputs and the plain version's minima,
+    neither a kernel's output nor the tiling a kernel uses."""
+    both = torch.cat([a, b])
+    lo, hi = both.amin(0), both.amax(0)
+
+    def boxes(p, d, size):
+        order = morton_order(torch, p, lo, hi)
+        p, d = p[order], d[order]
+        pad = (-p.shape[0]) % size
+        if pad:
+            p = torch.cat([p, p[-1:].expand(pad, 3)])
+            d = torch.cat([d, d[-1:].expand(pad)])
+        p = p.reshape(-1, size, 3)
+        return p.amin(1), p.amax(1), d.reshape(-1, size).amax(1)
+
+    lo_a, hi_a, worst_a = boxes(a, d_a, tile)
+    lo_b, hi_b, worst_b = boxes(
+        b, d_b if d_b is not None else b.new_zeros(b.shape[0]), chunk)
+    gap = torch.maximum(lo_b[None] - hi_a[:, None],
+                        lo_a[:, None] - hi_b[None]).clamp_min(0)
+    lb = (gap * gap).sum(-1)
+    need = lb <= worst_a[:, None]
+    if d_b is not None:
+        need |= lb <= worst_b[None, :]
+    return float(need.float().mean())
+
+
 def chamfer_checks(torch, device):
     """Table rows of K5, K6, K7 against their plain versions and against
     K7, with kernel and plain ms (CUDA events) for the on-path clouds."""
@@ -433,7 +744,22 @@ def chamfer_checks(torch, device):
                    "K5": max(float((k5a - ref_a).abs().max()),
                              float((k5b - ref_b).abs().max()))}
         times = {"K7": (None, None), "K6": (None, None), "K5": (None, None)}
+        work = {}
         if on_path:
+            N, M = a.shape[0], b.shape[0]
+            # bytes: both clouds in, the minima out.  Operations: brute
+            # force is all N x M pairs by definition; the two skipping
+            # searches need at least one pair per minimum they return, so
+            # their bound is the bytes'
+            work = {"K7": ((N + M) * 12 + N * 4, N * M * PAIR_OPS),
+                    "K6": ((N + M) * 12 + N * 4, N * PAIR_OPS),
+                    "K5": ((N + M) * 16, (N + M) * PAIR_OPS)}
+            print(json.dumps({"nn_needed_pair_share": {
+                "one direction (K6)": needed_pair_share(torch, a, b, ref_a),
+                "both directions (K5)": needed_pair_share(torch, a, b, ref_a,
+                                                          ref_b),
+                "tiling": "Morton order, 256 queries x 1024 targets",
+                "clouds": label}}), flush=True)
             _, plain7 = timed_once(
                 torch, lambda: C.min_sq_dists_plain(a, b, c7))
             times = {
@@ -451,10 +777,16 @@ def chamfer_checks(torch, device):
                              label=f"{kernel} {knum} fp32 {label}",
                              on_path=on_path, checks=checks[knum],
                              max_abs_err=abs_err[knum], ms=ms,
-                             plain_ms=plain_ms, ok=worst <= 1.0))
+                             plain_ms=plain_ms, library_ms=None,
+                             ok=worst <= 1.0))
             r = rows[-1]
-            t = ("" if ms is None else
-                 f" kernel {ms:.3f} ms plain {plain_ms:.1f} ms")
+            t = ""
+            if ms is not None:
+                r["bytes"], r["flops"] = work[knum]
+                r["bound_ms"], r["bound_by"] = bound_ms(*work[knum],
+                                                        "float32")
+                t = (f" kernel {ms:.3f} ms plain {plain_ms:.1f} ms bound "
+                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             print(f"kernel {'ok ' if r['ok'] else 'BAD'} {r['label']}: "
                   f"excess over {CHAMFER_RTOL:.0e}|ref|+{CHAMFER_ATOL:.0e} "
                   f"(limit 1) {checks[knum]}, max abs err "
@@ -484,8 +816,8 @@ def write_durlar(root, n, width, split="val"):
 
 
 def load_batches(root, batch, width, split="val"):
-    from tulip_tpu.data import DataLoader
-    from tulip_tpu.data.datasets import build_durlar_upsampling_dataset
+    from tulip_tpu_torch.data import DataLoader
+    from tulip_tpu_torch.data.datasets import build_durlar_upsampling_dataset
     args = types.SimpleNamespace(
         img_size_low_res=[32, width], img_size_high_res=[128, width],
         log_transform=True, roll=False, data_path_low_res=root,
@@ -496,8 +828,13 @@ def load_batches(root, batch, width, split="val"):
 
 def counted():
     """{name: wrapper} of every kernel wrapper with a launch count."""
-    from tulip_tpu_torch.ops import attn_core, chamfer, mlp, window_msa as wm
+    from tulip_tpu_torch.ops import (attn_core, chamfer, ln, mlp,
+                                     window_msa as wm)
     return {"window_msa": wm.window_msa,
+            "window_msa_grouped": wm.window_msa_grouped,
+            "window_msa_nat": wm.window_msa_nat,
+            "ln_fwd": ln.ln_fwd,
+            "ln_bwd": ln.ln_bwd,
             "two_matmul": mlp.fused_two_matmul,
             "ln_linear": mlp.fused_ln_linear,
             "nn_h2": chamfer.min_sq_dists_h2,
@@ -803,6 +1140,298 @@ def run_train_phase(torch, dev, data_root, weights):
     return report
 
 
+class _Tee:
+    """Writes through to a stream and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    @property
+    def text(self):
+        return "".join(self.parts)
+
+
+def cli_flags(data_root, out_dir, *extra, log_dir=None):
+    """The flags of bash_scripts/tulip_upsampling_durlar.sh (and, with
+    --eval, of tulip_evaluation_durlar.sh) on a synthetic folder; the
+    TensorBoard files go to out_dir, or to log_dir where out_dir names a
+    checkpoint file."""
+    return ["--batch_size", str(CLI_BATCH), "--num_workers", "2", "--lr",
+            "5e-4", "--weight_decay", "0.01", "--model_select", "tulip_base",
+            "--pixel_shuffle", "--circular_padding", "--log_transform",
+            "--patch_unmerging", "--dataset_select", "durlar",
+            "--data_path_low_res", data_root, "--data_path_high_res",
+            data_root, "--run_name", "tulip_base", "--wandb_disabled",
+            "--output_dir", out_dir, "--log_dir", log_dir or out_dir,
+            "--img_size_low_res", "32", "2048", "--img_size_high_res", "128",
+            "2048", "--window_size", "2", "8", "--patch_size", "1", "4",
+            "--in_chans", "1", *extra]
+
+
+def run_cli(argv):
+    """The port's entry point on argv, in this process, as its ``cli()``
+    runs it; returns (stdout text, exit code or None).  The entry point
+    patches ``print`` to put a timestamp first: undone here, so that this
+    script's own lines stay as they are."""
+    import builtins
+    from tulip_tpu_torch.config import get_args_parser
+    from tulip_tpu_torch.main_lidar_upsampling import main as cli_main
+    args = get_args_parser().parse_args(argv)
+    if args.output_dir and not args.eval:
+        os.makedirs(args.output_dir, exist_ok=True)
+    tee, code = _Tee(sys.stdout), None
+    saved, sys.stdout = (sys.stdout, builtins.print), tee
+    try:
+        cli_main(args)
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.stdout, builtins.print = saved
+    return tee.text, code
+
+
+def run_cli_train(argv):
+    """run_cli for a training run, which returns without an exit code (or
+    with 0): any other code, such as the abort on a non-finite loss, fails
+    the script with the run's output."""
+    text, code = run_cli(argv)
+    if code not in (None, 0):
+        raise SystemExit(f"cli training run exited with {code!r}:\n{text}")
+    return text
+
+
+def read_log(out_dir):
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+def timed_steps(torch, dev, weights, batches, n_steps, ln_kernels):
+    """Median ms of n_steps bf16 train steps of batch TRAIN_BATCH through
+    train_one_epoch (the protocol of phase 7: a synchronise around every
+    step, the first two steps left out), with or without norm1 through the
+    LayerNorm kernels."""
+    from tulip_tpu_torch.models.tulip import tulip_base
+    from tulip_tpu_torch.train.engine import train_one_epoch
+    from tulip_tpu_torch.train.step import make_optimizer, make_train_step
+    if ln_kernels:
+        os.environ["TULIP_TPU_LN_PALLAS"] = "1"
+    else:
+        os.environ.pop("TULIP_TPU_LN_PALLAS", None)
+    model = tulip_base(drop_path_rate=0.1, **FLAGSHIP)
+    model.load_state_dict(weights, strict=True)
+    model = model.to(dev)
+    step = make_train_step(model, make_optimizer(model, 0.01),
+                           compute_dtype=torch.bfloat16)
+    times = []
+
+    def timed_step(low, high, lr, generator):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(low, high, lr, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    args = types.SimpleNamespace(accum_iter=1, lr=5e-4, min_lr=0.0,
+                                 warmup_epochs=60, epochs=600, seed=0,
+                                 log_transform=True)
+    loader = (batches * n_steps)[:n_steps]
+    train_one_epoch(timed_step, loader, 0, device=dev, args=args)
+    os.environ.pop("TULIP_TPU_LN_PALLAS", None)
+    return statistics.median(times[2:]) * 1e3
+
+
+def run_cli_phase(torch, dev, weights):
+    """Phase 8: the command line on the card, through the port's entry
+    point; every run has the counts set to 0 just before it and read just
+    after."""
+    import shutil
+    from tulip_tpu_torch.models.tulip import apply_model, tulip_base
+    from tulip_tpu_torch.utils.checkpoint import load_checkpoint
+
+    root = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data_root = os.path.join(root, "durlar")
+    write_durlar(data_root, CLI_TRAIN, 2048, split="train")
+    write_durlar(data_root, CLI_VAL, 2048, split="val")
+    steps_per_epoch = CLI_TRAIN // CLI_BATCH
+    report = {}
+
+    def check_train(name, out_dir, text, got, epochs, first_epoch=0):
+        n = (epochs - first_epoch) * steps_per_epoch
+        want = {k: v * n for k, v in PER_STEP_CLI.items()}
+        if {k: got[k] for k in want} != want:
+            raise SystemExit(f"cli {name}: launches {got}, expected {want}")
+        log = read_log(out_dir)
+        if ([e["epoch"] for e in log] != list(range(first_epoch, epochs))
+                or not all(math.isfinite(e["train_loss"]) for e in log)):
+            raise SystemExit(f"cli {name}: bad log.txt {log}")
+        for e in range(first_epoch, epochs):
+            if not os.path.exists(os.path.join(out_dir,
+                                               f"checkpoint-{e}.pth")):
+                raise SystemExit(f"cli {name}: no checkpoint-{e}.pth")
+        print(f"cli {name}: {n} steps of batch {CLI_BATCH}, launches/step "
+              f"{ {k: got[k] // n for k in want} }, train_loss "
+              f"{[e['train_loss'] for e in log]}, checkpoints "
+              f"{first_epoch}..{epochs - 1} written", flush=True)
+        return log
+
+    # -- train two epochs with norm1 through the LayerNorm kernels ---------
+    os.environ["TULIP_TPU_LN_PALLAS"] = "1"
+    two = os.path.join(root, "two_epochs")
+    sched = ["--warmup_epochs", "1", "--save_frequency", "1"]
+    reset_counts()
+    text = run_cli_train(cli_flags(data_root, two, "--epochs", "2", *sched))
+    got = counts()
+    check_train("train --epochs 2", two, text, got, 2)
+    report["launches"] = {k: got[k] for k in ("ln_fwd", "ln_bwd")}
+    report["launches_per_step"] = {
+        k: got[k] // (2 * steps_per_epoch) for k in PER_STEP_CLI}
+
+    # -- an uninterrupted run of three epochs, and its third epoch again
+    #    from its own checkpoint-1.pth ------------------------------------
+    whole = os.path.join(root, "three_epochs")
+    reset_counts()
+    text = run_cli_train(cli_flags(data_root, whole, "--epochs", "3", *sched))
+    log_whole = check_train("train --epochs 3", whole, text, counts(), 3)
+    resumed = os.path.join(root, "resumed")
+    reset_counts()
+    text = run_cli_train(cli_flags(
+        data_root, resumed, "--epochs", "3", *sched, "--resume",
+        os.path.join(whole, "checkpoint-1.pth")))
+    log_res = check_train("resume --epochs 3", resumed, text, counts(), 3,
+                          first_epoch=2)
+    if ("With optim & sched!" not in text or "Epoch: [2]" not in text
+            or "Epoch: [1]" in text):
+        raise SystemExit("cli resume: did not restore the optimizer and "
+                         "start at epoch 2")
+    a = torch.load(os.path.join(whole, "checkpoint-2.pth"), weights_only=True)
+    b = torch.load(os.path.join(resumed, "checkpoint-2.pth"),
+                   weights_only=True)
+    diff = max(float((a["model"][k] - b["model"][k]).abs().max())
+               for k in a["model"])
+    mom = max(float((s["exp_avg"] - b["optimizer"]["state"][k]["exp_avg"])
+                    .abs().max())
+              for k, s in a["optimizer"]["state"].items())
+    loss_a, loss_b = log_whole[2]["train_loss"], log_res[0]["train_loss"]
+    print(f"cli resume: prints 'With optim & sched!', starts at epoch 2; "
+          f"epoch-2 train_loss {loss_b!r} vs uninterrupted {loss_a!r}; max "
+          f"|weight diff| {diff:.3e}, max |exp_avg diff| {mom:.3e} (bitwise "
+          f"equal: {diff == 0.0 and mom == 0.0 and loss_a == loss_b})",
+          flush=True)
+    # every kernel of the step sums in a fixed order, so the bits should
+    # agree; the limit below is what a run with restored state must meet
+    # even if a library kernel should sum in another order (a resume that
+    # lost the moments moves each weight by about lr = 5e-4 instead)
+    if not (diff <= 1e-6 and mom <= 1e-6
+            and abs(loss_a - loss_b) <= 1e-5 * abs(loss_a)):
+        raise SystemExit("cli resume does not reproduce the uninterrupted "
+                         "run")
+    report["resume"] = dict(loss=loss_b, loss_uninterrupted=loss_a,
+                            max_weight_diff=diff, max_exp_avg_diff=mom)
+    os.environ.pop("TULIP_TPU_LN_PALLAS")
+
+    # -- eval from the .pth and from the directory, then MC dropout --------
+    def check_eval(name, argv, fname):
+        out = os.path.join(two, fname)
+        if os.path.exists(out):
+            os.remove(out)
+        reset_counts()
+        text, code = run_cli(argv)
+        got = counts()
+        with open(out) as f:
+            res = json.load(f)
+        ok = (code == 0 and sorted(res) == RESULT_KEYS
+              and all(len(v) == CLI_VAL for v in res.values())
+              and all(math.isfinite(x) for v in res.values() for x in v)
+              and got["nn_h2"] == CLI_VAL
+              and got["window_msa"] == PER_FORWARD["window_msa"] * CLI_VAL)
+        print(f"cli {name}: exit {code}, {fname} {len(res['mae'])} samples, "
+              f"K5 launches {got['nn_h2']}, mae {res['mae']}", flush=True)
+        if not ok:
+            raise SystemExit(f"cli {name}: exit {code}, launches {got}, "
+                             f"{fname}: {res}")
+        return text
+
+    ev = ["--eval", "--noise_threshold", "0.0005"]
+    ckpt1 = os.path.join(two, "checkpoint-1.pth")
+    t1 = check_eval("--eval at the .pth",
+                    cli_flags(data_root, ckpt1, *ev, log_dir=two),
+                    "results.txt")
+    t2 = check_eval("--eval at the directory",
+                    cli_flags(data_root, two, *ev), "results.txt")
+    if (f"Resume checkpoint {ckpt1}" not in t1
+            or f"Resume checkpoint {ckpt1}" not in t2):
+        raise SystemExit("cli --eval: checkpoint-1.pth was not the one read")
+    check_eval("--eval --mc_drop",
+               cli_flags(data_root, ckpt1, *ev, "--mc_drop", log_dir=two),
+               "results_mcdrop.txt")
+
+    # -- the two other attention layouts on the trained weights ------------
+    model = tulip_base(**FLAGSHIP)
+    model.load_state_dict(load_checkpoint(ckpt1)["model"], strict=True)
+    model = model.to(device=dev, dtype=torch.bfloat16)
+    low, _ = load_batches(data_root, 2, 2048)[0]
+    x = torch.from_numpy(low["sample"]).to(dev)
+    fwd = lambda: apply_model(model, x, mc_drop=True,
+                              compute_dtype=torch.bfloat16)
+    ref = fwd()
+    report["layouts"] = {}
+    for flag, kernel, want in (
+            ("TULIP_TPU_MSA_GROUPED", "window_msa_grouped",
+             dict(window_msa_grouped=14, window_msa_nat=0, window_msa=0)),
+            ("TULIP_TPU_MSA_NAT", "window_msa_nat",
+             dict(window_msa_grouped=0, window_msa_nat=6, window_msa=8))):
+        os.environ[flag] = "1"
+        reset_counts()
+        pred = fwd()
+        torch.cuda.synchronize()
+        got = counts()
+        os.environ.pop(flag)
+        err = rel_err(torch, pred, ref)
+        print(f"cli weights, batch 2, {flag}=1: launches "
+              f"{ {k: got[k] for k in want} }, pred vs the default path "
+              f"err/max|ref| {err:.3e} (limit 2e-2)", flush=True)
+        if {k: got[k] for k in want} != want or not err <= 2e-2:
+            raise SystemExit(f"{flag}: launches {got}, err {err}")
+        report["launches"][kernel] = got[kernel]
+        report["layouts"][flag] = err
+
+    # -- the command line itself, in a process of its own -------------------
+    sub = os.path.join(root, "subprocess")
+    cmd = [sys.executable, "-m", "tulip_tpu_torch.main_lidar_upsampling",
+           *cli_flags(data_root, sub, "--epochs", "1", *sched)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    print(f"cli subprocess: python3 -m tulip_tpu_torch.main_lidar_upsampling "
+          f"... --epochs 1 exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if proc.returncode != 0 or not os.path.exists(
+            os.path.join(sub, "checkpoint-0.pth")):
+        raise SystemExit("cli subprocess failed:\n" + proc.stdout[-3000:]
+                         + proc.stderr[-3000:])
+
+    # -- the step with and without the LayerNorm kernels --------------------
+    batches = load_batches(data_root, TRAIN_BATCH, 2048, split="train")
+    ms = {False: [], True: []}
+    for on in (False, True, True, False):
+        ms[on].append(timed_steps(torch, dev, weights, batches, 10, on))
+    report["step_ms"] = dict(default=ms[False], ln_kernels=ms[True])
+    print(f"train step, batch {TRAIN_BATCH}, bf16, median ms of 8 timed "
+          f"steps, runs in the order off, on, on, off: default "
+          f"{ms[False][0]:.2f} / {ms[False][1]:.2f}, TULIP_TPU_LN_PALLAS=1 "
+          f"{ms[True][0]:.2f} / {ms[True][1]:.2f}", flush=True)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -840,29 +1469,12 @@ def main() -> int:
     sys.stdout.flush()
 
     # -- 3. kernels vs plain ----------------------------------------------
-    table = []
-    cases = [c + (20,) for c in kernel_cases(torch, dev)]
-    cases += [c + (5,) for c in train_kernel_cases(torch, dev)]
-    for kernel, knum, label, kfn, pfn, on_path, iters in cases:
-        out = kfn()
-        ref = pfn()
-        torch.cuda.synchronize()
-        errs, abs_err = compare(torch, out, ref)
-        err = max(errs.values())
-        dn = str((out[0] if isinstance(out, tuple) else out).dtype)
-        dn = dn.replace("torch.", "")
-        ms = cuda_ms(torch, kfn, iters=iters)
-        plain_ms = cuda_ms(torch, pfn, iters=iters)
-        ok = err <= TOL[dn]
-        table.append(dict(kernel=kernel, knum=knum, label=label, dtype=dn,
-                          on_path=on_path, errs=errs,
-                          max_abs_err_rel=err, ms=ms, plain_ms=plain_ms,
-                          max_abs_err=abs_err, ok=ok))
-        each = "" if len(errs) == 1 else f" (outputs {list(errs.values())})"
-        print(f"kernel {'ok ' if ok else 'BAD'} {label}: err/max|ref| "
-              f"{err:.3e}{each} (limit {TOL[dn]:.0e}) kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms", flush=True)
-        del out, ref
+    table = check_kernel_cases(
+        torch, [c + (10,) for c in kernel_cases(torch, dev)])
+    table += check_kernel_cases(
+        torch, [c + (5,) for c in train_kernel_cases(torch, dev)])
+    table += check_kernel_cases(
+        torch, [c + (10,) for c in layout_and_ln_cases(torch, dev)])
     table += chamfer_checks(torch, dev)
     bad = [r["label"] for r in table if not r["ok"]]
     if bad:
@@ -948,7 +1560,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_report = run_train_phase(torch, dev, data_root, weights)
 
+    # -- 8. the command line -------------------------------------------------
+    torch.cuda.empty_cache()
+    cli_report = run_cli_phase(torch, dev, weights)
+
     # -- summary -----------------------------------------------------------
+    # per kernel: the sums over its bf16 (chamfer: fp32) cases on the path
     kernels = []
     for kernel, (src, knums) in SOURCES.items():
         for knum, replaces in knums.items():
@@ -957,22 +1574,33 @@ def main() -> int:
                     and r["dtype"] == dtype and r["on_path"]]
             n = (eval_report["launches"] if kernel.startswith("nn_")
                  else train_report["launches"] if kernel in TRAIN_KERNELS
+                 else cli_report["launches"] if kernel in CLI_KERNELS
                  else launches)[kernel]
             if kernel == "window_msa":
                 many = launches["window_msa_many_heads"]
                 n = many if knum == "K2" else n - many
+            by = {w: sum(r["bound_ms"] for r in rows if r["bound_by"] == w)
+                  for w in ("bytes", "operations")}
+            libs = [r["library_ms"] for r in rows]
             kernels.append(dict(
                 name=f"{kernel} ({knum})", route="cuda", source=src,
                 replaces=replaces, launches=n,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=sum(r["ms"] for r in rows),
-                plain_ms=sum(r["plain_ms"] for r in rows)))
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(by.values()),
+                bound_by=max(by, key=by.get),
+                library_ms=None if None in libs else sum(libs),
+                cases=len(rows)))
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise SystemExit(f"kernels the main paths never launched: {idle}")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(nvidia_smi=smi_line, device=kind, table=table,
                        img_per_s=throughput, kernels=kernels,
-                       eval=eval_report, train=train_report,
+                       eval=eval_report, train=train_report, cli=cli_report,
                        build=dict(seconds=build_s, nvcc_seconds=nvcc_s),
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)

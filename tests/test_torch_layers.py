@@ -3,6 +3,7 @@ rolls, circular padding, LayerNorm, GELU, weight layouts; plus the port's
 import and dispatch rules (no jax import, no fallback when nvcc is absent,
 no other device than cpu and cuda)."""
 
+import os
 import subprocess
 import sys
 
@@ -92,13 +93,32 @@ def test_init_params_match_jax_keys_and_layouts():
     assert ours["ps_head.conv_expand.0.weight"].shape == (1536, 96, 1, 1)
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# imports every module of the port and chip_smoke, then fails if anything of
+# JAX or of the JAX package came along
+IMPORT_EVERYTHING = """
+import importlib, pkgutil, sys
+import tulip_tpu_torch
+names = ['tulip_tpu_torch', 'chip_smoke'] + [
+    m.name for m in pkgutil.walk_packages(tulip_tpu_torch.__path__,
+                                          'tulip_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k in ('jax', 'jaxlib', 'optax', 'tulip_tpu')
+             or k.startswith(('tulip_tpu.', 'jax.', 'jaxlib.', 'optax.')))
+print(len(names), 'modules imported')
+sys.exit('imported: %s' % bad if bad else 0)
+"""
+
+
 def test_port_imports_no_jax():
-    code = ("import sys, tulip_tpu_torch.models.tulip, "
-            "tulip_tpu_torch.utils.checkpoint; "
-            "sys.exit(1 if 'jax' in sys.modules else 0)")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+    """No module of the port, nor chip_smoke, imports jax, jaxlib, optax or
+    anything of the JAX package, directly or through another module."""
+    proc = subprocess.run([sys.executable, "-c", IMPORT_EVERYTHING], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 30
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -126,3 +126,51 @@ def test_tulip_large_builds_and_runs():
     pred = TT.apply_model(model, torch.rand(1, 1, 32, 512), mode="mc",
                           mc_drop=True)
     assert pred.shape == (1, 1, 128, 512) and bool(torch.isfinite(pred).all())
+
+
+@pytest.mark.parametrize("flag,entry,calls", [
+    ("TULIP_TPU_MSA_GROUPED", "window_msa_grouped", 14),
+    ("TULIP_TPU_MSA_NAT", "window_msa_nat", 6)])
+def test_layout_flags_give_the_default_pred(pair, monkeypatch, flag, entry,
+                                            calls):
+    """With TULIP_TPU_MSA_GROUPED=1 all 14 blocks go through the grouped
+    entry, with TULIP_TPU_MSA_NAT=1 the 6 blocks with more than 8 heads
+    through the natural one; the pred is the default path's (fp32, 1e-5 of
+    max: the same arithmetic per window, other reshapes around it)."""
+    from tulip_tpu_torch.models import swin
+    _, _, model, x, _ = pair
+    xt = torch.from_numpy(x)
+    for k in ("TULIP_TPU_MSA_GROUPED", "TULIP_TPU_MSA_NAT",
+              "TULIP_TPU_MSA_MASKED"):
+        monkeypatch.delenv(k, raising=False)
+    ref = TT.apply_model(model, xt, mode="mc", mc_drop=True)
+    seen = {"window_msa": 0, "window_msa_grouped": 0, "window_msa_nat": 0}
+    for name in seen:
+        orig = getattr(swin, name)
+        monkeypatch.setattr(swin, name, lambda *a, _n=name, _o=orig, **kw: (
+            seen.__setitem__(_n, seen[_n] + 1), _o(*a, **kw))[1])
+    monkeypatch.setenv(flag, "1")
+    pred = TT.apply_model(model, xt, mode="mc", mc_drop=True)
+    assert seen[entry] == calls and sum(seen.values()) == 14
+    assert float((pred - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_layout_dispatch_follows_the_jax_rules(monkeypatch):
+    """swin.py:496-498: NAT wins over GROUPED; with NAT the head-count
+    cutover (8, or TULIP_TPU_MSA_MASKED) keeps the small-head blocks on the
+    default path."""
+    from tulip_tpu_torch.models.swin import msa_layout
+    for k in ("TULIP_TPU_MSA_GROUPED", "TULIP_TPU_MSA_NAT",
+              "TULIP_TPU_MSA_MASKED"):
+        monkeypatch.delenv(k, raising=False)
+    assert [msa_layout(n) for n in (3, 6, 12, 24)] == ["default"] * 4
+    monkeypatch.setenv("TULIP_TPU_MSA_GROUPED", "1")
+    assert [msa_layout(n) for n in (3, 6, 12, 24)] == ["grouped"] * 4
+    monkeypatch.setenv("TULIP_TPU_MSA_NAT", "1")
+    assert [msa_layout(n) for n in (3, 6, 12, 24)] == \
+        ["default", "default", "nat", "nat"]
+    monkeypatch.setenv("TULIP_TPU_MSA_MASKED", "3")
+    assert [msa_layout(n) for n in (3, 6, 12, 24)] == \
+        ["default", "nat", "nat", "nat"]
+    monkeypatch.setenv("TULIP_TPU_MSA_MASKED", "0")
+    assert [msa_layout(n) for n in (3, 6)] == ["nat", "nat"]

@@ -1,7 +1,9 @@
 """The port's window-MSA half-block (tulip_tpu_torch.ops.window_msa) against
 the JAX package's fused half-block, whose Pallas kernels run in interpret
 mode on the CPU: window_msa.py:_kernel_masked_nat for heads <= 8 (K1) and
-window_msa.py:_kernel for heads > 8 (K2).
+window_msa.py:_kernel for heads > 8 (K2); and the two other layouts' entry
+points against theirs: window_msa_grouped against _kernel_masked (K12),
+window_msa_nat against _kernel_nat (K13).
 
 Inputs and weights come from one numpy seed and feed both packages.  The
 limits are relative to max|ref|: 1e-4 in fp32 (summation order only), 2e-2
@@ -106,3 +108,126 @@ def test_kernel_addressing_is_roll_and_partition():
             row = (i * wh + t // ww + sh) % H
             col = (j * ww + t % ww + sw) % W
             assert part[win, t] == row * W + col
+
+
+# ---------------------------------------------------------------------------
+# The grouped and the natural entry points (K12, K13)
+# ---------------------------------------------------------------------------
+
+def _jax_common(p, jd):
+    j = lambda k: jnp.asarray(p[f"b.{k}"]).astype(jd)
+    return (j("norm1.weight").reshape(1, -1), j("norm1.bias").reshape(1, -1),
+            j("attn.qkv.weight"), j("attn.qkv.bias").reshape(1, -1),
+            j("attn.proj.weight"), j("attn.proj.bias").reshape(1, -1))
+
+
+def _bias_big(p, st):
+    """(nh, GL, GL) block-diagonal expansion of the gathered bias, as
+    tulip_tpu/models/swin.py:470-474."""
+    nh = st.num_heads
+    bias = p["b.attn.relative_position_bias_table"][st.rel_index.reshape(-1)]
+    bias = bias.reshape(16, 16, nh).transpose(2, 0, 1)
+    wt = st.win_token
+    return bias[:, wt[:, None], wt[None, :]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,W,C,nh,shifted", [
+    (4, 64, 96, 3, False), (4, 64, 96, 3, True),
+    (4, 32, 192, 6, False), (4, 32, 192, 6, True)])
+def test_grouped_entry_matches_jax_kernel_masked(dtype, H, W, C, nh, shifted):
+    """fused_window_msa with heads <= 8 reaches window_msa.py:_kernel_masked
+    (K12), fed the block-diagonal bias and the -1e9 group mask; the port's
+    window_msa_grouped takes the compact (nh, 16, 16) / (nW, 16, 16) tables.
+    B = 2: the mask of window n is mask[n % nW]."""
+    from tulip_tpu.ops.pallas.window_msa import fused_window_msa
+    B = 2
+    p, x = _case(2, B, H, W, C)
+    stage = StageConfig(dim=C, depth=2, num_heads=nh, grid=(H, W),
+                        window=(2, 8), shift=(1, 4), drop_path=(0.0, 0.0))
+    st = S.make_block_static(stage, int(shifted), (2, 8))
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    G = st.group
+    xt = torch.from_numpy(x).to(td)
+    xg = TW.group_partition(xt, (2, 8), G)
+    assert xg.shape == (B, (H // 2) * (W // 8 // G), G * 16, C)
+    ref = fused_window_msa(
+        jnp.asarray(xg.float().numpy()).astype(jd), *_jax_common(p, jd),
+        jnp.asarray(_bias_big(p, st)), jnp.asarray(st.group_mask), nh=nh,
+        scale_inv_sqrt_hd=32 ** -0.5, eps=1e-6)
+    ref = np.asarray(ref.astype(jnp.float32))
+    args = _port_args(p, td, st)
+    before = TW.window_msa_grouped.launches
+    out = TW.window_msa_grouped(xg, *args, eps=1e-6)
+    assert TW.window_msa_grouped.launches == before
+    assert out.shape == xg.shape and out.dtype == td
+    err = np.abs(out.float().numpy() - ref).max() / np.abs(ref).max()
+    assert err <= TOL[dtype], err
+    # and un-partitioned it is the default entry on the same (rolled) frame
+    back = TW.group_unpartition(out, (H, W), (2, 8), G)
+    same = TW.window_msa(xt, *args, window=(2, 8), shift=(0, 0), eps=1e-6)
+    assert torch.equal(back, same)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_nat_entry_matches_jax_kernel_nat(dtype, shifted):
+    """fused_window_msa_nat with 12 heads reaches window_msa.py:_kernel_nat
+    (K13), fed bias and mask in natural token order; the port's
+    window_msa_nat takes the compact tables."""
+    from tulip_tpu.ops.pallas.attn_core import natural_token_perm
+    from tulip_tpu.ops.pallas.window_msa import fused_window_msa_nat
+    B, H, W, C, nh = 2, 4, 16, 384, 12
+    p, x = _case(3, B, H, W, C)
+    stage = StageConfig(dim=C, depth=2, num_heads=nh, grid=(H, W),
+                        window=(2, 8), shift=(1, 4), drop_path=(0.0, 0.0))
+    st = S.make_block_static(stage, int(shifted), (2, 8))
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    perm = natural_token_perm(2, 8, st.group)
+    bias_nat = _bias_big(p, st)[:, perm[:, None], perm[None, :]]
+    gmask_nat = st.group_mask[:, perm[:, None], perm[None, :]]
+    x4 = x.reshape(B * (H // 2), 2, W, C)
+    ref = fused_window_msa_nat(
+        jnp.asarray(x4).astype(jd), *_jax_common(p, jd),
+        jnp.asarray(bias_nat), jnp.asarray(gmask_nat), nh=nh,
+        scale_inv_sqrt_hd=32 ** -0.5, nH=H // 2, eps=1e-6)
+    ref = np.asarray(ref.astype(jnp.float32))
+    before = TW.window_msa_nat.launches
+    out = TW.window_msa_nat(torch.from_numpy(x4).to(td),
+                            *_port_args(p, td, st), nH=H // 2, eps=1e-6)
+    assert TW.window_msa_nat.launches == before
+    assert out.shape == x4.shape and out.dtype == td
+    err = np.abs(out.float().numpy() - ref).max() / np.abs(ref).max()
+    assert err <= TOL[dtype], err
+
+
+def test_group_partition_is_the_jax_layout_and_inverts():
+    """group_partition is swin.py:514-515; its windows come in the order of
+    the plain window partition, so mask[n % nW] is window n's mask."""
+    B, H, W, C, G = 2, 4, 64, 3, 4
+    ids = torch.arange(B * H * W * C, dtype=torch.float32).reshape(B, H, W, C)
+    xg = TW.group_partition(ids, (2, 8), G)
+    ref = (ids.numpy().reshape(B, H // 2, 2, W // 8 // G, G, 8, C)
+           .transpose(0, 1, 3, 4, 2, 5, 6).reshape(B, -1, G * 16, C))
+    np.testing.assert_array_equal(xg.numpy(), ref)
+    assert torch.equal(TW.group_unpartition(xg, (H, W), (2, 8), G), ids)
+    plain = (ids.reshape(B, H // 2, 2, W // 8, 8, C).permute(0, 1, 3, 2, 4, 5)
+             .reshape(-1, 16, C))
+    assert torch.equal(xg.reshape(-1, 16, C), plain)
+
+
+def test_new_entries_refuse_other_devices_and_bad_shapes():
+    m = lambda *s: torch.empty(*s, device="meta")
+    w = (m(96), m(96), m(288, 96), m(288), m(96, 96), m(96), m(3, 16, 16))
+    with pytest.raises(ValueError, match="cuda"):
+        TW.window_msa_grouped(m(1, 2, 128, 96), *w, None, eps=1e-6)
+    with pytest.raises(ValueError, match="cuda"):
+        TW.window_msa_nat(m(2, 2, 16, 96), *w, None, nH=2, eps=1e-6)
+    z = lambda *s: torch.zeros(*s)
+    wz = (z(96), z(96), z(288, 96), z(288), z(96, 96), z(96), z(3, 16, 16))
+    with pytest.raises(ValueError, match="whole"):
+        TW.window_msa_grouped(z(1, 2, 24, 96), *wz, None, eps=1e-6)
+    with pytest.raises(ValueError, match="whole images"):
+        TW.window_msa_nat(z(3, 2, 16, 96), *wz, None, nH=2, eps=1e-6)

@@ -1,8 +1,19 @@
 // Fused shifted-window MSA half-block: out = x + proj(MSA(LN1(x))).
 //
 // Replaces: tulip_tpu/ops/pallas/window_msa.py:_kernel_masked_nat (heads
-// <= 8) and window_msa.py:_kernel (heads > 8).  One kernel serves both: the
-// TPU kernels differ only in layout and head count.
+// <= 8) and window_msa.py:_kernel (heads > 8), and their layout twins
+// window_msa.py:_kernel_masked (heads <= 8 on the grouped window-major
+// layout) and window_msa.py:_kernel_nat (heads > 8 on natural row strips).
+// One kernel serves all four: the TPU kernels differ only in layout and
+// head count.  Natural row strips (R, wh, W, C) are NHWC memory as it is,
+// so that entry is tulip_window_msa with shift (0, 0), the caller rolling.
+// On the grouped layout a window's 16 tokens are 16 consecutive rows of
+// the token matrix: tulip_window_msa_grouped hands the kernel that
+// addressing as the geometry H = nW windows, W = 16, window (1, 16), no
+// shift, so that token t of window n sits at row n * 16 + t and the
+// window's mask is mask[n % nW].  The TPU kernels' block-diagonal
+// (nh, 128, 128) bias and -1e9 group mask are a layout device and are not
+// taken: bias and mask stay (nh, 16, 16) and (nW, 16, 16).
 //
 // Computes, per 2x8 window of 16 tokens, with q, k, v = LN1(x) Wqkv^T + b:
 //   out = x + proj( concat_h softmax(q_h k_h^T * hd^-1/2 + B_h [+ M_win]) v_h )
@@ -160,6 +171,19 @@ extern "C" int tulip_window_msa(int dtype, const void* x, void* out,
         x, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask, B, H, W, C,
         nh, wh, ww, sh, sw, scale, eps, s);
   return cudaErrorInvalidValue;
+}
+
+// xg: (windows, 16, C) window-major tokens (the (B, nG, 128, C) grouped
+// layout viewed flat), windows % nW == 0; mask (nW, 16, 16) or null
+extern "C" int tulip_window_msa_grouped(
+    int dtype, const void* xg, void* out, const void* lnw, const void* lnb,
+    const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
+    const void* bias, const void* mask, int windows, int nW, int C, int nh,
+    float scale, float eps, void* stream) {
+  if (nW <= 0 || windows <= 0 || windows % nW) return cudaErrorInvalidValue;
+  return tulip_window_msa(dtype, xg, out, lnw, lnb, wqkv, bqkv, wproj, bproj,
+                          bias, mask, windows / nW, nW, tulip::kRows, C, nh, 1,
+                          tulip::kRows, 0, 0, scale, eps, stream);
 }
 
 extern "C" const char* tulip_error_string(int err) {

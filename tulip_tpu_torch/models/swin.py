@@ -11,10 +11,27 @@ attn_core`, shift as addressing), the proj linear, drop-path and the
 residual; then the MLP half through
 :func:`~tulip_tpu_torch.ops.mlp.two_matmul` without its residual, drop-path
 and the residual.
+
+Three environment switches of the JAX package are read with their meaning
+there (default off):
+
+- ``TULIP_TPU_LN_PALLAS=1``: bf16 training takes norm1 through the
+  LayerNorm kernels (:func:`~tulip_tpu_torch.ops.ln.layer_norm_fn`), as
+  swin.py:610-625 takes ``layer_norm_vjp``.
+- ``TULIP_TPU_MSA_GROUPED=1``: inference sends every block's attention
+  half through the grouped window-major layout (roll, partition,
+  :func:`~tulip_tpu_torch.ops.window_msa.window_msa_grouped`, un-partition,
+  roll back), as swin.py:467-522.
+- ``TULIP_TPU_MSA_NAT=1``: inference sends the blocks with more heads than
+  the cutover (8, or ``TULIP_TPU_MSA_MASKED``) through the natural
+  row-strip entry (roll, :func:`~tulip_tpu_torch.ops.window_msa.
+  window_msa_nat`, roll back); the others keep the default path.  It wins
+  over ``TULIP_TPU_MSA_GROUPED``, as there.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -23,9 +40,31 @@ from torch import nn
 
 from ..config import StageConfig
 from ..ops.attn_core import attn_core
+from ..ops.ln import layer_norm_fn
 from ..ops.mlp import fused_ln_mlp, two_matmul
-from ..ops.window_msa import window_msa
+from ..ops.window_msa import (group_partition, group_unpartition, window_msa,
+                              window_msa_grouped, window_msa_nat)
+from ..parallel.halo import roll_hw
 from . import layers as L
+
+GROUP_TARGET = 8   # windows per group of the grouped layout (128 tokens)
+
+
+def _use_masked(nh: int) -> bool:
+    """The JAX package's head-count cutover between its two attention
+    cores (window_msa.py:880-889): heads <= 8, or <= TULIP_TPU_MSA_MASKED."""
+    raw = os.environ.get("TULIP_TPU_MSA_MASKED", "")
+    return nh <= (8 if raw == "" else int(raw))
+
+
+def msa_layout(nh: int) -> str:
+    """Which attention entry inference takes for a block of ``nh`` heads:
+    'default', 'grouped' or 'nat' (the dispatch of swin.py:496-522)."""
+    if os.environ.get("TULIP_TPU_MSA_NAT") == "1":
+        return "default" if _use_masked(nh) else "nat"
+    if os.environ.get("TULIP_TPU_MSA_GROUPED") == "1":
+        return "grouped"
+    return "default"
 
 
 class BlockStatic(NamedTuple):
@@ -111,14 +150,8 @@ class SwinBlockV1(nn.Module):
         if train:
             return self._forward_train(x, generator)
         d = x.dtype
-        a = self.attn
         cast = lambda t: t.to(d)
-        x = window_msa(
-            x, cast(self.norm1.weight), cast(self.norm1.bias),
-            cast(a.qkv.weight), cast(a.qkv.bias), cast(a.proj.weight),
-            cast(a.proj.bias), a.gathered_bias(),
-            None if self.attn_mask is None else self.attn_mask.float(),
-            window=self.st.window, shift=self.st.shift, eps=self.eps)
+        x = self._attention_half(x, cast)
         B, H, W, C = x.shape
         m = self.mlp
         y = fused_ln_mlp(
@@ -127,13 +160,46 @@ class SwinBlockV1(nn.Module):
             cast(m.fc2.bias), eps=self.eps)
         return y.reshape(B, H, W, C)
 
+    def _attention_half(self, x: torch.Tensor, cast) -> torch.Tensor:
+        """x + proj(MSA(LN1(x))) through the entry :func:`msa_layout`
+        names; the three compute the same function."""
+        a, st = self.attn, self.st
+        args = (cast(self.norm1.weight), cast(self.norm1.bias),
+                cast(a.qkv.weight), cast(a.qkv.bias), cast(a.proj.weight),
+                cast(a.proj.bias), a.gathered_bias(),
+                None if self.attn_mask is None else self.attn_mask.float())
+        layout = msa_layout(st.num_heads)
+        if layout == "default":
+            return window_msa(x, *args, window=st.window, shift=st.shift,
+                              eps=self.eps)
+        B, H, W, C = x.shape
+        (wh, ww), (sh, sw) = st.window, st.shift
+        xr = roll_hw(x, -sh, -sw)
+        if layout == "nat":
+            out = window_msa_nat(xr.reshape(B * (H // wh), wh, W, C), *args,
+                                 nH=H // wh, eps=self.eps).reshape(B, H, W, C)
+        else:
+            group = min(GROUP_TARGET, W // ww)
+            while (W // ww) % group:
+                group -= 1
+            xg = group_partition(xr, st.window, group)
+            out = group_unpartition(
+                window_msa_grouped(xg, *args, eps=self.eps), (H, W),
+                st.window, group)
+        return roll_hw(out, sh, sw)
+
     def _forward_train(self, x: torch.Tensor,
                        generator: Optional[torch.Generator]) -> torch.Tensor:
         B, H, W, C = x.shape
         d, rate = x.dtype, self.st.drop_path
         a, m = self.attn, self.mlp
         mask = None if self.attn_mask is None else self.attn_mask.float()
-        y = L.layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps)
+        if (d == torch.bfloat16
+                and os.environ.get("TULIP_TPU_LN_PALLAS") == "1"):
+            y = layer_norm_fn(x.reshape(-1, C), self.norm1.weight,
+                              self.norm1.bias, self.eps).reshape(B, H, W, C)
+        else:
+            y = L.layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps)
         qkv = L.linear(y, a.qkv.weight, a.qkv.bias)
         y = attn_core(qkv, a.gathered_bias(), mask, window=self.st.window,
                       shift=self.st.shift)

@@ -36,6 +36,9 @@ SIGNATURES = {
     # dtype, x, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask,
     # B, H, W, C, nh, wh, ww, sh, sw, scale, eps, stream
     "tulip_window_msa": [_I] + [_P] * 10 + [_I] * 9 + [_F, _F, _P],
+    # dtype, xg, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask,
+    # windows, nW, C, nh, scale, eps, stream
+    "tulip_window_msa_grouped": [_I] + [_P] * 10 + [_I] * 4 + [_F, _F, _P],
     # dtype, act, x, out, lnw, lnb, w1, b1, w2, b2,
     # N, C, Hd, O, residual, eps, stream
     "tulip_two_matmul": [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _P],
@@ -58,6 +61,10 @@ SIGNATURES = {
     "tulip_two_matmul_bwd": [_I, _I] + [_P] * 12 + [_I] * 5 + [_F, _P],
     # dtype, x, g, lnw, lnb, w, dx, y, part, N, K, O, eps, stream
     "tulip_ln_linear_bwd": [_I] + [_P] * 8 + [_I] * 3 + [_F, _P],
+    # dtype, x, w, b, y, N, C, eps, stream
+    "tulip_ln_fwd": [_I] + [_P] * 4 + [_L, _I, _F, _P],
+    # dtype, x, w, g, dx, part, N, C, rows per block, eps, stream
+    "tulip_ln_bwd": [_I] + [_P] * 5 + [_L, _I, _I, _F, _P],
     # dtype, in, out, scratch, R, M, stream
     "tulip_colsum": [_I] + [_P] * 3 + [_L, _I, _P],
     # dtype, A, B, part, T, M, N, tokens per split, stream

@@ -40,7 +40,13 @@ def make_train_step(model: TULIP, opt: torch.optim.Optimizer, *,
     learning rate; generator: the drop-path draws (on the device).  With
     ``accum_iter`` k > 1 the gradient is the mean over k micro-steps and
     the weights move on the k-th only (optax.MultiSteps semantics).  The
-    returned losses are device scalars, not yet read back."""
+    returned losses are device scalars, not yet read back.
+
+    ``step.state_dict()`` / ``step.load_state_dict(d)`` carry the
+    accumulation across a checkpoint: the micro-step counter and the
+    gradient buffer (the parameters' ``.grad``, which holds the sum so far
+    of the micro-steps' gradients over k).  With ``accum_iter`` 1 there is
+    nothing to carry and ``state_dict()`` is None."""
     micro = 0
 
     def step(low, high, lr, generator=None):
@@ -57,4 +63,34 @@ def make_train_step(model: TULIP, opt: torch.optim.Optimizer, *,
             opt.zero_grad(set_to_none=True)
         return total_loss.detach(), pixel_loss.detach()
 
+    def state_dict():
+        if accum_iter == 1:
+            return None
+        return {"micro": micro % accum_iter,
+                "grads": {n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None}}
+
+    def load_state_dict(state):
+        """``state``: a :func:`state_dict`, or {'micro', 'mean_grads'} with
+        the mean of the micro-steps' gradients so far (what
+        optax.MultiSteps keeps), or None."""
+        nonlocal micro
+        opt.zero_grad(set_to_none=True)
+        micro = 0
+        if state is None or accum_iter == 1:
+            return
+        micro = int(state["micro"]) % accum_iter
+        if micro == 0:
+            return
+        grads, scale = state.get("grads"), 1.0
+        if grads is None:
+            grads, scale = state["mean_grads"], micro / accum_iter
+        for n, p in model.named_parameters():
+            if n in grads:
+                p.grad = (grads[n].to(device=p.device, dtype=p.dtype)
+                          * scale)
+
+    step.state_dict = state_dict
+    step.load_state_dict = load_state_dict
     return step

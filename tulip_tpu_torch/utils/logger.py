@@ -10,6 +10,7 @@ slice).
 
 from __future__ import annotations
 
+import builtins
 import datetime
 import time
 from collections import defaultdict, deque
@@ -124,3 +125,20 @@ class MetricLogger:
         print('{} Total time: {} ({:.4f} s / it)'.format(
             header, total_time_str, total_time / max(1, len(iterable))))
 
+
+_builtin_print = builtins.print
+
+
+def setup_for_distributed(is_master: bool) -> None:
+    """Master-only timestamped print monkey-patch (reference: misc.py:172-186).
+    Always wraps the original ``print``, so a second call in one process
+    replaces the first patch instead of stacking timestamps."""
+
+    def print_fn(*args, **kwargs):
+        force = kwargs.pop('force', False)
+        if is_master or force:
+            now = datetime.datetime.now().time()
+            _builtin_print('[{}] '.format(now), end='')
+            _builtin_print(*args, **kwargs)
+
+    builtins.print = print_fn

@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (tulip_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile    (profile_paths: where the time goes)
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
@@ -150,6 +151,10 @@ CLI_KERNELS = ("window_msa_grouped", "window_msa_nat", "ln_fwd", "ln_bwd")
 # launches per train step of the command line with TULIP_TPU_LN_PALLAS=1
 PER_STEP_CLI = dict(PER_STEP, ln_fwd=14, ln_bwd=14)
 CLI_BATCH, CLI_TRAIN, CLI_VAL = 8, 16, 4
+# the bf16 kernels of K3, K10 (token pass) and the weight-gradient product,
+# whose products must be tensor-core instructions (HGMMA in the SASS)
+TENSOR_CORE_KERNELS = ("two_matmul_tc_kernel", "mlp_bwd_hidden_kernel",
+                       "mlp_bwd_dy_kernel", "tn_gemm_tc_kernel")
 PAIR_OPS = 8   # operations per point pair of a nearest-neighbour sweep
 # chamfer kernels against their plain versions: the kernel fuses two FMAs
 # where the plain version rounds each product and sum, <= 2 ulp (1.2e-7
@@ -309,36 +314,10 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                     dict(work=work_msa(
                         batch * H * W, C, nh,
                         0 if mask is None else mask.shape[0], e))))
-        for (H, W), C, nh in stages:
-            N = batch * H * W
-            x = to(rn(N, C))
-            args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
-                    to(rn(4 * C, C, scale=C ** -0.5)), to(rn(4 * C, scale=0.1)),
-                    to(rn(C, 4 * C, scale=(4 * C) ** -0.5)),
-                    to(rn(C, scale=0.1))]
-            cases.append((
-                "two_matmul", "K3",
-                f"two_matmul K3 {dn} mlp N={N} C={C} Hd={4 * C}",
-                lambda x=x, a=args: mlp.fused_ln_mlp(x, *a),
-                lambda x=x, a=args: mlp.fused_two_matmul_ref(
-                    x, *a, act="gelu", residual=True), True,
-                dict(work=work_two_matmul(N, C, 4 * C, C, e))))
-        # the folded norm_up + ps_head + decoder_pred head (tulip._head)
-        N, C = batch * 32 * 512, 96
-        rows = torch.arange(C * 16)
-        w2 = torch.zeros(16, C * 16)
-        w2[rows % 16, rows] = rn(C, scale=C ** -0.5).repeat_interleave(16)
-        x = to(rn(N, C))
-        args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
-                to(rn(16 * C, C, scale=C ** -0.5)), to(rn(16 * C, scale=0.1)),
-                to(w2), None]
+        cases += two_matmul_cases(to, rn, dn, e, batch, stages)
+        x, args = cases[-1][-1]["inputs"]
+        N, C = x.shape
         hk = dict(act="leaky", residual=False)
-        cases.append(("two_matmul", "K3",
-                      f"two_matmul K3 {dn} head N={N} C={C} Hd={16 * C} O=16",
-                      lambda x=x, a=args: mlp.fused_two_matmul(x, *a, **hk),
-                      lambda x=x, a=args: mlp.fused_two_matmul_ref(x, *a,
-                                                                   **hk),
-                      True, dict(work=work_two_matmul(N, C, 16 * C, 16, e))))
         # the same without the LayerNorm (lnw=None), a path of K3's API
         nln = [None, None] + args[2:]
         cases.append(("two_matmul", "K3",
@@ -372,6 +351,128 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                           lambda x=x, a=args: mlp.fused_ln_linear_ref(x, *a),
                           on_path, dict(work=work_ln_linear(N, K, K // 2, e))))
     return cases
+
+
+def two_matmul_cases(to, rn, dn, e, batch, stages=STAGES):
+    """K3 at the forward's shapes for one batch size and dtype: the MLP
+    half-block of each stage, then the folded norm_up + ps_head +
+    decoder_pred head (tulip._head), whose inputs ride along in extra."""
+    import torch
+    from tulip_tpu_torch.ops import mlp
+    cases = []
+    for (H, W), C, nh in stages:
+        N = batch * H * W
+        x = to(rn(N, C))
+        args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
+                to(rn(4 * C, C, scale=C ** -0.5)), to(rn(4 * C, scale=0.1)),
+                to(rn(C, 4 * C, scale=(4 * C) ** -0.5)),
+                to(rn(C, scale=0.1))]
+        cases.append((
+            "two_matmul", "K3",
+            f"two_matmul K3 {dn} mlp N={N} C={C} Hd={4 * C}",
+            lambda x=x, a=args: mlp.fused_ln_mlp(x, *a),
+            lambda x=x, a=args: mlp.fused_two_matmul_ref(
+                x, *a, act="gelu", residual=True), True,
+            dict(work=work_two_matmul(N, C, 4 * C, C, e))))
+    N, C = batch * 32 * 512, 96
+    rows = torch.arange(C * 16)
+    w2 = torch.zeros(16, C * 16)
+    w2[rows % 16, rows] = rn(C, scale=C ** -0.5).repeat_interleave(16)
+    x = to(rn(N, C))
+    args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
+            to(rn(16 * C, C, scale=C ** -0.5)), to(rn(16 * C, scale=0.1)),
+            to(w2), None]
+    hk = dict(act="leaky", residual=False)
+    cases.append(("two_matmul", "K3",
+                  f"two_matmul K3 {dn} head N={N} C={C} Hd={16 * C} O=16",
+                  lambda x=x, a=args: mlp.fused_two_matmul(x, *a, **hk),
+                  lambda x=x, a=args: mlp.fused_two_matmul_ref(x, *a, **hk),
+                  True, dict(work=work_two_matmul(N, C, 16 * C, 16, e),
+                             inputs=(x, args))))
+    return cases
+
+
+def more_two_matmul_cases(torch, device):
+    """K3 beyond batch 2: the batch-8 shapes (the train step's and the
+    batch-8 forward's), batch 1 (stage 3 has 256 tokens: the bf16 kernel
+    splits the hidden dimension over CTAs) and token counts that are no
+    multiple of the bf16 kernel's 64-row tile, one of them on the split
+    path with a streamed LN output."""
+    from tulip_tpu_torch.ops import mlp
+    g = torch.Generator().manual_seed(3)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        to = lambda t: t.to(device=device, dtype=dtype)
+        e = 2 if dtype == torch.bfloat16 else 4
+        for batch in (8, 1):
+            cases += two_matmul_cases(to, rn, dn, e, batch)
+        for N, C in ((8229, 192), (77, 384)):
+            x = to(rn(N, C))
+            args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
+                    to(rn(4 * C, C, scale=C ** -0.5)),
+                    to(rn(4 * C, scale=0.1)),
+                    to(rn(C, 4 * C, scale=(4 * C) ** -0.5)),
+                    to(rn(C, scale=0.1))]
+            cases.append((
+                "two_matmul", "K3",
+                f"two_matmul K3 {dn} ragged N={N} C={C} Hd={4 * C}",
+                lambda x=x, a=args: mlp.fused_ln_mlp(x, *a),
+                lambda x=x, a=args: mlp.fused_two_matmul_ref(
+                    x, *a, act="gelu", residual=True), False,
+                dict(work=work_two_matmul(N, C, 4 * C, C, e))))
+    return cases
+
+
+def check_deterministic(torch, device, cases):
+    """K3, K10 (its token pass, its weight-gradient products and column
+    sums) and tn_gemm on their own: two runs on the same inputs must give
+    the same bits (no atomics, every cross-block sum in a fixed order)."""
+    from tulip_tpu_torch.ops import reduce as R
+    runs = [(label, kfn) for kernel, _, label, kfn, *_ in cases
+            if kernel in ("two_matmul", "two_matmul_bwd")
+            and "bfloat16" in label]
+    g = torch.Generator().manual_seed(4)
+    for T, M, N in ((131072, 384, 96), (2048, 3072, 768), (1000, 16, 1536)):
+        a = torch.randn(T, M, generator=g).to(device, torch.bfloat16)
+        b = torch.randn(T, N, generator=g).to(device, torch.bfloat16)
+        runs.append((f"tn_gemm bfloat16 T={T} M={M} N={N}",
+                     lambda a=a, b=b: R.tn_gemm(a, b)))
+    differ = []
+    for label, fn in runs:
+        one, two = fn(), fn()
+        torch.cuda.synchronize()
+        one = one if isinstance(one, tuple) else (one,)
+        two = two if isinstance(two, tuple) else (two,)
+        if not all(torch.equal(p, q) for p, q in zip(one, two)
+                   if p is not None):
+            differ.append(label)
+    print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
+          f"K3 / K10 / tn_gemm cases bit-identical over two runs",
+          flush=True)
+    if differ:
+        raise SystemExit(f"two runs differ: {differ}")
+
+
+def tensor_core_instructions(build):
+    """{kernel: count of HGMMA instructions} that cuobjdump -sass finds in
+    the bf16 MLP kernels of the built library."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = dict.fromkeys(TENSOR_CORE_KERNELS, 0)
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in counts if k in line), None)
+        elif current and "HGMMA" in line:
+            counts[current] += 1
+    return counts
 
 
 def kink_guard(torch, x, args, gr, to, rn):
@@ -609,13 +710,14 @@ def check_kernel_cases(torch, cases):
                           max_abs_err_rel=err, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, bytes=nbytes, flops=flops,
                           bound_ms=b_ms, bound_by=b_by,
+                          tflops=flops / ms / 1e9,
                           max_abs_err=abs_err, ok=ok))
         each = "" if len(errs) == 1 else f" (outputs {list(errs.values())})"
         libs = "" if library_ms is None else f" library {library_ms:.4f} ms"
         print(f"kernel {'ok ' if ok else 'BAD'} {label}: err/max|ref| "
               f"{err:.3e}{each} (limit {TOL[dn]:.0e}) kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms{libs} bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+              f"plain {plain_ms:.4f} ms{libs} bound {b_ms:.4f} ms ({b_by}) "
+              f"achieved {flops / ms / 1e9:.2f} TFLOP/s", flush=True)
     return table
 
 
@@ -1432,6 +1534,117 @@ def run_cli_phase(torch, dev, weights):
     return report
 
 
+def profile_paths(torch, dev):
+    """``python3 chip_smoke.py --profile``: torch.profiler over the bf16
+    inference forward (batch 1 and 8, 5 forwards each) and 3 bf16 train
+    steps of batch 8, all at the flagship size after a warm-up: per path
+    the wall ms per iteration, the device's busy share and the device ms
+    per iteration of every kernel name above 0.5 % (the port's kernels by
+    their C++ names, the rest by PyTorch's), then k3_plan_ab.  Also
+    written to chiprun_out/profile.json.  No check, no kernel table: the default run
+    does those."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tulip_tpu_torch.models.tulip import apply_model, init_params, tulip_base
+    from tulip_tpu_torch.train.step import make_optimizer, make_train_step
+
+    data_root = os.path.join(REPO, "build", "chip_smoke_durlar")
+    write_durlar(data_root, 8, 2048)
+    weights = init_params(tulip_base(**FLAGSHIP).cfg,
+                          torch.Generator().manual_seed(0))
+    report = {}
+
+    def run(name, fn, iters):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, e.self_device_time_total / iters / 1e3,
+                        e.count / iters) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not e.is_user_annotation
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        print(f"profile {name}: wall {wall:.2f} ms per iteration (not "
+              f"profiled), device busy {busy:.2f} ms = "
+              f"{100 * busy / wall:.1f} % of it, {sum(r[2] for r in rows):.0f}"
+              f" kernel launches per iteration", flush=True)
+        for key, ms, n in rows:
+            if ms >= 0.005 * busy:
+                print(f"  {ms:8.3f} ms {100 * ms / busy:5.1f} % x{n:<5.0f} "
+                      f"{key[:100]}", flush=True)
+        report[name] = dict(wall_ms=wall, device_ms=busy,
+                            kernels=[dict(name=k, ms=ms, launches=n)
+                                     for k, ms, n in rows])
+
+    model = tulip_base(**FLAGSHIP)
+    model.load_state_dict(weights, strict=True)
+    model = model.to(device=dev, dtype=torch.bfloat16)
+    for bs in (1, 8):
+        low, high = load_batches(data_root, bs, 2048)[0]
+        x = torch.from_numpy(low["sample"]).to(dev)
+        t = torch.from_numpy(high["sample"]).to(dev)
+        run(f"forward batch {bs}",
+            lambda: apply_model(model, x, t, compute_dtype=torch.bfloat16), 5)
+    del model
+    write_durlar(data_root, TRAIN_BATCH, 2048, split="train")
+    low, high = load_batches(data_root, TRAIN_BATCH, 2048, split="train")[0]
+    x = torch.from_numpy(low["sample"]).to(dev)
+    t = torch.from_numpy(high["sample"]).to(dev)
+    tm = tulip_base(drop_path_rate=0.1, **FLAGSHIP)
+    tm.load_state_dict(weights, strict=True)
+    tm = tm.to(dev)
+    step = make_train_step(tm, make_optimizer(tm, 0.01),
+                           compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    run(f"train step batch {TRAIN_BATCH}", lambda: step(x, t, 5e-4, gen), 3)
+    del tm, step
+    torch.cuda.empty_cache()
+    report["k3_plan"] = k3_plan_ab(torch, dev)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
+def k3_plan_ab(torch, dev):
+    """The rule of ops/mlp.py:two_matmul_plan against its alternative, on
+    the bf16 K3 shapes of batch 8 and 1: hidden slices short enough for two
+    CTAs per SM (more splits, fp32 partial sums) or as long as one CTA's
+    shared memory holds.  Timed in turns within this call (rule,
+    alternative, alternative, rule); median ms of 10 calls each."""
+    from tulip_tpu_torch.ops import mlp
+    cases = [c for c in more_two_matmul_cases(torch, dev)
+             if "bfloat16" in c[2] and c[5]]
+    rule = mlp.SMEM_TWO_PER_SM
+    turns = [("two CTAs per SM", rule), ("one CTA per SM", mlp.SMEM_MAX),
+             ("one CTA per SM", mlp.SMEM_MAX), ("two CTAs per SM", rule)]
+    out = []
+    try:
+        for name, budget in turns:
+            mlp.SMEM_TWO_PER_SM = budget
+            ms = [cuda_ms(torch, c[3], iters=10) for c in cases]
+            out.append(dict(plan=name, ms=ms))
+            print(f"K3 plan {name}: " + ", ".join(
+                f"{c[2].split('bfloat16 ')[1]} {t:.4f}"
+                for c, t in zip(cases, ms)) + f"; sum {sum(ms):.4f} ms",
+                flush=True)
+    finally:
+        mlp.SMEM_TWO_PER_SM = rule
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1454,6 +1667,9 @@ def main() -> int:
     print(smi_line)
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"name {kind!r} count {torch.cuda.device_count()}", flush=True)
+    if "--profile" in sys.argv[1:]:
+        build.load()
+        return profile_paths(torch, dev)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1466,13 +1682,21 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    sys.stdout.flush()
+    hgmma = tensor_core_instructions(build)
+    print(f"build: tensor-core instructions (HGMMA) in the bf16 MLP "
+          f"kernels: {hgmma}", flush=True)
+    if not all(hgmma.values()):
+        raise SystemExit(f"a bf16 MLP kernel holds no HGMMA: {hgmma}")
 
     # -- 3. kernels vs plain ----------------------------------------------
-    table = check_kernel_cases(
-        torch, [c + (10,) for c in kernel_cases(torch, dev)])
-    table += check_kernel_cases(
-        torch, [c + (5,) for c in train_kernel_cases(torch, dev)])
+    cases = kernel_cases(torch, dev)
+    table = check_kernel_cases(torch, [c + (10,) for c in cases])
+    more = more_two_matmul_cases(torch, dev)
+    table += check_kernel_cases(torch, [c + (10,) for c in more])
+    train_cases = train_kernel_cases(torch, dev)
+    table += check_kernel_cases(torch, [c + (5,) for c in train_cases])
+    check_deterministic(torch, dev, cases + more + train_cases)
+    del cases, more, train_cases
     table += check_kernel_cases(
         torch, [c + (10,) for c in layout_and_ln_cases(torch, dev)])
     table += chamfer_checks(torch, dev)

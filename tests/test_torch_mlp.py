@@ -281,3 +281,147 @@ def test_backward_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="cuda"):
         TM.ln_linear_bwd(m(16, 384), m(384), m(384), m(192, 384),
                          m(16, 192))
+
+
+# ---------------------------------------------------------------------------
+# The launch plans of the bf16 tensor-core kernels (plain Python, no card):
+# what the wrappers pass to the C entry points of csrc/mlp.cu, mlp_bwd.cu
+# and reduce.cu.
+# ---------------------------------------------------------------------------
+
+def _mlp_shapes():
+    """(model, batch, N, C, Hd, O) of every MLP and head launch of
+    tulip_base (4 stages) and tulip_large (5) at 32 x 2048, patch 1 x 4,
+    batch 1, 2, 4, 8, plus two ragged token counts."""
+    out = []
+    for model, stages in (("base", 4), ("large", 5)):
+        for batch in (1, 2, 4, 8):
+            for i in range(stages):
+                C = 96 * 2 ** i
+                out.append((model, batch, batch * (32 >> i) * (512 >> i), C,
+                            4 * C, C))
+            out.append((model, batch, batch * 32 * 512, 96, 1536, 16))
+    out += [("ragged", 0, 1000, 96, 384, 96), ("ragged", 0, 77, 768, 3072,
+                                               768)]
+    return out
+
+
+@pytest.mark.parametrize("model,batch,N,C,Hd,O", _mlp_shapes())
+def test_two_matmul_plan_fits_and_covers(model, batch, N, C, Hd, O):
+    p = TM.two_matmul_plan(N, C, Hd, O)
+    assert p["rows"] == 64 and p["stages"] >= 3
+    assert p["smem"] <= TM.SMEM_TWO_PER_SM < TM.SMEM_MAX == 232448
+    assert p["splits"] >= 1 and p["hs"] % 128 == 0 and p["hs"] > 0
+    # the splits cover the hidden dimension exactly once, none is empty
+    assert p["splits"] == -(-Hd // p["hs"])
+    assert (p["splits"] - 1) * p["hs"] < Hd <= p["splits"] * p["hs"]
+    assert p["resident"] == (C <= 256)
+    assert p["bn2"] in (16, 96, 128) and (O > 16 or p["bn2"] == 16)
+    # shared memory: alignment room + 3 ring stages + the a slice (+ y)
+    stage = 128 * 128 + (0 if p["resident"] else 8192)
+    y = -(-C // 64) * 8192 if p["resident"] else 0
+    assert p["smem"] == 1024 + 3 * stage + p["hs"] * 128 + y
+    # the slice is as long as two blocks per SM allow, or the hidden
+    # dimension is split further for the SMs' sake
+    assert (p["smem"] + 128 * 128 > TM.SMEM_TWO_PER_SM or p["splits"] == 1
+            or -(-N // 64) * (p["splits"] - 1) < TM.NUM_SMS)
+    # few row tiles: the hidden dimension is split towards one CTA per SM
+    row_tiles = -(-N // 64)
+    if row_tiles * 2 <= TM.NUM_SMS and Hd > 128:
+        assert p["splits"] > 1
+    # dy: every 64-deep tile of Hd in exactly one split
+    s = TM.dy_splits(N, C, Hd)
+    kt = -(-Hd // 64)
+    assert 1 <= s <= kt and -(-kt // -(-kt // s)) == s
+
+
+def test_two_matmul_plan_streams_rows_too_wide_to_keep():
+    """A row tile that shared memory cannot hold (64 x 8192 bf16 = 1 MB) is
+    streamed, so the plan still fits."""
+    p = TM.two_matmul_plan(64, 8192, 4 * 8192, 8192)
+    assert not p["resident"] and p["smem"] <= TM.SMEM_TWO_PER_SM
+    assert p["splits"] * p["hs"] >= 4 * 8192
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,M,N", [(131072, 384, 96), (131072, 16, 1536),
+                                   (2048, 3072, 768), (1000, 384, 96),
+                                   (77, 96, 384), (256, 1536, 3072)])
+def test_tn_gemm_plan_covers_tokens_once(dtype, T, M, N):
+    from tulip_tpu_torch.ops.reduce import tn_gemm_plan
+    splits, tps = tn_gemm_plan(T, M, N, dtype)
+    assert splits >= 1
+    assert tps % (64 if dtype == torch.bfloat16 else 16) == 0
+    # split s owns tokens [s tps, min(T, (s + 1) tps)): all of them, once
+    assert (splits - 1) * tps < T <= splits * tps
+
+
+@pytest.mark.parametrize("case", ["mlp", "head", "ragged"])
+def test_split_hidden_partial_sums_equal_plain_float64(case):
+    """What the split launches compute: each split's slice of the hidden
+    dimension gives a partial out (forward) and a partial dy (backward),
+    added in split order; in float64 that equals the plain versions to
+    summation order (1e-12 of max|ref|)."""
+    N, C, Hd, O, act, ln, res = {
+        "mlp": (96, 64, 512, 64, "gelu", True, True),
+        "head": (64, 96, 1536, 16, "leaky", True, False),
+        "ragged": (50, 32, 160, 32, "gelu", False, True)}[case]
+    rng = np.random.default_rng(11)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 1, s))
+    x, g = t(N, C), t(N, O)
+    lnw, lnb = (t(C), t(C)) if ln else (None, None)
+    w1, b1, w2, b2 = t(Hd, C) * C ** -0.5, t(Hd), t(O, Hd) * Hd ** -0.5, t(O)
+    hs = 128
+    splits = -(-Hd // hs)
+    y = x if lnw is None else TM.layer_norm(x, lnw, lnb, 1e-6)
+    out = torch.zeros(N, O, dtype=torch.float64)
+    dy = torch.zeros(N, C, dtype=torch.float64)
+    for s in range(splits):
+        sl = slice(s * hs, min(Hd, (s + 1) * hs))
+        h = y @ w1[sl].T + b1[sl]
+        a = TM.gelu(h) if act == "gelu" else TM.leaky_relu(h)
+        out += a @ w2[:, sl].T
+        dy += (g @ w2[:, sl] * TM._act_grad(h, act)) @ w1[sl]
+    out = out + b2 + (x if res else 0)
+    ref = TM.fused_two_matmul_ref(x, lnw, lnb, w1, b1, w2, b2, act=act,
+                                  residual=res)
+    assert (out - ref).abs().max() <= 1e-12 * ref.abs().max()
+    ref_dx = TM.two_matmul_bwd_ref(x, lnw, lnb, w1, b1, w2, b2, g, act=act,
+                                   residual=res)[0]
+    if lnw is None:
+        dx = dy
+    else:
+        xh, rstd = TM._ln_stats(x, 1e-6)
+        dx = TM._ln_backward(dy, xh, rstd, lnw)[0]
+    dx = dx + (g if res else 0)
+    assert (dx - ref_dx).abs().max() <= 1e-12 * ref_dx.abs().max()
+
+
+@pytest.mark.parametrize("C,Hd", [(48, 128), (64, 80)])
+def test_wrappers_refuse_widths_not_multiples_of_32(C, Hd):
+    """On any device but the CPU the wrappers check the device first and
+    then the widths; the width check is reached with a CUDA tensor only, so
+    here its rule is held through the plan and the meta device."""
+    m = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        TM.fused_two_matmul(m(16, C), None, None, m(Hd, C), m(Hd), m(C, Hd),
+                            None, act="gelu", residual=True)
+    with pytest.raises(ValueError, match="cuda"):
+        TM.two_matmul_bwd(m(16, C), None, None, m(Hd, C), m(Hd), m(C, Hd),
+                          None, m(16, C), act="gelu", residual=True)
+    assert TM.check_widths(96, 384, 96, True, "two_matmul") is None
+    with pytest.raises(NotImplementedError, match="multiples of 32"):
+        TM.check_widths(C, Hd, C, True, "two_matmul")
+    with pytest.raises(NotImplementedError, match="O == C"):
+        TM.check_widths(96, 384, 16, True, "two_matmul")
+
+
+def test_require_aligned_refuses_an_offset_view():
+    """The tensor-core kernels copy 16 bytes at a time: a view that starts
+    2 bytes into its storage is refused before its pointer reaches C."""
+    from tulip_tpu_torch.ops import build
+    t = torch.zeros(64, dtype=torch.bfloat16)
+    build.require_aligned("t", t)
+    build.require_aligned("none", None)
+    with pytest.raises(ValueError, match="16-byte"):
+        build.require_aligned("t", t[1:])

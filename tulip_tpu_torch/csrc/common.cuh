@@ -9,6 +9,10 @@
 // the reference rounds to the activation dtype (LN output, q/k/v,
 // probabilities, hidden activations) are rounded with round_to<T>() at the
 // same points.
+// The bf16 MLP kernels (K3, K10 and the weight-gradient product) do not
+// use this product core: theirs is mma.cuh, 64 rows per CTA on the tensor
+// cores with prefetched tiles.  K1, K2, K4, K11, K12, K13 and every fp32
+// instantiation run on the core below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -110,6 +114,19 @@ template <int ACT> __device__ __forceinline__ float activate_grad(float h) {
     return cdf + h * expf(-0.5f * h * h) * 0.39894228040143268f;
   }
   return h >= 0.f ? 1.f : 0.01f;
+}
+
+// a = activate(h) and da = activate_grad(h) with the GELU's erf taken once.
+template <int ACT>
+__device__ __forceinline__ void activate_both(float h, float& a, float& da) {
+  if (ACT == kGelu) {
+    const float e = erff(h * 0.70710678118654752f);
+    a = 0.5f * h * (1.f + e);
+    da = 0.5f * (1.f + e) + h * expf(-0.5f * h * h) * 0.39894228040143268f;
+  } else {
+    a = activate<ACT>(h);
+    da = activate_grad<ACT>(h);
+  }
 }
 
 // Weight row of output column n: row0 + (n / group) * gstride + n % group.

@@ -3,13 +3,12 @@
 //
 // tulip_two_matmul_bwd replaces tulip_tpu/ops/pallas/mlp.py:_bwd_kernel.
 // With y = [LN](x), h = y W1^T + b1, a = act(h), out = a W2^T [+ b2] [+ x]
-// and g = dL/dout, per 16-row tile it recomputes y and h chunk by chunk
-// (64 hidden units at a time) and computes
+// and g = dL/dout, it recomputes y and h and computes
 //   da = g W2,  dh = da * act'(h),  dy = dh W1,  dx = LN^T(dy) [+ g],
 // writing dx, and to HBM scratch y (N, C), a (N, Hd) and dh (N, Hd) plus
-// the tile's dlnw | dlnb partial sums.  tulip_ln_linear_bwd replaces
-// mlp.py:_kernel_ln_mm_bwd (out = LN(x) W^T): dy = g W, dx = LN^T(dy), y
-// to scratch and the dlnw | dlnb partials.
+// the dlnw | dlnb partial sums of every 16 rows.  tulip_ln_linear_bwd
+// replaces mlp.py:_kernel_ln_mm_bwd (out = LN(x) W^T): dy = g W,
+// dx = LN^T(dy), y to scratch and the dlnw | dlnb partials.
 //
 // The weight gradients, dW1 = dh^T y, dW2 = g^T a, dW = g^T y, and the
 // bias / LN sums (db1 = colsum dh, db2 = colsum g, dlnw / dlnb = colsum of
@@ -26,12 +25,31 @@
 // before dy and before dW1 / db1, as in the TPU kernel); da, dy, the LN
 // backward and every accumulation are fp32; dx is rounded once.
 //
-// Bound on the H100: per token 2 C Hd (h) + 2 O Hd (da) + 2 Hd C (dy) FMAs
-// on the CUDA cores, against the weights streamed tile by tile as in the
-// forward (mlp.cu); so the pass costs about 1.5 forwards, and the deep
-// stages wait on weight tiles from HBM.  Tensor cores, weight prefetch and
-// a split of the deep stages over more CTAs are later work.
-#include "common.cuh"
+// bf16, on the tensor cores (mma.cuh).  Bound on the H100: 2 N Hd (2 C +
+// O) operations for h, da and dy against the a and dh scratch (4 N Hd
+// bytes written, 2 N Hd read back) that the second pass needs anyway: the
+// wide stages are bound by those bytes, the deep ones by the weights each
+// CTA streams from L2.  The sums that one CTA would have to hold (dy: 64 x
+// C fp32 beside y, g and a slice of dh) do not fit shared memory at C 768,
+// and a split of the hidden dimension would cost one fp32 dy per slice.  So
+// the pass is four launches, each a plain tiled product whose operands
+// stream through the ring:
+//   1. ln_rows_kernel: y = LN(x) and the rows' mean, 1/std to scratch.
+//   2. mlp_bwd_hidden_kernel, grid (64-row tiles, 128 hidden units): h = y
+//      W1^T (K-major weight tiles), + b1, round, a = act(h) to scratch,
+//      act'(h) kept in registers (one erf for both); da = g W2[:, tile]
+//      (MN-major tiles of W2, no transposed copy), dh = round(da act'(h)) to
+//      scratch.  a and dh leave through a staging tile with 16-byte stores.
+//   3. mlp_bwd_dy_kernel, grid (row tiles, tiles of C, splits of Hd): dy =
+//      dh W1 (MN-major tiles of W1) summed in registers, fp32 to scratch;
+//      Hd is split only when the grid would leave SMs idle.
+//   4. mlp_bwd_finish_kernel, 16 rows per CTA: the splits' dy added in
+//      split order, then the LN backward (ln_backward_rows) and + g.
+//
+// fp32: two_matmul_bwd_kernel, one launch on the CUDA cores (16 rows per
+// CTA, common.cuh), the parity path.  ln_linear_bwd_kernel (K11) runs on it
+// in both types.
+#include "mma.cuh"
 
 namespace tulip {
 
@@ -234,17 +252,281 @@ cudaError_t launch_ln_linear_bwd(const void* x, const void* g,
   return cudaGetLastError();
 }
 
+namespace tc {
+
+constexpr int kBwdStages = 4;   // ring stages of the hidden kernel
+constexpr int kDyStages = 3;    // ring stages of the dy kernel
+
+// grid (64-row tiles, tiles of 128 hidden units): a and dh of the tile.
+// y: LN(x) (or x without LN), g: dL/dout.
+template <int ACT>
+__global__ void __launch_bounds__(kWg) mlp_bwd_hidden_kernel(
+    const bf16* __restrict__ y, const bf16* __restrict__ g,
+    const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+    const bf16* __restrict__ w2, bf16* __restrict__ a_out,
+    bf16* __restrict__ dh_out, int N, int C, int Hd, int O) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int BN = 128;
+  constexpr uint32_t kB = BN * 128;        // weight tile, either major
+  constexpr uint32_t kStage = kB + kSub;   // + the rows' 64 x 64 operand
+  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* staged = sm + kBwdStages * kStage;   // 64 x 128 bf16 out
+  const uint32_t ring = smem_u32(sm);
+
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int ktc = (C + 63) / 64, kto = (O + 63) / 64;
+  const int row = frag_row();
+
+  float acc[BN / 2];
+  float dact[BN / 2];    // act'(h) of this thread's elements
+  auto fetch = [&](int t, uint32_t st) {
+    if (t < ktc) {         // W1[n0 ..][64 t ..] and y[rows][64 t ..]
+      load_tile(st, w1, C, n0, Hd, t * 64, C, BN);
+      load_tile(st + kB, y, C, r0, N, t * 64, C, kBM);
+    } else {               // W2[64 j ..][n0 ..] as two sub-tiles, g[rows][64 j ..]
+      const int j = t - ktc;
+      load_tile(st, w2, Hd, j * 64, O, n0, Hd, 64);
+      load_tile(st + kSub, w2, Hd, j * 64, O, n0 + 64, Hd, 64);
+      load_tile(st + kB, g, O, r0, N, j * 64, O, kBM);
+    }
+  };
+  auto use = [&](int t, uint32_t st) {
+    if (t < ktc) {
+      mma_tile<BN, 0, 0>(acc, st + kB, st, min(4, (C - t * 64) / 16), t == 0);
+      if (t + 1 < ktc) {
+        wgmma_wait<1>();
+        return;
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        const int fc = frag_col(jj);
+        float bias0 = 0.f, bias1 = 0.f;
+        if (n0 + fc < Hd) {
+          bias0 = to_f(b1[n0 + fc]);
+          bias1 = to_f(b1[n0 + fc + 1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ha = round_to<bf16>(acc[4 * jj + 2 * e] + bias0);
+          const float hb = round_to<bf16>(acc[4 * jj + 2 * e + 1] + bias1);
+          float aa, ab;
+          activate_both<ACT>(ha, aa, dact[4 * jj + 2 * e]);
+          activate_both<ACT>(hb, ab, dact[4 * jj + 2 * e + 1]);
+          *reinterpret_cast<uint32_t*>(staged + (fc >> 6) * kSub +
+                                       swz(row + 8 * e, fc & 63)) =
+              pack_bf16(aa, ab);
+        }
+      }
+      __syncthreads();
+      store_staged(staged, a_out, Hd, r0, N, n0, Hd, BN / 64);
+    } else {
+      const int j = t - ktc;
+      mma_tile<BN, 0, 1>(acc, st + kB, st, min(4, (O - j * 64 + 15) / 16),
+                         j == 0);
+      if (j + 1 < kto) {
+        wgmma_wait<1>();
+        return;
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        const int fc = frag_col(jj);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          *reinterpret_cast<uint32_t*>(staged + (fc >> 6) * kSub +
+                                       swz(row + 8 * e, fc & 63)) =
+              pack_bf16(acc[4 * jj + 2 * e] * dact[4 * jj + 2 * e],
+                        acc[4 * jj + 2 * e + 1] * dact[4 * jj + 2 * e + 1]);
+        }
+      }
+      __syncthreads();
+      store_staged(staged, dh_out, Hd, r0, N, n0, Hd, BN / 64);
+    }
+  };
+  stream_tiles<kBwdStages>(ring, kStage, ktc + kto, fetch, use);
+}
+
+// grid (64-row tiles, tiles of BN columns of C, splits of Hd): the split's
+// dy = dh[:, split] W1[split, :] in fp32 to dyp[split][N][C]; kts 64-deep
+// tiles of Hd per split.
+template <int BN>
+__global__ void __launch_bounds__(kWg) mlp_bwd_dy_kernel(
+    const bf16* __restrict__ dh, const bf16* __restrict__ w1,
+    float* __restrict__ dyp, int N, int C, int Hd, int kts) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t kB = b_tile_bytes<BN, 1>();
+  constexpr uint32_t kStage = kB + kSub;
+  const uint32_t ring = smem_u32(align_smem(smem_raw));
+
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int kt0 = blockIdx.z * kts;
+  const int T = min(kts, (Hd + 63) / 64 - kt0);
+  const int row = frag_row();
+
+  float acc[BN / 2];
+  auto fetch = [&](int t, uint32_t st) {
+    const int k0 = (kt0 + t) * 64;
+#pragma unroll
+    for (int s = 0; s < BN / 64; ++s)
+      load_tile(st + s * kSub, w1, C, k0, Hd, n0 + 64 * s, C, 64);
+    load_tile(st + kB, dh, Hd, r0, N, k0, Hd, kBM);
+  };
+  auto use = [&](int t, uint32_t st) {
+    const int k0 = (kt0 + t) * 64;
+    mma_tile<BN, 0, 1>(acc, st + kB, st, min(4, (Hd - k0) / 16), t == 0);
+    if (t + 1 < T) {
+      wgmma_wait<1>();
+      return;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int col = n0 + frag_col(jj);
+      if (col >= C) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long r = r0 + row + 8 * e;
+        if (r < N)
+          *reinterpret_cast<float2*>(
+              dyp + ((size_t)blockIdx.z * N + r) * C + col) =
+              make_float2(acc[4 * jj + 2 * e], acc[4 * jj + 2 * e + 1]);
+      }
+    }
+  };
+  stream_tiles<kDyStages>(ring, kStage, T, fetch, use);
+}
+
+// 16 rows per CTA: dy = the splits' partial sums added in split order, then
+// dx = LN^T(dy) [+ g] and the rows' dlnw | dlnb partial (ln_backward_rows).
+__global__ void __launch_bounds__(kThreads) mlp_bwd_finish_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ g,
+    const bf16* __restrict__ lnw, const float* __restrict__ stat,
+    const float* __restrict__ dyp, bf16* __restrict__ dx,
+    float* __restrict__ part, int N, int C, int splits, int residual) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* dys = fsmem;                                   // [16][C]
+  float* gs = dys + kRows * C;                          // [16][C], residual
+  float* st = gs + (residual ? kRows * C : 0);          // [16][2]
+  const long long r0 = (long long)blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int rr = warp; rr < kRows; rr += kThreads / 32) {
+    const long long r = r0 + rr;
+    for (int c = lane * 4; c < C; c += 128) {   // four columns per lane
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 gv = v;
+      if (r < N) {
+        for (int s = 0; s < splits; ++s) {
+          const float4 p = *reinterpret_cast<const float4*>(
+              dyp + ((size_t)s * N + r) * C + c);
+          v.x += p.x;
+          v.y += p.y;
+          v.z += p.z;
+          v.w += p.w;
+        }
+        if (residual) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(g + r * C + c);
+          const bf16* e = reinterpret_cast<const bf16*>(&raw);
+          gv = make_float4(to_f(e[0]), to_f(e[1]), to_f(e[2]), to_f(e[3]));
+        }
+      }
+      *reinterpret_cast<float4*>(dys + rr * C + c) = v;
+      if (residual) *reinterpret_cast<float4*>(gs + rr * C + c) = gv;
+    }
+  }
+  if (lnw && threadIdx.x < 2 * kRows)
+    st[threadIdx.x] =
+        r0 + threadIdx.x / 2 < N ? stat[r0 * 2 + threadIdx.x] : 0.f;
+  __syncthreads();
+  ln_backward_rows<bf16>(x, dys, st, lnw, residual ? gs : nullptr, C, dx,
+                         part ? part + (size_t)blockIdx.x * 2 * C : nullptr,
+                         r0, N, C);
+}
+
+template <int ACT>
+cudaError_t launch_two_matmul_bwd_tc(const bf16* x, const bf16* g,
+                                     const bf16* lnw, const bf16* lnb,
+                                     const bf16* w1, const bf16* b1,
+                                     const bf16* w2, bf16* dx, bf16* y,
+                                     bf16* a, bf16* dh, float* part,
+                                     float* stat, float* dyp, int N, int C,
+                                     int Hd, int O, int residual, float eps,
+                                     int dy_splits, cudaStream_t stream) {
+  const int kt = (Hd + 63) / 64;
+  if (C % kKC || Hd % kKC || O % 8 || (residual && O != C) || N <= 0 ||
+      O <= 0 || !dyp || (lnw && (!y || !part || !stat)) || dy_splits < 1 ||
+      dy_splits > kt)
+    return cudaErrorInvalidValue;
+  const int kts = (kt + dy_splits - 1) / dy_splits;
+  if ((kt + kts - 1) / kts != dy_splits) return cudaErrorInvalidValue;
+  cudaError_t err;
+  const bf16* ysrc = x;
+  if (lnw) {
+    err = launch_ln_rows(x, lnw, lnb, y, stat, N, C, eps, stream);
+    if (err != cudaSuccess) return err;
+    ysrc = y;
+  }
+  const unsigned row_tiles = (N + kBM - 1) / kBM;
+  {
+    const size_t smem = 1024 + (size_t)kBwdStages * (128 * 128 + kSub) +
+                        2 * kSub;
+    err = prepare_smem(mlp_bwd_hidden_kernel<ACT>, smem);
+    if (err != cudaSuccess) return err;
+    mlp_bwd_hidden_kernel<ACT>
+        <<<dim3(row_tiles, (Hd + 127) / 128), kWg, smem, stream>>>(
+            ysrc, g, w1, b1, w2, a, dh, N, C, Hd, O);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (C % 192 == 0) {
+    const size_t smem = 1024 + (size_t)kDyStages * (3 * kSub + kSub);
+    err = prepare_smem(mlp_bwd_dy_kernel<192>, smem);
+    if (err != cudaSuccess) return err;
+    mlp_bwd_dy_kernel<192>
+        <<<dim3(row_tiles, C / 192, dy_splits), kWg, smem, stream>>>(
+            dh, w1, dyp, N, C, Hd, kts);
+  } else {
+    const size_t smem = 1024 + (size_t)kDyStages * (2 * kSub + kSub);
+    err = prepare_smem(mlp_bwd_dy_kernel<128>, smem);
+    if (err != cudaSuccess) return err;
+    mlp_bwd_dy_kernel<128>
+        <<<dim3(row_tiles, (C + 127) / 128, dy_splits), kWg, smem, stream>>>(
+            dh, w1, dyp, N, C, Hd, kts);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem =
+      sizeof(float) * ((residual ? 2 : 1) * kRows * C + 2 * kRows);
+  err = prepare_smem(mlp_bwd_finish_kernel, smem);
+  if (err != cudaSuccess) return err;
+  mlp_bwd_finish_kernel<<<(N + kRows - 1) / kRows, kThreads, smem, stream>>>(
+      x, g, lnw, stat, dyp, dx, part, N, C, dy_splits, residual);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace tulip
 
+// fp32: the FMA kernel (part: one dlnw | dlnb row per 16 rows); stat, dyp
+// and dy_splits are not read.  bf16: the four tensor-core launches; stat
+// (N, 2) and dyp (dy_splits, N, C) are fp32 scratch, part as for fp32.
 extern "C" int tulip_two_matmul_bwd(int dtype, int act, const void* x,
                                     const void* g, const void* lnw,
                                     const void* lnb, const void* w1,
                                     const void* b1, const void* w2, void* dx,
                                     void* y, void* a, void* dh, void* part,
-                                    int N, int C, int Hd, int O,
-                                    int residual, float eps, void* stream) {
+                                    void* stat, void* dyp, int N, int C,
+                                    int Hd, int O, int residual, float eps,
+                                    int dy_splits, void* stream) {
   using tulip::kGelu;
   using tulip::kLeaky;
+  using bf16 = __nv_bfloat16;
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<float*>(part);
 #define TULIP_TM_BWD(T, ACT)                                                \
@@ -253,9 +535,20 @@ extern "C" int tulip_two_matmul_bwd(int dtype, int act, const void* x,
                                               residual, eps, s)
   if (dtype == 0 && act == kGelu) TULIP_TM_BWD(float, kGelu);
   if (dtype == 0 && act == kLeaky) TULIP_TM_BWD(float, kLeaky);
-  if (dtype == 1 && act == kGelu) TULIP_TM_BWD(__nv_bfloat16, kGelu);
-  if (dtype == 1 && act == kLeaky) TULIP_TM_BWD(__nv_bfloat16, kLeaky);
 #undef TULIP_TM_BWD
+  if (dtype != 1) return cudaErrorInvalidValue;
+#define TULIP_TM_BWD_TC(ACT)                                                 \
+  return tulip::tc::launch_two_matmul_bwd_tc<ACT>(                           \
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g),              \
+      static_cast<const bf16*>(lnw), static_cast<const bf16*>(lnb),          \
+      static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),            \
+      static_cast<const bf16*>(w2), static_cast<bf16*>(dx),                  \
+      static_cast<bf16*>(y), static_cast<bf16*>(a), static_cast<bf16*>(dh),  \
+      p, static_cast<float*>(stat), static_cast<float*>(dyp), N, C, Hd, O,   \
+      residual, eps, dy_splits, s)
+  if (act == kGelu) TULIP_TM_BWD_TC(kGelu);
+  if (act == kLeaky) TULIP_TM_BWD_TC(kLeaky);
+#undef TULIP_TM_BWD_TC
   return cudaErrorInvalidValue;
 }
 

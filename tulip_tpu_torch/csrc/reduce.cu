@@ -16,11 +16,17 @@
 //   A (T, M), B (T, N) token-major (dW = dh^T y, g^T a, g^T y), split-K
 //   over the token axis so that enough blocks run (stage 0 has 131,072
 //   tokens against a 384 x 96 output); the splits are then summed by
-//   tulip_colsum.  64 x 64 output tile per block, 4 x 4 per thread, fp32
-//   FMA on the CUDA cores from 16-token slices staged in shared memory.
-//   Bound: the FMA issue rate (each staged value feeds 64 FMAs).
-//   Tensor cores are later work.
-#include "common.cuh"
+//   tulip_colsum.
+//   bf16: tn_gemm_tc_kernel, on the tensor cores (mma.cuh).  Bound: the
+//   HBM reads of A and B (one pass; the output is small).  A 64 x BN output
+//   tile per warpgroup (BN 192 where it divides N, else 128), the sums in
+//   registers; both operands are token-major, which is the MN-major
+//   operand layout of wgmma, so 64-token slices of A and B go through the
+//   ring as they lie in memory: no transposed copy, three stages, the next
+//   slice's copies overlapping this slice's products.
+//   fp32: tn_gemm_kernel, 64 x 64 per block, 4 x 4 per thread, FMA on the
+//   CUDA cores from 16-token slices (the parity path).
+#include "mma.cuh"
 
 namespace tulip {
 
@@ -137,10 +143,85 @@ cudaError_t launch_tn_gemm(const void* A, const void* B, float* part,
   return cudaGetLastError();
 }
 
+namespace tc {
+
+constexpr int kTnStages = 3;
+
+// grid (tiles of BN columns, tiles of 64 rows of the output, token splits);
+// tps tokens per split, a multiple of 64.
+template <int BN>
+__global__ void __launch_bounds__(kWg) tn_gemm_tc_kernel(
+    const bf16* __restrict__ A, const bf16* __restrict__ B,
+    float* __restrict__ part, long long Tt, int M, int N, long long tps) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t kB = b_tile_bytes<BN, 1>();
+  constexpr uint32_t kStage = kB + kSub;
+  const uint32_t ring = smem_u32(align_smem(smem_raw));
+
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
+  const long long t0 = (long long)blockIdx.z * tps;
+  const long long t1 = min(Tt, t0 + tps);
+  const int T = (int)((t1 - t0 + 63) / 64);
+  const int row = frag_row();
+
+  float acc[BN / 2];
+  auto fetch = [&](int t, uint32_t st) {
+    const long long tt = t0 + (long long)t * 64;
+#pragma unroll
+    for (int s = 0; s < BN / 64; ++s)
+      load_tile(st + s * kSub, B, N, tt, t1, n0 + 64 * s, N, 64);
+    load_tile(st + kB, A, M, tt, t1, m0, M, 64);
+  };
+  auto use = [&](int t, uint32_t st) {
+    const long long left = t1 - (t0 + (long long)t * 64);
+    mma_tile<BN, 1, 1>(acc, st + kB, st, (int)min(4LL, (left + 15) / 16),
+                       t == 0);
+    if (t + 1 < T) {
+      wgmma_wait<1>();
+      return;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    float* out = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int n = n0 + frag_col(jj);
+      if (n >= N) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + row + 8 * e;
+        if (m < M)
+          *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+              make_float2(acc[4 * jj + 2 * e], acc[4 * jj + 2 * e + 1]);
+      }
+    }
+  };
+  stream_tiles<kTnStages>(ring, kStage, T, fetch, use);
+}
+
+template <int BN>
+cudaError_t launch_tn_gemm_tc(const bf16* A, const bf16* B, float* part,
+                              long long Tt, int M, int N, long long tps,
+                              cudaStream_t stream) {
+  const long long S = (Tt + tps - 1) / tps;
+  const int gy = (M + kBM - 1) / kBM;
+  if (S > 65535 || gy > 65535) return cudaErrorInvalidValue;
+  const size_t smem =
+      1024 + (size_t)kTnStages * (b_tile_bytes<BN, 1>() + kSub);
+  cudaError_t err = prepare_smem(tn_gemm_tc_kernel<BN>, smem);
+  if (err != cudaSuccess) return err;
+  tn_gemm_tc_kernel<BN><<<dim3((N + BN - 1) / BN, gy, (unsigned)S), kWg,
+                          smem, stream>>>(A, B, part, Tt, M, N, tps);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace tulip
 
 // dtype of in (colsum) or of A and B (tn_gemm): 0 fp32, 1 bf16; the
-// outputs and the scratch are fp32
+// outputs and the scratch are fp32.  tn_gemm: tps a multiple of 16 (fp32)
+// or of 64 and M, N multiples of 8 (bf16)
 extern "C" int tulip_colsum(int dtype, const void* in, void* out,
                             void* scratch, long long R, int M, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -159,7 +240,12 @@ extern "C" int tulip_tn_gemm(int dtype, const void* A, const void* B,
   auto p = static_cast<float*>(part);
   if (dtype == 0)
     return tulip::launch_tn_gemm<float>(A, B, p, Tt, M, N, tps, s);
-  if (dtype == 1)
-    return tulip::launch_tn_gemm<__nv_bfloat16>(A, B, p, Tt, M, N, tps, s);
-  return cudaErrorInvalidValue;
+  if (dtype != 1 || Tt <= 0 || M <= 0 || N <= 0 || M % 8 || N % 8 ||
+      tps <= 0 || tps % 64)
+    return cudaErrorInvalidValue;
+  auto a = static_cast<const __nv_bfloat16*>(A);
+  auto b = static_cast<const __nv_bfloat16*>(B);
+  if (N % 192 == 0)
+    return tulip::tc::launch_tn_gemm_tc<192>(a, b, p, Tt, M, N, tps, s);
+  return tulip::tc::launch_tn_gemm_tc<128>(a, b, p, Tt, M, N, tps, s);
 }

@@ -39,9 +39,10 @@ SIGNATURES = {
     # dtype, xg, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask,
     # windows, nW, C, nh, scale, eps, stream
     "tulip_window_msa_grouped": [_I] + [_P] * 10 + [_I] * 4 + [_F, _F, _P],
-    # dtype, act, x, out, lnw, lnb, w1, b1, w2, b2,
-    # N, C, Hd, O, residual, eps, stream
-    "tulip_two_matmul": [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+    # dtype, act, x, out, lnw, lnb, w1, b1, w2, b2, y, partial,
+    # N, C, Hd, O, residual, eps, hs, splits, resident, bn2, smem, stream
+    "tulip_two_matmul": ([_I, _I] + [_P] * 10 + [_I] * 5 + [_F] + [_I] * 5
+                         + [_P]),
     # dtype, x, out, lnw, lnb, w, N, K, O, eps, stream
     "tulip_ln_linear": [_I] + [_P] * 5 + [_I] * 3 + [_F, _P],
     # a, b, out, N, M, chunk, stream
@@ -56,9 +57,9 @@ SIGNATURES = {
     # dtype, qkv, dout, dqkv, bias, mask, part, B, H, W, C, nh, wh, ww, sh,
     # sw, nsplit, scale, stream
     "tulip_attn_bwd": [_I] + [_P] * 6 + [_I] * 10 + [_F, _P],
-    # dtype, act, x, g, lnw, lnb, w1, b1, w2, dx, y, a, dh, part,
-    # N, C, Hd, O, residual, eps, stream
-    "tulip_two_matmul_bwd": [_I, _I] + [_P] * 12 + [_I] * 5 + [_F, _P],
+    # dtype, act, x, g, lnw, lnb, w1, b1, w2, dx, y, a, dh, part, stat, dyp,
+    # N, C, Hd, O, residual, eps, dy_splits, stream
+    "tulip_two_matmul_bwd": [_I, _I] + [_P] * 14 + [_I] * 5 + [_F, _I, _P],
     # dtype, x, g, lnw, lnb, w, dx, y, part, N, K, O, eps, stream
     "tulip_ln_linear_bwd": [_I] + [_P] * 8 + [_I] * 3 + [_F, _P],
     # dtype, x, w, b, y, N, C, eps, stream
@@ -189,6 +190,14 @@ def require(t, name: str, device, dtype, shape) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_aligned(name: str, t, nbytes: int = 16) -> None:
+    """Raise unless t (or None) starts on an nbytes boundary: the
+    tensor-core kernels read their operands with 16-byte copies."""
+    if t is not None and t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must start on a {nbytes}-byte boundary "
+                         f"(storage offset {t.storage_offset()})")
 
 
 def not_cuda(x) -> ValueError:

@@ -13,6 +13,11 @@ join each pair as a ``torch.autograd.Function`` (the training path).
 
 Each wrapper takes its plain PyTorch version (``*_ref``) for a CPU tensor
 and launches its kernels for a CUDA tensor; any other device raises.
+
+In bf16 K3, K10's token pass and the weight-gradient products run on the
+tensor cores (``csrc/mma.cuh``) under the launch plans computed here
+(:func:`two_matmul_plan`, :func:`dy_splits`, ``reduce.tn_gemm_plan``); in
+fp32 they run on the FMA kernels, the parity path.
 """
 
 from __future__ import annotations
@@ -20,10 +25,74 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .reduce import colsum, tn_gemm
+from .reduce import colsum, mn_tile, tn_gemm
 from ..models.layers import gelu, layer_norm, leaky_relu, linear, wide
 
 ACTS = {"gelu": 0, "leaky": 1}
+SMEM_MAX = 232448      # shared bytes one block can use on sm_90
+# shared bytes of a block when two share an SM: (228 KB - 2 x 1 KB that the
+# system keeps per block) / 2.  K3's epilogues (bias, GELU, rounding) and
+# its waits on L2 overlap only with another block's work, and two blocks
+# per SM measured 1.2-1.7x faster than one with a longer hidden slice, the
+# splits' fp32 partial sums included (NVIDIA H100 80GB HBM3, 700 W).
+SMEM_TWO_PER_SM = (233472 - 2 * 1024) // 2
+NUM_SMS = 132          # H100 SXM: the grid size the plans aim for
+_ROWS = 64             # token rows per CTA of the tensor-core kernels
+_HID_TILE = 128        # hidden units per tile (csrc/mlp.cu kHidTile)
+_STAGES = 3            # csrc/mlp.cu kMlpStages
+_SUB = 8192            # bytes of a 64 x 64 bf16 operand tile
+
+
+def check_widths(C: int, Hd: int, O: int, residual: bool, what: str) -> None:
+    """Raise for widths the K3 / K10 kernels do not take."""
+    if C % 32 or Hd % 32 or (residual and O != C):
+        raise NotImplementedError(
+            f"{what} takes C, Hd multiples of 32 and O == C with residual; "
+            f"got C={C}, Hd={Hd}, O={O}, residual={residual}")
+
+
+def two_matmul_plan(N: int, C: int, Hd: int, O: int) -> dict:
+    """Launch plan of the bf16 tensor-core K3 (``csrc/mlp.cu``
+    two_matmul_tc_kernel), grid (row tiles, splits):
+
+    rows      token rows per CTA (64, one warpgroup);
+    resident  LN(x) is made in the kernel and kept in shared memory
+              (C <= 256), else made by a pass of its own and streamed;
+    hs        hidden units per split, a multiple of 128: as many as fit
+              beside the ring (and y) as bf16 rows when two blocks share
+              an SM (``SMEM_TWO_PER_SM``; at least two tiles fit for every
+              width), fewer when that gives about one CTA per SM;
+    splits    ceil(Hd / hs) >= 1; above 1 the splits' fp32 partial sums
+              are added in split order by a second launch;
+    bn2       output columns per tile of the second product;
+    smem      dynamic shared bytes: 1 KB alignment room + ring + a + y,
+              at most ``SMEM_TWO_PER_SM`` < ``SMEM_MAX`` for every width (a
+              wide y is streamed).  The C entry point recomputes it and
+              refuses a plan that differs."""
+    resident = C <= 256
+    stage = _HID_TILE * 128 + (0 if resident else _SUB)
+    fixed = 1024 + _STAGES * stage + (-(-C // 64) * _SUB if resident else 0)
+    fit = (SMEM_TWO_PER_SM - fixed) // (_HID_TILE * _ROWS * 2)   # tiles, >= 2
+    tiles = -(-Hd // _HID_TILE)
+    row_tiles = -(-N // _ROWS)
+    want = max(-(-tiles // fit), NUM_SMS // row_tiles)
+    per = -(-tiles // min(tiles, want))
+    splits = -(-tiles // per)
+    hs = per * _HID_TILE
+    return dict(rows=_ROWS, resident=resident, hs=hs, splits=splits,
+                bn2=16 if O <= 16 else 96 if O % 96 == 0 else 128,
+                stages=_STAGES, smem=fixed + hs * _ROWS * 2)
+
+
+def dy_splits(N: int, C: int, Hd: int) -> int:
+    """Splits of the hidden dimension in K10's dy = dh @ W1 launch (grid:
+    row tiles x column tiles x splits): 1 when the first two fill the SMs,
+    else enough for about one CTA per SM, each split at least four 64-deep
+    tiles and every tile in exactly one split."""
+    ctas = -(-N // _ROWS) * -(-C // mn_tile(C))
+    kt = -(-Hd // 64)
+    want = max(1, min(NUM_SMS // ctas, kt // 4))
+    return -(-kt // -(-kt // want))
 
 
 def fused_two_matmul_ref(x2d, lnw, lnb, w1, b1, w2, b2, *, act: str,
@@ -54,10 +123,7 @@ def fused_two_matmul(x2d, lnw, lnb, w1, b1, w2, b2, *, act: str,
         raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
     N, C = x2d.shape
     Hd, O = w1.shape[0], w2.shape[0]
-    if C % 32 or Hd % 32 or (residual and O != C):
-        raise NotImplementedError(
-            f"two_matmul kernel takes C, Hd multiples of 32 and O == C with "
-            f"residual; got C={C}, Hd={Hd}, O={O}, residual={residual}")
+    check_widths(C, Hd, O, residual, "two_matmul kernel")
     dev, d = x2d.device, x2d.dtype
     build.require(x2d, "x", dev, d, (N, C))
     build.require(w1, "w1", dev, d, (Hd, C))
@@ -70,13 +136,30 @@ def fused_two_matmul(x2d, lnw, lnb, w1, b1, w2, b2, *, act: str,
         build.require(lnb, "lnb", dev, d, (C,))
     lib = build.load()
     out = torch.empty((N, O), device=dev, dtype=d)
+    y = partial = None
+    plan = dict(hs=0, splits=0, resident=0, bn2=0, smem=0)
+    if d == torch.bfloat16:
+        if O % 8:
+            raise NotImplementedError(
+                f"bf16 two_matmul kernel takes O % 8 == 0, got O={O}")
+        for name, t in (("x", x2d), ("w1", w1), ("w2", w2), ("lnw", lnw),
+                        ("lnb", lnb)):
+            build.require_aligned(name, t)
+        plan = two_matmul_plan(N, C, Hd, O)
+        if lnw is not None and not plan["resident"]:
+            y = torch.empty_like(x2d)
+        if plan["splits"] > 1:
+            partial = torch.empty((plan["splits"], N, O), device=dev,
+                                  dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tulip_two_matmul(
             build.dtype_code(x2d), ACTS[act], x2d.data_ptr(), out.data_ptr(),
             build.ptr(lnw), build.ptr(lnb), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), build.ptr(b2), N, C, Hd, O, int(residual),
-            float(eps), stream)
+            w2.data_ptr(), build.ptr(b2), build.ptr(y), build.ptr(partial),
+            N, C, Hd, O, int(residual), float(eps), plan["hs"],
+            plan["splits"], int(plan["resident"]), plan["bn2"], plan["smem"],
+            stream)
     build.check(lib, err, "two_matmul")
     fused_two_matmul.launches += 1
     return out
@@ -188,9 +271,10 @@ def two_matmul_bwd_ref(x2d, lnw, lnb, w1, b1, w2, b2, g, *, act: str,
 def two_matmul_bwd(x2d, lnw, lnb, w1, b1, w2, b2, g, *, act: str,
                    residual: bool, eps: float = 1e-6):
     """Backward of :func:`fused_two_matmul` (K10).  CUDA: the token pass
-    (recompute, da, dh, dy, dx; scratch y, a, dh) then the weight-gradient
-    products and column sums of ``csrc/reduce.cu``.  Outputs as in
-    :func:`two_matmul_bwd_ref`."""
+    (recompute, da, dh, dy, dx; scratch y, a, dh; in bf16 also the rows' LN
+    statistics and dy in fp32, one per split of :func:`dy_splits`) then the
+    weight-gradient products and column sums of ``csrc/reduce.cu``.
+    Outputs as in :func:`two_matmul_bwd_ref`."""
     if x2d.device.type == "cpu":
         return two_matmul_bwd_ref(x2d, lnw, lnb, w1, b1, w2, b2, g, act=act,
                                   residual=residual, eps=eps)
@@ -200,10 +284,7 @@ def two_matmul_bwd(x2d, lnw, lnb, w1, b1, w2, b2, g, *, act: str,
         raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
     N, C = x2d.shape
     Hd, O = w1.shape[0], w2.shape[0]
-    if C % 32 or Hd % 32 or (residual and O != C):
-        raise NotImplementedError(
-            f"two_matmul backward takes C, Hd multiples of 32 and O == C "
-            f"with residual; got C={C}, Hd={Hd}, O={O}, residual={residual}")
+    check_widths(C, Hd, O, residual, "two_matmul backward")
     dev, d = x2d.device, x2d.dtype
     build.require(x2d, "x", dev, d, (N, C))
     build.require(g, "g", dev, d, (N, O))
@@ -214,11 +295,24 @@ def two_matmul_bwd(x2d, lnw, lnb, w1, b1, w2, b2, g, *, act: str,
         build.require(lnw, "lnw", dev, d, (C,))
         build.require(lnb, "lnb", dev, d, (C,))
     empty = lambda *shape, dt=d: torch.empty(shape, device=dev, dtype=dt)
+    f32 = torch.float32
     dx, a, dh = empty(N, C), empty(N, Hd), empty(N, Hd)
-    y = part = None
+    y = part = stat = dyp = None
+    splits = 0
     if lnw is not None:
         y = empty(N, C)
-        part = empty(-(-N // 16), 2 * C, dt=torch.float32)
+        part = empty(-(-N // 16), 2 * C, dt=f32)
+    if d == torch.bfloat16:
+        if O % 8:
+            raise NotImplementedError(
+                f"bf16 two_matmul backward takes O % 8 == 0, got O={O}")
+        for name, t in (("x", x2d), ("g", g), ("w1", w1), ("w2", w2),
+                        ("lnw", lnw), ("lnb", lnb)):
+            build.require_aligned(name, t)
+        splits = dy_splits(N, C, Hd)
+        dyp = empty(splits, N, C, dt=f32)
+        if lnw is not None:
+            stat = empty(N, 2, dt=f32)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -226,8 +320,8 @@ def two_matmul_bwd(x2d, lnw, lnb, w1, b1, w2, b2, g, *, act: str,
             build.dtype_code(x2d), ACTS[act], x2d.data_ptr(), g.data_ptr(),
             build.ptr(lnw), build.ptr(lnb), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), dx.data_ptr(), build.ptr(y), a.data_ptr(),
-            dh.data_ptr(), build.ptr(part), N, C, Hd, O, int(residual),
-            float(eps), stream)
+            dh.data_ptr(), build.ptr(part), build.ptr(stat), build.ptr(dyp),
+            N, C, Hd, O, int(residual), float(eps), splits, stream)
     build.check(lib, err, "two_matmul_bwd")
     dlnw = dlnb = None
     if lnw is not None:

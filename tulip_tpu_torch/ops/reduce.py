@@ -13,7 +13,33 @@ import torch
 from . import build
 
 _COL_BLOCK_ROWS = 256      # csrc/reduce.cu kColBlockRows
-_TARGET_BLOCKS = 1056      # eight waves of 132 SMs
+# blocks tn_gemm aims for: eight waves of 132 SMs of the fp32 FMA kernel,
+# two of the bf16 tensor-core kernel (fewer, longer splits: less fp32
+# partial output to write and to sum)
+_TARGET_BLOCKS = {torch.float32: 1056, torch.bfloat16: 264}
+# csrc/reduce.cu: tokens per staged slice and output tile (rows, columns) of
+# the fp32 FMA kernel; the bf16 tensor-core kernel takes 64-token slices and
+# 64 x 192 tiles where 192 divides N, else 64 x 128
+_SLICE = {torch.float32: 16, torch.bfloat16: 64}
+
+
+def mn_tile(n: int) -> int:
+    """Output columns per CTA of the bf16 products whose weight operand is
+    read down its columns (csrc/mlp_bwd.cu dy, csrc/reduce.cu tn_gemm)."""
+    return 192 if n % 192 == 0 else 128
+
+
+def tn_gemm_plan(T: int, M: int, N: int, dtype) -> tuple[int, int]:
+    """(splits, tokens per split) of :func:`tn_gemm`: about
+    ``_TARGET_BLOCKS[dtype]`` blocks, at least 256 tokens per split, every
+    token in exactly one split, tokens per split a multiple of the
+    kernel's slice."""
+    bn = mn_tile(N) if dtype == torch.bfloat16 else 64
+    tiles = -(-M // 64) * -(-N // bn)
+    splits = max(1, min(-(-_TARGET_BLOCKS[dtype] // tiles), -(-T // 256)))
+    slice_ = _SLICE[dtype]
+    tps = -(-(-(-T // splits)) // slice_) * slice_
+    return -(-T // tps), tps
 
 
 def colsum(t: torch.Tensor) -> torch.Tensor:
@@ -37,16 +63,18 @@ def colsum(t: torch.Tensor) -> torch.Tensor:
 
 def tn_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a.T @ b over the token axis, fp32: a (T, M), b (T, N) -> (M, N).
-    The token axis is split so that about eight waves of blocks run; the
-    splits' partials are summed by :func:`colsum`."""
+    The token axis is split (:func:`tn_gemm_plan`); the splits' partials
+    are summed by :func:`colsum` in split order."""
     T, M = a.shape
     N = b.shape[1]
     build.require(b, "tn_gemm b", a.device, a.dtype, (T, N))
-    tiles = -(-M // 64) * -(-N // 64)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-T // 256)))
-    tps = -(-T // splits)
-    tps = -(-tps // 16) * 16
-    splits = -(-T // tps)
+    if a.dtype == torch.bfloat16:
+        if M % 8 or N % 8:
+            raise NotImplementedError(
+                f"bf16 tn_gemm takes M, N multiples of 8; got M={M}, N={N}")
+        build.require_aligned("tn_gemm a", a)
+        build.require_aligned("tn_gemm b", b)
+    splits, tps = tn_gemm_plan(T, M, N, a.dtype)
     part = torch.empty((splits, M, N), device=a.device, dtype=torch.float32)
     lib = build.load()
     with torch.cuda.device(a.device):

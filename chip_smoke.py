@@ -7,7 +7,9 @@
 Phases, one line or more each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
-2. build: nvcc compiles tulip_tpu_torch/csrc/*.cu for sm_90a.
+2. build: nvcc compiles tulip_tpu_torch/csrc/*.cu for sm_90a; the bf16
+   tensor-core kernels (K3, K10, tn_gemm and the attention half-block of K1,
+   K2, K12, K13) must hold HGMMA instructions in their SASS.
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
@@ -34,7 +36,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    drawn from a device generator, AdamW (lr 5e-4, wd 0.01, warmup-cosine
    LR of bash_scripts/tulip_upsampling_durlar.sh), 20 steps through the
    port's train_one_epoch: finite losses, the launches per step of every
-   kernel (K1/K2 none), median step ms, img/s, peak memory; 10 steps on one
+   kernel (K1/K2 none), median step ms, img/s, peak memory; the loop's ms
+   per step with --pin_mem and with --no_pin_mem; 10 steps on one
    repeated batch, drop-path off, constant LR: the last loss below the
    first; and the whole step at batch 1 (drop-path 0) against the same
    step on the CPU through the plain versions: fp32 loss within 1e-4
@@ -58,9 +61,13 @@ Phases, one line or more each; any failure raises and exits non-zero:
    --epochs 1, exit code 0); and the train step's median ms with and
    without TULIP_TPU_LN_PALLAS=1.
 
-Phase 3 also holds K12 (the grouped window-major entry, four stages,
-shifted and not) and K13 (the natural row-strip entry, the stages with more
-than 8 heads) at batch 2, and K14 / K15 (LayerNorm forward and backward: y,
+Phase 3 also holds K1 / K2 in bf16 at batch 1 and 8 (the tensor-core
+kernel's head splits differ by batch) and at token counts that leave a last
+tile of 16, 32 or 48 rows, with shifts that wrap inside one tile; K12 (the
+grouped window-major entry, four stages, shifted and not) and K13 (the
+natural row-strip entry, the stages with more than 8 heads) at batch 2 and,
+in bf16, batch 8; every bf16 case of K1, K2, K3, K10, K12, K13 twice for
+the same bits; and K14 / K15 (LayerNorm forward and backward: y,
 dx, dw, db) at the four norm1 shapes of the batch-8 train step, against
 their plain versions; beside K14 / K15 it times F.layer_norm and its
 backward, beside K8 / K9 F.scaled_dot_product_attention and its backward,
@@ -151,10 +158,13 @@ CLI_KERNELS = ("window_msa_grouped", "window_msa_nat", "ln_fwd", "ln_bwd")
 # launches per train step of the command line with TULIP_TPU_LN_PALLAS=1
 PER_STEP_CLI = dict(PER_STEP, ln_fwd=14, ln_bwd=14)
 CLI_BATCH, CLI_TRAIN, CLI_VAL = 8, 16, 4
-# the bf16 kernels of K3, K10 (token pass) and the weight-gradient product,
-# whose products must be tensor-core instructions (HGMMA in the SASS)
+# the bf16 kernels of K3, K10 (token pass), the weight-gradient product and
+# the attention half-block (K1, K2, K12, K13), whose products must be
+# tensor-core instructions (HGMMA in the SASS; the attention core's 16 x 16
+# products are warp-level HMMA, counted beside them)
 TENSOR_CORE_KERNELS = ("two_matmul_tc_kernel", "mlp_bwd_hidden_kernel",
-                       "mlp_bwd_dy_kernel", "tn_gemm_tc_kernel")
+                       "mlp_bwd_dy_kernel", "tn_gemm_tc_kernel",
+                       "window_msa_tc_kernel")
 PAIR_OPS = 8   # operations per point pair of a nearest-neighbour sweep
 # chamfer kernels against their plain versions: the kernel fuses two FMAs
 # where the plain version rounds each product and sum, <= 2 ulp (1.2e-7
@@ -267,14 +277,75 @@ def compare(torch, out, ref):
     return errs, abs_err
 
 
+def msa_inputs(torch, device, to, rn, batch, H, W, C, nh, shifted):
+    """(x, [lnw, lnb, wqkv, bqkv, wproj, bproj], bias, mask) of one attention
+    half-block on a (batch, H, W, C) grid of 2 x 8 windows, drawn from rn in
+    this order; mask is the (1, 4)-shift mask, or None unshifted."""
+    from tulip_tpu_torch.models import layers as L
+    x = to(rn(batch, H, W, C))
+    args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
+            to(rn(3 * C, C, scale=C ** -0.5)), to(rn(3 * C, scale=0.1)),
+            to(rn(C, C, scale=C ** -0.5)), to(rn(C, scale=0.1))]
+    idx = torch.as_tensor(L.relative_position_index((2, 8))).reshape(-1)
+    bias = rn(45, nh, scale=0.5)[idx].reshape(16, 16, nh)
+    bias = bias.permute(2, 0, 1).contiguous().to(device)
+    mask = (torch.as_tensor(L.shift_attention_mask(
+        (H, W), (2, 8), (1, 4))).to(device) if shifted else None)
+    return x, args, bias, mask
+
+
+def window_msa_case(torch, device, to, rn, dn, e, batch, H, W, C, nh, shifted,
+                    on_path, what=""):
+    """One case of the default entry (K1: heads <= 8, K2: more)."""
+    from tulip_tpu_torch.ops import window_msa as wm
+    x, args, bias, mask = msa_inputs(torch, device, to, rn, batch, H, W, C,
+                                     nh, shifted)
+    shift = (1, 4) if shifted else (0, 0)
+    kw = dict(window=(2, 8), shift=shift, eps=1e-6)
+    k = "K2" if nh > 8 else "K1"
+    label = (f"window_msa {k} {dn} {what}B={batch} grid={H}x{W} C={C} "
+             f"nh={nh} shift={shift}")
+    return ("window_msa", k, label,
+            lambda: wm.window_msa(x, *args, bias, mask, **kw),
+            lambda: wm.window_msa_ref(x, *args, bias, mask, **kw), on_path,
+            dict(work=work_msa(batch * H * W, C, nh,
+                               0 if mask is None else mask.shape[0], e)))
+
+
+def more_window_msa_cases(torch, device):
+    """K1 / K2 in bf16 beyond batch 2: the batch-1 and batch-8 forwards'
+    shapes (the tensor-core kernel's head splits differ by batch), then
+    shapes the flagship never gives: last tiles of 16, 32 and 48 tokens (a
+    256-wide input's stage 3 is a 4 x 8 or 2 x 8 grid), a tile that ends
+    inside an image, and shifts that wrap both axes inside one 64-row
+    tile."""
+    g = torch.Generator().manual_seed(5)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    to = lambda t: t.to(device=device, dtype=torch.bfloat16)
+    cases = [window_msa_case(torch, device, to, rn, "bfloat16", 2, batch, H,
+                             W, C, nh, shifted, True)
+             for batch in (8, 1) for (H, W), C, nh in STAGES
+             for shifted in (False, True)]
+    for batch, H, W, C, nh, shifted in (
+            (1, 2, 8, 768, 24, False), (1, 4, 8, 768, 24, True),
+            (3, 2, 8, 768, 24, False), (5, 2, 8, 96, 3, False),
+            (1, 4, 16, 384, 12, True), (2, 4, 32, 192, 6, True)):
+        cases.append(window_msa_case(
+            torch, device, to, rn, "bfloat16", 2, batch, H, W, C, nh,
+            shifted, False, what=f"T%64={batch * H * W % 64} "))
+    return cases
+
+
 def kernel_cases(torch, device, batch=2, stages=STAGES):
     """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path, extra)
     at the main path's shapes (on_path False for a case the forward never
     runs), with inputs drawn from one seeded generator.  extra: work =
     (bytes, flops) of the case and, where one PyTorch call computes the
     same function, library = that call."""
-    from tulip_tpu_torch.models import layers as L
-    from tulip_tpu_torch.ops import mlp, window_msa as wm
+    from tulip_tpu_torch.ops import mlp
 
     g = torch.Generator().manual_seed(0)
 
@@ -286,34 +357,9 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
         dn = str(dtype).replace("torch.", "")
         to = lambda t: t.to(device=device, dtype=dtype)
         e = 2 if dtype == torch.bfloat16 else 4
-        for (H, W), C, nh in stages:
-            for shifted in (False, True):
-                shift = (1, 4) if shifted else (0, 0)
-                x = to(rn(batch, H, W, C))
-                args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
-                        to(rn(3 * C, C, scale=C ** -0.5)),
-                        to(rn(3 * C, scale=0.1)),
-                        to(rn(C, C, scale=C ** -0.5)), to(rn(C, scale=0.1))]
-                idx = torch.as_tensor(L.relative_position_index((2, 8)))
-                bias = rn(45, nh, scale=0.5)[idx.reshape(-1)]
-                bias = bias.reshape(16, 16, nh).permute(2, 0, 1).contiguous()
-                mask = (torch.as_tensor(L.shift_attention_mask(
-                    (H, W), (2, 8), (1, 4))) if shifted else None)
-                bias = bias.to(device)
-                mask = None if mask is None else mask.to(device)
-                kw = dict(window=(2, 8), shift=shift, eps=1e-6)
-                k = "K2" if nh > 8 else "K1"
-                label = (f"window_msa {k} {dn} B={batch} grid={H}x{W} C={C} "
-                         f"nh={nh} shift={shift}")
-                cases.append((
-                    "window_msa", k, label,
-                    lambda x=x, a=args, b=bias, m=mask, kw=kw:
-                        wm.window_msa(x, *a, b, m, **kw),
-                    lambda x=x, a=args, b=bias, m=mask, kw=kw:
-                        wm.window_msa_ref(x, *a, b, m, **kw), True,
-                    dict(work=work_msa(
-                        batch * H * W, C, nh,
-                        0 if mask is None else mask.shape[0], e))))
+        cases += [window_msa_case(torch, device, to, rn, dn, e, batch, H, W,
+                                  C, nh, shifted, True)
+                  for (H, W), C, nh in stages for shifted in (False, True)]
         cases += two_matmul_cases(to, rn, dn, e, batch, stages)
         x, args = cases[-1][-1]["inputs"]
         N, C = x.shape
@@ -430,11 +476,13 @@ def more_two_matmul_cases(torch, device):
 
 def check_deterministic(torch, device, cases):
     """K3, K10 (its token pass, its weight-gradient products and column
-    sums) and tn_gemm on their own: two runs on the same inputs must give
+    sums), the attention half-block through its three entries (K1, K2, K12,
+    K13) and tn_gemm on their own: two runs on the same inputs must give
     the same bits (no atomics, every cross-block sum in a fixed order)."""
     from tulip_tpu_torch.ops import reduce as R
     runs = [(label, kfn) for kernel, _, label, kfn, *_ in cases
-            if kernel in ("two_matmul", "two_matmul_bwd")
+            if kernel in ("two_matmul", "two_matmul_bwd", "window_msa",
+                          "window_msa_grouped", "window_msa_nat")
             and "bfloat16" in label]
     g = torch.Generator().manual_seed(4)
     for T, M, N in ((131072, 384, 96), (2048, 3072, 768), (1000, 16, 1536)):
@@ -452,27 +500,31 @@ def check_deterministic(torch, device, cases):
                    if p is not None):
             differ.append(label)
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
-          f"K3 / K10 / tn_gemm cases bit-identical over two runs",
-          flush=True)
+          f"K3 / K10 / K1 / K2 / K12 / K13 / tn_gemm cases bit-identical "
+          f"over two runs", flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
 
 
 def tensor_core_instructions(build):
-    """{kernel: count of HGMMA instructions} that cuobjdump -sass finds in
-    the bf16 MLP kernels of the built library."""
+    """({kernel: count of HGMMA instructions}, {kernel: count of HMMA}) that
+    cuobjdump -sass finds in the bf16 tensor-core kernels of the built
+    library, every instantiation of a template counted together."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     counts = dict.fromkeys(TENSOR_CORE_KERNELS, 0)
+    warp_level = dict.fromkeys(TENSOR_CORE_KERNELS, 0)
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
             current = next((k for k in counts if k in line), None)
         elif current and "HGMMA" in line:
             counts[current] += 1
-    return counts
+        elif current and "HMMA" in line:
+            warp_level[current] += 1
+    return counts, warp_level
 
 
 def kink_guard(torch, x, args, gr, to, rn):
@@ -600,16 +652,17 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
 
 
 def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
-                        stages=STAGES):
+                        stages=STAGES, layouts_only=False):
     """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path, extra)
     for K12 (grouped window-major MSA, all four stages, shifted and not),
     K13 (natural row-strip MSA, the stages with more than 8 heads) at batch
     2, and K14 / K15 (LayerNorm forward / backward: y; dx, dw, db) at the
     four norm1 shapes of the batch-8 train step, with fp32 w and b as the
     train step holds them.  The library call beside K14 / K15 is
-    F.layer_norm and its backward on the same tensors."""
+    F.layer_norm and its backward on the same tensors.  layouts_only: the
+    bf16 K12 / K13 cases alone, off the path (the layout switches are
+    driven at batch 2)."""
     import torch.nn.functional as F
-    from tulip_tpu_torch.models import layers as L
     from tulip_tpu_torch.ops import ln, window_msa as wm
 
     g = torch.Generator().manual_seed(2)
@@ -618,22 +671,15 @@ def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
         return torch.randn(*shape, generator=g) * scale + shift
 
     cases = []
-    idx = torch.as_tensor(L.relative_position_index((2, 8))).reshape(-1)
-    for dtype in (torch.bfloat16, torch.float32):
+    dtypes = (torch.bfloat16,) + (() if layouts_only else (torch.float32,))
+    for dtype in dtypes:
         dn = str(dtype).replace("torch.", "")
         to = lambda t: t.to(device=device, dtype=dtype)
         e = 2 if dtype == torch.bfloat16 else 4
         for (H, W), C, nh in stages:
             for shifted in (False, True):
-                x = to(rn(batch, H, W, C))
-                args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
-                        to(rn(3 * C, C, scale=C ** -0.5)),
-                        to(rn(3 * C, scale=0.1)),
-                        to(rn(C, C, scale=C ** -0.5)), to(rn(C, scale=0.1))]
-                bias = rn(45, nh, scale=0.5)[idx].reshape(16, 16, nh)
-                bias = bias.permute(2, 0, 1).contiguous().to(device)
-                mask = (torch.as_tensor(L.shift_attention_mask(
-                    (H, W), (2, 8), (1, 4))).to(device) if shifted else None)
+                x, args, bias, mask = msa_inputs(torch, device, to, rn, batch,
+                                                 H, W, C, nh, shifted)
                 work = work_msa(batch * H * W, C, nh,
                                 0 if mask is None else mask.shape[0], e)
                 what = (f"{dn} B={batch} grid={H}x{W} C={C} nh={nh} "
@@ -646,7 +692,7 @@ def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
                         wm.window_msa_grouped(xg, *a, b, m, eps=1e-6),
                     lambda xg=xg, a=args, b=bias, m=mask:
                         wm.window_msa_grouped_ref(xg, *a, b, m, eps=1e-6),
-                    True, dict(work=work)))
+                    not layouts_only, dict(work=work)))
                 if nh <= 8:
                     continue
                 x4 = x.reshape(batch * (H // 2), 2, W, C)
@@ -657,7 +703,9 @@ def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
                         wm.window_msa_nat(x4, *a, b, m, nH=n, eps=1e-6),
                     lambda x4=x4, a=args, b=bias, m=mask, n=H // 2:
                         wm.window_msa_nat_ref(x4, *a, b, m, nH=n, eps=1e-6),
-                    True, dict(work=work)))
+                    not layouts_only, dict(work=work)))
+        if layouts_only:
+            continue
         for (H, W), C, nh in stages:
             N = train_batch * H * W
             x = to(rn(N, C, scale=2.0, shift=0.5))
@@ -1204,6 +1252,21 @@ def run_train_phase(torch, dev, data_root, weights):
                   img_per_s=TRAIN_BATCH / med, peak_mib=peak / 2 ** 20,
                   losses=vals)
 
+    # --pin_mem (the default) against --no_pin_mem: the loop from one step's
+    # start to the next, which holds the batch's copy to the card
+    del model, step
+    torch.cuda.empty_cache()
+    pin = {True: [], False: []}
+    for on in (True, False, False, True):
+        pin[on].append(timed_steps(torch, dev, weights, batches, 10, False,
+                                   pin_mem=on, whole_loop=True))
+    print(f"train loop, batch {TRAIN_BATCH}, bf16, median ms from step start "
+          f"to step start of 7 intervals, runs in the order pinned, not, "
+          f"not, pinned: --pin_mem {pin[True][0]:.2f} / {pin[True][1]:.2f}, "
+          f"--no_pin_mem {pin[False][0]:.2f} / {pin[False][1]:.2f}",
+          flush=True)
+    report["loop_ms"] = dict(pin_mem=pin[True], no_pin_mem=pin[False])
+
     # one repeated batch, drop-path off, constant LR: the loss falls
     model = fresh(0.1)
     step = make_train_step(model, make_optimizer(model, 0.01),
@@ -1314,11 +1377,14 @@ def read_log(out_dir):
         return [json.loads(line) for line in f]
 
 
-def timed_steps(torch, dev, weights, batches, n_steps, ln_kernels):
+def timed_steps(torch, dev, weights, batches, n_steps, ln_kernels,
+                pin_mem=True, whole_loop=False):
     """Median ms of n_steps bf16 train steps of batch TRAIN_BATCH through
     train_one_epoch (the protocol of phase 7: a synchronise around every
     step, the first two steps left out), with or without norm1 through the
-    LayerNorm kernels."""
+    LayerNorm kernels.  whole_loop: the median ms from one step's start to
+    the next one's instead, which also holds the loop's host work and the
+    batch's copy to the card (pinned first or not: pin_mem)."""
     from tulip_tpu_torch.models.tulip import tulip_base
     from tulip_tpu_torch.train.engine import train_one_epoch
     from tulip_tpu_torch.train.step import make_optimizer, make_train_step
@@ -1331,11 +1397,12 @@ def timed_steps(torch, dev, weights, batches, n_steps, ln_kernels):
     model = model.to(dev)
     step = make_train_step(model, make_optimizer(model, 0.01),
                            compute_dtype=torch.bfloat16)
-    times = []
+    times, starts = [], []
 
     def timed_step(low, high, lr, generator):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        starts.append(t0)
         out = step(low, high, lr, generator)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
@@ -1343,10 +1410,12 @@ def timed_steps(torch, dev, weights, batches, n_steps, ln_kernels):
 
     args = types.SimpleNamespace(accum_iter=1, lr=5e-4, min_lr=0.0,
                                  warmup_epochs=60, epochs=600, seed=0,
-                                 log_transform=True)
+                                 log_transform=True, pin_mem=pin_mem)
     loader = (batches * n_steps)[:n_steps]
     train_one_epoch(timed_step, loader, 0, device=dev, args=args)
     os.environ.pop("TULIP_TPU_LN_PALLAS", None)
+    if whole_loop:
+        return statistics.median(np.diff(starts[2:])) * 1e3
     return statistics.median(times[2:]) * 1e3
 
 
@@ -1534,13 +1603,25 @@ def run_cli_phase(torch, dev, weights):
     return report
 
 
+# kernel-name substring -> class of the profile's summary line; a name that
+# matches none is PyTorch's own
+PROFILE_CLASSES = {
+    "window_msa": "K1/K2 attention half-block (its sum pass included)",
+    "two_matmul": "K3", "ln_linear_bwd": "K11", "ln_linear": "K4",
+    "attn_": "K8/K9", "mlp_bwd": "K10 token pass",
+    "tn_gemm": "weight gradients", "colsum": "weight gradients",
+    "ln_rows": "LN passes of K3 / K10", "tulip": "other kernels of the port"}
+
+
 def profile_paths(torch, dev):
     """``python3 chip_smoke.py --profile``: torch.profiler over the bf16
     inference forward (batch 1 and 8, 5 forwards each) and 3 bf16 train
     steps of batch 8, all at the flagship size after a warm-up: per path
     the wall ms per iteration, the device's busy share and the device ms
     per iteration of every kernel name above 0.5 % (the port's kernels by
-    their C++ names, the rest by PyTorch's), then k3_plan_ab.  Also
+    their C++ names, the rest by PyTorch's; the attention half-block's
+    kernels whatever their share) and the sums by PROFILE_CLASSES, then
+    k3_plan_ab.  Also
     written to chiprun_out/profile.json.  No check, no kernel table: the default run
     does those."""
     from torch.autograd import DeviceType
@@ -1580,10 +1661,17 @@ def profile_paths(torch, dev):
               f"{100 * busy / wall:.1f} % of it, {sum(r[2] for r in rows):.0f}"
               f" kernel launches per iteration", flush=True)
         for key, ms, n in rows:
-            if ms >= 0.005 * busy:
+            if ms >= 0.005 * busy or "window_msa" in key:
                 print(f"  {ms:8.3f} ms {100 * ms / busy:5.1f} % x{n:<5.0f} "
                       f"{key[:100]}", flush=True)
-        report[name] = dict(wall_ms=wall, device_ms=busy,
+        classes = dict.fromkeys([*PROFILE_CLASSES.values(), "PyTorch"], 0.0)
+        for key, ms, n in rows:
+            classes[next((c for sub, c in PROFILE_CLASSES.items()
+                          if sub in key), "PyTorch")] += ms
+        print(f"  by class, ms per iteration: "
+              f"{ {c: round(ms, 3) for c, ms in classes.items() if ms} }",
+              flush=True)
+        report[name] = dict(wall_ms=wall, device_ms=busy, classes=classes,
                             kernels=[dict(name=k, ms=ms, launches=n)
                                      for k, ms, n in rows])
 
@@ -1682,23 +1770,25 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    hgmma = tensor_core_instructions(build)
-    print(f"build: tensor-core instructions (HGMMA) in the bf16 MLP "
-          f"kernels: {hgmma}", flush=True)
+    hgmma, hmma = tensor_core_instructions(build)
+    print(f"build: tensor-core instructions in the bf16 kernels: HGMMA "
+          f"{hgmma}, HMMA (mma.sync) {hmma}", flush=True)
     if not all(hgmma.values()):
-        raise SystemExit(f"a bf16 MLP kernel holds no HGMMA: {hgmma}")
+        raise SystemExit(f"a bf16 tensor-core kernel holds no HGMMA: {hgmma}")
 
     # -- 3. kernels vs plain ----------------------------------------------
     cases = kernel_cases(torch, dev)
     table = check_kernel_cases(torch, [c + (10,) for c in cases])
     more = more_two_matmul_cases(torch, dev)
+    more += more_window_msa_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (10,) for c in more])
     train_cases = train_kernel_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (5,) for c in train_cases])
-    check_deterministic(torch, dev, cases + more + train_cases)
-    del cases, more, train_cases
-    table += check_kernel_cases(
-        torch, [c + (10,) for c in layout_and_ln_cases(torch, dev)])
+    layouts = layout_and_ln_cases(torch, dev)
+    layouts += layout_and_ln_cases(torch, dev, batch=8, layouts_only=True)
+    table += check_kernel_cases(torch, [c + (10,) for c in layouts])
+    check_deterministic(torch, dev, cases + more + train_cases + layouts)
+    del cases, more, train_cases, layouts
     table += chamfer_checks(torch, dev)
     bad = [r["label"] for r in table if not r["ok"]]
     if bad:

@@ -317,3 +317,65 @@ def test_train_one_epoch_exits_on_a_nan_loss():
     with pytest.raises(SystemExit) as e:
         TE.train_one_epoch(nan, [batch] * 2, 0, device="cpu", args=_args())
     assert e.value.code == 1
+
+
+# ---------------------------------------------------------------------------
+# --pin_mem / --no_pin_mem
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("flags,want", [([], True), (["--pin_mem"], True),
+                                        (["--no_pin_mem"], False)])
+def test_pin_mem_flag_reaches_the_engine(monkeypatch, flags, want):
+    """The parsed flag is what train_one_epoch hands to batch_to_device for
+    both tensors of every batch."""
+    from tulip_tpu_torch.config import get_args_parser
+    args = get_args_parser().parse_args(
+        ["--epochs", "4", "--warmup_epochs", "2", "--lr", "5e-4", *flags])
+    assert args.pin_mem is want
+    seen = []
+    orig = TE.batch_to_device
+
+    def recording(array, device, pin_mem):
+        seen.append(pin_mem)
+        return orig(array, device, pin_mem)
+
+    monkeypatch.setattr(TE, "batch_to_device", recording)
+    batch = ({"sample": np.zeros((1, 1, 16, 256), np.float32)},
+             {"sample": np.zeros((1, 1, 64, 256), np.float32)})
+    step = lambda low, high, lr, g: (torch.tensor(0.5), torch.tensor(0.25))
+    TE.train_one_epoch(step, [batch] * 2, 0, device="cpu", args=args)
+    assert seen == [want] * 4
+
+
+def test_batch_to_device_on_the_cpu_copies_nothing_and_pins_nothing():
+    a = np.arange(12, dtype=np.float64).reshape(3, 4)[:, ::2]   # strided
+    for pin in (True, False):
+        t = TE.batch_to_device(a, "cpu", pin)
+        assert t.dtype == torch.float32 and t.device.type == "cpu"
+        assert not t.is_pinned()
+        np.testing.assert_array_equal(t.numpy(), a.astype(np.float32))
+    # a device that is neither the CPU nor CUDA takes the plain copy
+    assert TE.batch_to_device(a, "meta", True).device.type == "meta"
+
+
+def test_no_pin_mem_gives_the_same_first_step_loss_on_the_cpu(setup):
+    cfg, params, batches = setup
+    low, high = batches[0]
+    batch = ({"sample": low}, {"sample": high})
+    losses = {}
+    for pin in (True, False):
+        model = TT.TULIP(model_config("tulip_base", **KW))
+        load_jax_params(model, params)
+        step = TS.make_train_step(model, TS.make_optimizer(model, WD),
+                                  compute_dtype=torch.float32)
+        got = []
+
+        def recording_step(x, t, lr, generator):
+            out = step(x, t, lr, generator)
+            got.append(out[0].item())
+            return out
+
+        TE.train_one_epoch(recording_step, [batch], 0, device="cpu",
+                           args=_args(pin_mem=pin))
+        losses[pin] = got[0]
+    assert np.isfinite(losses[True]) and losses[True] == losses[False]

@@ -231,3 +231,232 @@ def test_new_entries_refuse_other_devices_and_bad_shapes():
         TW.window_msa_grouped(z(1, 2, 24, 96), *wz, None, eps=1e-6)
     with pytest.raises(ValueError, match="whole images"):
         TW.window_msa_nat(z(3, 2, 16, 96), *wz, None, nH=2, eps=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernel's launch plan, row map and split sum
+# (csrc/window_msa.cu window_msa_tc_kernel / window_msa_sum_kernel): the
+# kernel runs only on the card, its plan and addressing are plain Python
+# ---------------------------------------------------------------------------
+
+SMEM_MAX = 232448                     # shared bytes a block can use on sm_90
+# (tokens of one image, C, heads) of every stage
+BASE_2048 = [(32 * 512, 96, 3), (16 * 256, 192, 6), (8 * 128, 384, 12),
+             (4 * 64, 768, 24)]       # TULIP-base, 32 x 2048
+LARGE_2048 = BASE_2048 + [(2 * 32, 1536, 48)]        # TULIP-large
+BASE_256 = [(32 * 64, 96, 3), (16 * 32, 192, 6), (8 * 16, 384, 12),
+            (4 * 8, 768, 24)]         # the W = 256 dry-run geometry
+BASE_16x256 = [(16 * 64, 96, 3), (8 * 32, 192, 6), (4 * 16, 384, 12),
+               (2 * 8, 768, 24)]      # the same with a 16-row input
+PLAN_SHAPES = sorted({(t * b, c, nh)
+                      for stages in (LARGE_2048, BASE_256, BASE_16x256)
+                      for t, c, nh in stages for b in (1, 2, 8)})
+
+
+def _min_splits(C, nh):
+    """Fewest head splits whose block fits shared memory with 3 stages."""
+    return next(s for s in range(1, nh + 1)
+                if TW.plan_smem(C, -(-nh // s), 3) <= SMEM_MAX)
+
+
+@pytest.mark.parametrize("T,C,nh", PLAN_SHAPES)
+def test_plan_fits_and_covers(T, C, nh):
+    p = TW.window_msa_plan(T, C, nh)
+    assert p["rows"] == 64 and p["stages"] in (3, 4)
+    assert p["smem"] == TW.plan_smem(C, p["hs"], p["stages"]) <= SMEM_MAX
+    assert p["resident"] == (C <= 1024)
+    # every head in exactly one split
+    heads = [h for s in range(p["splits"])
+             for h in range(s * p["hs"], min((s + 1) * p["hs"], nh))]
+    assert heads == list(range(nh)) and p["hs"] * (p["splits"] - 1) < nh
+    assert p["sum_launch"] == (p["splits"] > 1)
+    # every token row in exactly one tile
+    tiles = -(-T // p["rows"])
+    rows = [r for t in range(tiles)
+            for r in range(t * 64, min((t + 1) * 64, T))]
+    assert rows == list(range(T))
+    # no split beyond what shared memory forces where the rows fill the
+    # card, nor at the byte-bound widths
+    forced = _min_splits(C, nh)
+    assert p["splits"] >= forced
+    if tiles >= 132 or C < 384:
+        assert p["splits"] == forced
+        assert forced == 1 or C >= 768
+    # the partial sums stay under the stated cap unless forced
+    if p["splits"] > forced:
+        assert p["splits"] * T * C * 4 <= TW.PARTIAL_CAP == 32 << 20
+
+
+def test_plan_splits_more_where_rows_are_few():
+    """Stage 3 (C 768, 24 heads): always at least the two splits that
+    shared memory forces; about one CTA per SM below that."""
+    assert _min_splits(768, 24) == 2 and _min_splits(384, 12) == 1
+    b1, b8 = (TW.window_msa_plan(256 * b, 768, 24) for b in (1, 8))
+    assert b1["splits"] > b8["splits"] >= 2
+    for b, p in ((1, b1), (8, b8)):
+        assert -(-256 * b // 64) * p["splits"] <= 132
+    big = TW.window_msa_plan(256 * 64, 768, 24)      # 256 row tiles
+    assert big["splits"] == 2
+
+
+@pytest.mark.parametrize("nh", [1, 2, 5, 31, 32, 33, 64, 2048])
+def test_plan_has_room_at_every_width(nh):
+    """Up to C = 1,024 y stays resident and leaves room for 14 heads' ao;
+    wider rows are streamed, so no width is refused for shared memory."""
+    p = TW.window_msa_plan(64, 32 * nh, nh)
+    assert 1 <= p["hs"] <= nh and p["smem"] <= SMEM_MAX
+    assert p["resident"] == (nh <= 32)
+
+
+@pytest.mark.parametrize("B,H,W,C,nh", [(2, 8, 128, 384, 12),
+                                        (1, 4, 64, 768, 24),
+                                        (2, 4, 64, 96, 3)])
+def test_the_three_entries_take_one_plan(B, H, W, C, nh):
+    """window_msa, window_msa_grouped and window_msa_nat hand _plan_args
+    the same (T, C, nh) for the same tokens, so their split sums run in the
+    same order; in bf16 the scratch is what the plan says, in fp32 none."""
+    x = torch.zeros(B, H, W, C, dtype=torch.bfloat16)
+    params = [torch.zeros(s, dtype=torch.bfloat16)
+              for s in ((C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,))]
+    bias = torch.zeros(nh, 16, 16)
+    xg = TW.group_partition(x, (2, 8), 8).contiguous()
+    x4 = x.reshape(B * (H // 2), 2, W, C)
+    n, Cg = TW._as_windows(xg, 16)
+    Bn, Hn, Wn, Cn, window = TW._nat_grid(x4, bias, H // 2)
+    assert (n * 16, Cg) == (Bn * Hn * Wn, Cn) == (B * H * W, C)
+    assert window == (2, 8)
+    plan = TW.window_msa_plan(B * H * W, C, nh)
+    for t, T in ((x, B * H * W), (xg, n * 16), (x4, Bn * Hn * Wn)):
+        y, partial, ints = TW._plan_args(t, T, C, nh, params)
+        assert ints == (plan["hs"], plan["splits"], plan["stages"],
+                        plan["smem"])
+        assert y is None
+        if plan["sum_launch"]:
+            assert partial.shape == (plan["splits"], T, C)
+            assert partial.dtype == torch.float32
+        else:
+            assert partial is None
+    assert TW._plan_args(x.float(), B * H * W, C, nh,
+                         [p.float() for p in params]) == (None, None,
+                                                          (0, 0, 0, 0))
+
+
+def test_plan_args_streams_a_wide_y_and_wants_aligned_operands():
+    C, nh, T = 1536, 48, 64
+    x = torch.zeros(1, 2, 32, C, dtype=torch.bfloat16)
+    params = [torch.zeros(s, dtype=torch.bfloat16)
+              for s in ((C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,))]
+    y, partial, ints = TW._plan_args(x, T, C, nh, params)
+    assert y.shape == (T, C) and y.dtype == torch.bfloat16
+    assert partial.shape[0] == ints[1] > 1
+    off = torch.zeros(C + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        TW._plan_args(x, T, C, nh, [off] + params[1:])
+
+
+def _tile_row_map(B, H, W, wh, ww, sh, sw):
+    """csrc/window_msa.cu msa_token_offset over whole 64-row tiles: tile row
+    16 w + t of tile n is token t of window 4 n + w (windows counted over
+    the batch), read at ((i wh + t / ww + sh) % H, (j ww + t % ww + sw) % W)
+    of its image; -1 past the last token.  Returns (tiles, 64) flat token
+    indices (offset / C)."""
+    nWw, nW, T = W // ww, (H // wh) * (W // ww), B * H * W
+    tiles = -(-T // 64)
+    out = np.full((tiles, 64), -1, np.int64)
+    for n in range(tiles):
+        for w in range(4):
+            for t in range(16):
+                rg = n * 64 + 16 * w + t
+                if rg >= T:
+                    continue
+                wg = rg >> 4
+                b, win = divmod(wg, nW)
+                i, j = divmod(win, nWw)
+                row = (i * wh + t // ww + sh) % H
+                col = (j * ww + t % ww + sw) % W
+                out[n, 16 * w + t] = (b * H + row) * W + col
+    return out
+
+
+@pytest.mark.parametrize("B,H,W,window,shift", [
+    (1, 2, 8, (2, 8), (0, 0)),       # 16 tokens: a quarter tile
+    (1, 4, 8, (2, 8), (1, 4)),       # 32 tokens, the shift wraps both axes
+    (3, 2, 8, (2, 8), (0, 0)),       # 48 tokens, a tile across images
+    (5, 2, 8, (2, 8), (0, 0)),       # 80 tokens: last tile holds 16
+    (1, 4, 16, (2, 8), (1, 4)),      # one whole tile, wrapping both axes
+    (2, 4, 32, (2, 8), (1, 4)),      # 4 tiles, two images
+    (2, 3, 16, (1, 16), (0, 0)),     # the grouped entry's geometry
+])
+def test_tile_row_map_is_roll_and_partition(B, H, W, window, shift):
+    wh, ww = window
+    sh, sw = shift
+    ids = torch.arange(B * H * W).reshape(B, H, W)
+    part = (torch.roll(ids, (-sh, -sw), (1, 2))
+            .reshape(B, H // wh, wh, W // ww, ww).permute(0, 1, 3, 2, 4)
+            .reshape(-1).numpy())                      # window-major tokens
+    got = _tile_row_map(B, H, W, wh, ww, sh, sw)
+    T = B * H * W
+    flat = got.reshape(-1)
+    np.testing.assert_array_equal(flat[:T], part)
+    assert (flat[T:] == -1).all() and flat.size == -(-T // 64) * 64
+    # every token is read (and written back) exactly once
+    assert sorted(flat[:T]) == list(range(T))
+    # a tile's rows 16 w .. 16 w + 15 are one window: one image, wh rows
+    for tile in got:
+        for w in range(4):
+            rows = tile[16 * w:16 * w + 16]
+            if rows[0] < 0:
+                assert (rows < 0).all()
+                continue
+            assert len({r // (H * W) for r in rows}) == 1
+            assert len({(r // W) % H for r in rows}) == wh
+
+
+@pytest.mark.parametrize("C,nh,hs", [(96, 3, 1), (384, 12, 3), (384, 12, 5),
+                                     (768, 24, 6)])
+def test_split_order_sum_is_the_unsplit_proj(C, nh, hs):
+    """What window_msa_sum_kernel must reproduce: proj as a sum over head
+    splits, added in split order in fp32, then + bias + x, against the
+    unsplit half-block.  fp32 summation order only: 1e-6 of max|ref|."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        p, x = _case(4, 1, 4, 16, C)
+        stage = StageConfig(dim=C, depth=2, num_heads=nh, grid=(4, 16),
+                            window=(2, 8), shift=(1, 4),
+                            drop_path=(0.0, 0.0))
+        st = S.make_block_static(stage, 1, (2, 8))
+        lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask = _port_args(
+            p, torch.float32, st)
+        xt = torch.from_numpy(x)
+        ref = TW.window_msa_ref(xt, lnw, lnb, wqkv, bqkv, wproj, bproj, bias,
+                                mask, window=(2, 8), shift=(1, 4), eps=1e-6)
+        # the head outputs in window-major order, as the kernel's ao tiles
+        xw = (torch.roll(xt, (-1, -4), (1, 2)).reshape(1, 2, 2, 2, 8, C)
+              .permute(0, 1, 3, 2, 4, 5).reshape(-1, 16, C))
+        y = TW.layer_norm(xw, lnw, lnb, 1e-6)
+        q, k, v = (TW.linear(y, wqkv, bqkv).reshape(-1, 16, 3, nh, 32)
+                   .permute(2, 0, 3, 1, 4).unbind(0))
+        logits = q @ k.transpose(-1, -2) * 32 ** -0.5 + bias
+        logits = logits + mask[:, None]
+        o = (torch.softmax(logits, -1) @ v).transpose(1, 2).reshape(-1, C)
+        total = torch.zeros(o.shape[0], C)
+        for s in range(-(-nh // hs)):                   # split order
+            cols = slice(32 * hs * s, min(32 * hs * (s + 1), C))
+            total = total + o[:, cols] @ wproj[:, cols].T
+        out = (total + bproj + xw.reshape(-1, C)).reshape(1, 2, 2, 2, 8, C)
+        out = torch.roll(out.permute(0, 1, 3, 2, 4, 5).reshape(1, 4, 16, C),
+                         (1, 4), (1, 2))
+        err = float((out - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-6, err
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_kernel_refuses_other_windows_and_head_dims():
+    z = torch.zeros
+    w = (z(96), z(96), z(288, 96), z(288), z(96, 96), z(96))
+    with pytest.raises(NotImplementedError, match="head dim 32"):
+        TW._check(z(1, 4, 8, 96), 96, 2, 16, w, z(2, 16, 16), None, 2)
+    with pytest.raises(NotImplementedError, match="16-token"):
+        TW._check(z(1, 4, 8, 96), 96, 3, 32, w, z(3, 32, 32), None, 1)

@@ -9,10 +9,11 @@
 // the reference rounds to the activation dtype (LN output, q/k/v,
 // probabilities, hidden activations) are rounded with round_to<T>() at the
 // same points.
-// The bf16 MLP kernels (K3, K10 and the weight-gradient product) do not
-// use this product core: theirs is mma.cuh, 64 rows per CTA on the tensor
-// cores with prefetched tiles.  K1, K2, K4, K11, K12, K13 and every fp32
-// instantiation run on the core below.
+// The bf16 MLP kernels (K3, K10 and the weight-gradient product) and the
+// bf16 attention half-block (K1, K2, K12, K13) do not use this product
+// core: theirs is mma.cuh, 64 rows per CTA on the tensor cores with
+// prefetched tiles.  K4, K11 and every fp32 instantiation run on the core
+// below.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 MLP kernels (mlp.cu, mlp_bwd.cu,
-// reduce.cu): Hopper's warpgroup product (wgmma) fed from a ring of
-// shared-memory tiles that cp.async fills ahead of the product.
+// reduce.cu) and of the bf16 attention half-block (window_msa.cu): Hopper's
+// warpgroup product (wgmma) fed from a ring of shared-memory tiles that
+// cp.async fills ahead of the product.
 //
 // One warpgroup (128 threads) owns a 64-row output tile; its fp32 sums stay
 // in registers (N / 2 per thread for a 64 x N tile).  Both operands are read
@@ -338,24 +339,20 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
-// y = LN(x) rounded to bf16, and each row's mean and 1/std to stat[2r],
-// stat[2r + 1] (stat may be null): the LayerNorm that the fused kernels
-// apply in shared memory, as a pass of its own for the kernels that stream
-// LN(x) as a product operand.  One warp per row, 16-byte loads, fp32
-// statistics in two passes (mean, then the squared deviations) and a third
-// that writes; the row comes from L1 after the first.  C % 8 == 0.
-constexpr int kLnRows = kThreads / 32;   // rows per CTA
-static __global__ void __launch_bounds__(kThreads) ln_rows_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ lnw,
-    const bf16* __restrict__ lnb, bf16* __restrict__ y,
-    float* __restrict__ stat, int N, int C, float eps) {
+// One row's LayerNorm by one warp: yr = LN(xr) rounded to bf16; returns the
+// row's mean and 1/std in every lane.  16-byte loads, fp32 statistics in
+// two passes (mean, then the squared deviations) and a third that writes;
+// the row comes from L1 after the first.  C % 8 == 0.
+__device__ __forceinline__ float2 ln_one_row(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ lnw,
+                                             const bf16* __restrict__ lnb,
+                                             bf16* __restrict__ y, int C,
+                                             float eps) {
   const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * kLnRows + (threadIdx.x >> 5);
-  if (r >= N) return;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + r * C);
+  const uint4* xr = reinterpret_cast<const uint4*>(x);
   const uint4* wr = reinterpret_cast<const uint4*>(lnw);
   const uint4* br = reinterpret_cast<const uint4*>(lnb);
-  uint4* yr = reinterpret_cast<uint4*>(y + r * C);
+  uint4* yr = reinterpret_cast<uint4*>(y);
   const int chunks = C / 8;
   float v[8], w[8], b[8];
   float sum = 0.f;
@@ -380,9 +377,24 @@ static __global__ void __launch_bounds__(kThreads) ln_rows_kernel(
     for (int i = 0; i < 8; ++i) v[i] = (v[i] - mean) * rstd * w[i] + b[i];
     yr[c] = pack8(v);
   }
-  if (stat && lane == 0) {
-    stat[2 * r] = mean;
-    stat[2 * r + 1] = rstd;
+  return make_float2(mean, rstd);
+}
+
+// y = LN(x) rounded to bf16, and each row's mean and 1/std to stat[2r],
+// stat[2r + 1] (stat may be null): the LayerNorm that the fused kernels
+// apply in shared memory, as a pass of its own for the kernels that stream
+// LN(x) as a product operand.  One warp per row (ln_one_row).
+constexpr int kLnRows = kThreads / 32;   // rows per CTA
+static __global__ void __launch_bounds__(kThreads) ln_rows_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+    const bf16* __restrict__ lnb, bf16* __restrict__ y,
+    float* __restrict__ stat, int N, int C, float eps) {
+  const long long r = (long long)blockIdx.x * kLnRows + (threadIdx.x >> 5);
+  if (r >= N) return;
+  const float2 st = ln_one_row(x + r * C, lnw, lnb, y + r * C, C, eps);
+  if (stat && (threadIdx.x & 31) == 0) {
+    stat[2 * r] = st.x;
+    stat[2 * r + 1] = st.y;
   }
 }
 

@@ -33,12 +33,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: every one returns cudaGetLastError() after its launch
 SIGNATURES = {
-    # dtype, x, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask,
-    # B, H, W, C, nh, wh, ww, sh, sw, scale, eps, stream
-    "tulip_window_msa": [_I] + [_P] * 10 + [_I] * 9 + [_F, _F, _P],
-    # dtype, xg, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask,
-    # windows, nW, C, nh, scale, eps, stream
-    "tulip_window_msa_grouped": [_I] + [_P] * 10 + [_I] * 4 + [_F, _F, _P],
+    # dtype, x, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask, y,
+    # partial, B, H, W, C, nh, wh, ww, sh, sw, scale, eps, hs, splits,
+    # stages, smem, stream
+    "tulip_window_msa": ([_I] + [_P] * 12 + [_I] * 9 + [_F, _F] + [_I] * 4
+                         + [_P]),
+    # dtype, xg, out, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask, y,
+    # partial, windows, nW, C, nh, scale, eps, hs, splits, stages, smem,
+    # stream
+    "tulip_window_msa_grouped": ([_I] + [_P] * 12 + [_I] * 4 + [_F, _F]
+                                 + [_I] * 4 + [_P]),
     # dtype, act, x, out, lnw, lnb, w1, b1, w2, b2, y, partial,
     # N, C, Hd, O, residual, eps, hs, splits, resident, bn2, smem, stream
     "tulip_two_matmul": ([_I, _I] + [_P] * 10 + [_I] * 5 + [_F] + [_I] * 5

@@ -1,18 +1,28 @@
 """Fused shifted-window MSA half-block: x + proj(MSA(LN1(x))).
 
 Replaces the Pallas kernels tulip_tpu/ops/pallas/window_msa.py
-``_kernel_masked_nat`` (heads <= 8) and ``_kernel`` (heads > 8) with one
-CUDA kernel, ``csrc/window_msa.cu``.  :func:`window_msa` takes the plain
-PyTorch version :func:`window_msa_ref` for a CPU tensor and launches the
+``_kernel_masked_nat`` (heads <= 8) and ``_kernel`` (heads > 8) with the
+CUDA kernels of ``csrc/window_msa.cu``.  :func:`window_msa` takes the plain
+PyTorch version :func:`window_msa_ref` for a CPU tensor and launches a
 kernel for a CUDA tensor; any other device raises.
 
-The same kernel stands behind the JAX package's two other layouts, which
+The file holds two device kernels and the dtype decides between them: bf16
+runs ``window_msa_tc_kernel`` on the tensor cores (64 token rows = 4
+windows per CTA, the heads split over CTAs where the rows are few) under
+the launch plan :func:`window_msa_plan`, with ``window_msa_sum_kernel``
+adding the splits' partial sums in split order; fp32 runs
+``window_msa_kernel``, one window per CTA on the CUDA cores, the parity
+path.
+
+The same kernels stand behind the JAX package's two other layouts, which
 its ``TULIP_TPU_MSA_GROUPED`` / ``TULIP_TPU_MSA_NAT`` switches select:
 :func:`window_msa_grouped` (``_kernel_masked``: window-major token groups,
 the caller rolls and partitions) and :func:`window_msa_nat`
 (``_kernel_nat``: natural row strips, the caller rolls).  Both take the
 compact (nh, L, L) bias and (nW, L, L) mask, not the TPU kernels'
-block-diagonal (nh, 128, 128) expansions.
+block-diagonal (nh, 128, 128) expansions, and both take the plan of the
+default entry for the same (T, C, nh), so the three entries give the same
+bits on the same tokens.
 """
 
 from __future__ import annotations
@@ -20,8 +30,68 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .mlp import NUM_SMS, SMEM_MAX
 from ..models.layers import layer_norm, linear
 from ..parallel.halo import roll_hw
+
+_ROWS = 64             # token rows per CTA: four 16-token windows
+_SUB = 8192            # bytes of a 64 x 64 bf16 operand tile
+_TILE_B = 96 * 128     # bytes of a weight tile: 96 rows of 64 bf16
+_TABLE = _ROWS * 8     # the tile's token offsets
+_RESIDENT_C = 1024     # widest LN1(x) kept in shared memory (kMsaResidentC)
+# fp32 partial sums a split launch may write where shared memory does not
+# force the split: what stays in the card's 50 MB L2 beside the weights
+PARTIAL_CAP = 32 << 20
+SM_SMEM = 233472       # shared bytes of an SM; a block costs 1 KB beside its own
+# narrowest width whose heads are split for parallelism.  Below it a
+# launch is bound by its bytes, a CTA's whole chain is at most 24 weight
+# tiles, and the partial sums would be several times the activations.
+_SPLIT_C = 384
+
+
+def plan_smem(C: int, hs: int, stages: int) -> int:
+    """Dynamic shared bytes of a window_msa_tc_kernel block with hs heads:
+    1 KB alignment room + the ring (a weight tile a stage, and a tile of y
+    where y is streamed) + ao (a 64 x 64 tile per two heads) + y where it
+    is resident + the offset table."""
+    resident = C <= _RESIDENT_C
+    return (1024 + stages * (_TILE_B + (0 if resident else _SUB))
+            + -(-hs // 2) * _SUB + (-(-C // 64) * _SUB if resident else 0)
+            + _TABLE)
+
+
+def window_msa_plan(T: int, C: int, nh: int) -> dict:
+    """Launch plan of the bf16 tensor-core half-block (``csrc/window_msa.cu``
+    window_msa_tc_kernel), grid (row tiles, splits), from the shape alone:
+
+    rows      token rows per CTA (64 = four windows, one warpgroup);
+    resident  LN1(x) is made in the kernel and kept in shared memory
+              (C <= 1,024), else made by a pass of its own and streamed;
+    hs        heads per split: all of them where the row tiles fill the
+              card or C < 384, else fewer for about one CTA per SM; at most
+              what fits one block's shared memory beside y and the ring,
+              and more again while the partial sums exceed ``PARTIAL_CAP``;
+    splits    ceil(nh / hs) >= 1; above 1 the splits' fp32 partial sums
+              (splits, T, C) are added in split order by a second launch
+              (``sum_launch``);
+    stages    ring stages of the weight stream: 4, or 3 where that lets one
+              more block share the SM (C = 96: three) or only 3 fit;
+    smem      :func:`plan_smem`, at most ``SMEM_MAX``.  The C entry point
+              recomputes it and refuses a plan that differs."""
+    row_tiles = -(-T // _ROWS)
+    hs_fit = min(nh, 2 * ((SMEM_MAX - plan_smem(C, 0, 3)) // _SUB))
+    min_splits = -(-nh // hs_fit)
+    want = min(nh, NUM_SMS // row_tiles) if C >= _SPLIT_C else 1
+    hs = -(-nh // max(min_splits, want))
+    while (-(-nh // hs) > min_splits
+           and -(-nh // hs) * T * C * 4 > PARTIAL_CAP):
+        hs += 1
+    splits = -(-nh // hs)
+    per_sm = lambda stages: SM_SMEM // (plan_smem(C, hs, stages) + 1024)
+    stages = 4 if per_sm(4) >= max(per_sm(3), 1) else 3
+    return dict(rows=_ROWS, resident=C <= _RESIDENT_C, hs=hs, splits=splits,
+                stages=stages, smem=plan_smem(C, hs, stages),
+                sum_launch=splits > 1)
 
 
 def window_msa_ref(x, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask, *,
@@ -80,6 +150,26 @@ def _check(x, C, nh, L, params, bias, mask, n_mask):
         build.require(mask, "mask", dev, torch.float32, (n_mask, L, L))
 
 
+def _plan_args(x, T, C, nh, params):
+    """(y scratch, partial sums, the plan's integers) of a launch: zeros
+    and no scratch in fp32, whose kernel takes no plan."""
+    if x.dtype != torch.bfloat16:
+        return None, None, (0, 0, 0, 0)
+    lnw, lnb, wqkv, bqkv, wproj, bproj = params
+    for name, t in (("x", x), ("lnw", lnw), ("lnb", lnb), ("wqkv", wqkv),
+                    ("bqkv", bqkv), ("wproj", wproj), ("bproj", bproj)):
+        build.require_aligned(name, t)
+    plan = window_msa_plan(T, C, nh)
+    y = partial = None
+    if not plan["resident"]:
+        y = torch.empty((T, C), device=x.device, dtype=x.dtype)
+    if plan["sum_launch"]:
+        partial = torch.empty((plan["splits"], T, C), device=x.device,
+                              dtype=torch.float32)
+    return y, partial, (plan["hs"], plan["splits"], plan["stages"],
+                        plan["smem"])
+
+
 def _launch(x, B, H, W, C, params, bias, mask, window, shift, eps, what):
     """tulip_window_msa on x read as a (B, H, W, C) grid."""
     wh, ww = window
@@ -88,6 +178,7 @@ def _launch(x, B, H, W, C, params, bias, mask, window, shift, eps, what):
         raise NotImplementedError(f"{what}: grid {H}x{W} is not a multiple "
                                   f"of window {window}")
     _check(x, C, nh, wh * ww, params, bias, mask, (H // wh) * (W // ww))
+    y, partial, plan = _plan_args(x, B * H * W, C, nh, params)
     lib = build.load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -95,8 +186,9 @@ def _launch(x, B, H, W, C, params, bias, mask, window, shift, eps, what):
         err = lib.tulip_window_msa(
             build.dtype_code(x), x.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in params), bias.data_ptr(),
-            build.ptr(mask), B, H, W, C, nh, wh, ww, shift[0], shift[1],
-            float((C // nh) ** -0.5), float(eps), stream)
+            build.ptr(mask), build.ptr(y), build.ptr(partial), B, H, W, C,
+            nh, wh, ww, shift[0], shift[1], float((C // nh) ** -0.5),
+            float(eps), *plan, stream)
     build.check(lib, err, what)
     return out
 
@@ -186,6 +278,7 @@ def window_msa_grouped(xg, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask,
         raise ValueError(f"{n} windows are not a multiple of the mask's {nW}")
     params = (lnw, lnb, wqkv, bqkv, wproj, bproj)
     _check(xg, C, nh, L, params, bias, mask, nW)
+    y, partial, plan = _plan_args(xg, n * L, C, nh, params)
     lib = build.load()
     out = torch.empty_like(xg)
     with torch.cuda.device(xg.device):
@@ -193,8 +286,8 @@ def window_msa_grouped(xg, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask,
         err = lib.tulip_window_msa_grouped(
             build.dtype_code(xg), xg.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in params), bias.data_ptr(),
-            build.ptr(mask), n, nW, C, nh, float((C // nh) ** -0.5),
-            float(eps), stream)
+            build.ptr(mask), build.ptr(y), build.ptr(partial), n, nW, C, nh,
+            float((C // nh) ** -0.5), float(eps), *plan, stream)
     build.check(lib, err, "window_msa_grouped")
     window_msa_grouped.launches += 1
     return out

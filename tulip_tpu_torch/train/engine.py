@@ -22,6 +22,18 @@ from ..utils.logger import MetricLogger, SmoothedValue
 from ..utils.lr_sched import lr_at_epoch
 
 
+def batch_to_device(array, device, pin_mem: bool) -> torch.Tensor:
+    """A host numpy batch as a float32 tensor on ``device``.  On a CUDA
+    device with ``pin_mem`` (the ``--pin_mem`` default) the batch is staged
+    in page-locked memory and the copy does not block the host; else the
+    copy is a plain blocking one: ``non_blocking`` on pageable memory would
+    only look asynchronous.  On the CPU nothing is copied."""
+    t = torch.from_numpy(np.ascontiguousarray(array, np.float32))
+    if torch.device(device).type == "cuda" and pin_mem:
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def train_one_epoch(train_step, data_loader, epoch: int, *, device,
                     log_writer=None, args=None):
     """Run one epoch of ``train_step`` (from make_train_step) over
@@ -33,6 +45,7 @@ def train_one_epoch(train_step, data_loader, epoch: int, *, device,
     header = 'Epoch: [{}]'.format(epoch)
     print_freq = 20
     accum_iter = args.accum_iter
+    pin_mem = getattr(args, "pin_mem", True)   # the parser's default
 
     if log_writer is not None:
         print('log_dir: {}'.format(log_writer.logdir))
@@ -77,11 +90,9 @@ def train_one_epoch(train_step, data_loader, epoch: int, *, device,
             lr = lr_at_epoch(data_iter_step / num_steps + epoch,
                              args.lr, args.min_lr, args.warmup_epochs,
                              args.epochs)
-        x = torch.from_numpy(np.ascontiguousarray(low["sample"], np.float32))
-        t = torch.from_numpy(np.ascontiguousarray(high["sample"], np.float32))
         total_loss, pixel_loss = train_step(
-            x.to(device, non_blocking=True), t.to(device, non_blocking=True),
-            lr, generator)
+            batch_to_device(low["sample"], device, pin_mem),
+            batch_to_device(high["sample"], device, pin_mem), lr, generator)
         if pending is not None:
             drain(pending)
         pending = (data_iter_step, lr, total_loss, pixel_loss)

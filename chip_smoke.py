@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile    (profile_paths: where the time goes)
+    python3 chip_smoke.py --paths [--tree DIR]    (time_paths: the forward's
+        and the train step's wall ms, of this checkout or of the one at DIR)
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
 2. build: nvcc compiles tulip_tpu_torch/csrc/*.cu for sm_90a; the bf16
-   tensor-core kernels (K3, K10, tn_gemm and the attention half-block of K1,
-   K2, K12, K13) must hold HGMMA instructions in their SASS.
+   tensor-core kernels (K3, K4, K10, K11, tn_gemm and the attention
+   half-block of K1, K2, K12, K13) must hold HGMMA instructions in their
+   SASS.
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
@@ -66,7 +69,9 @@ kernel's head splits differ by batch) and at token counts that leave a last
 tile of 16, 32 or 48 rows, with shifts that wrap inside one tile; K12 (the
 grouped window-major entry, four stages, shifted and not) and K13 (the
 natural row-strip entry, the stages with more than 8 heads) at batch 2 and,
-in bf16, batch 8; every bf16 case of K1, K2, K3, K10, K12, K13 twice for
+in bf16, batch 8; K4 at batch 1 and 8 (the bf16 kernel splits K over CTAs
+at batch 1-4), at a ragged token count and at TULIP-large's deepest merge
+(K 3,072); every bf16 case of K1, K2, K3, K4, K10, K11, K12, K13 twice for
 the same bits; and K14 / K15 (LayerNorm forward and backward: y,
 dx, dw, db) at the four norm1 shapes of the batch-8 train step, against
 their plain versions; beside K14 / K15 it times F.layer_norm and its
@@ -84,8 +89,9 @@ the train step's shapes (batch 8): K8 (attention core forward) and K9 (its
 backward: dqkv, dbias) at the four stages, shifted and unshifted; K10 (the
 two-matmul backward: dx, dlnw, dlnb, dW1, db1, dW2, db2) at the four MLP
 widths and the head; K11 (LN + matmul backward: dx, dlnw, dlnb, dW) at the
-three merges; every output within the bf16 / fp32 limits of its own
-max|ref|.
+three merges, at a ragged token count and at the batch-1 deepest merge
+(dy split over CTAs); every output within the bf16 / fp32 limits of its
+own max|ref|.
 
 Then one JSON line with the per-kernel results of all fifteen kernels
 (launches on the main paths, error, kernel / plain / library ms, bound) and,
@@ -158,12 +164,13 @@ CLI_KERNELS = ("window_msa_grouped", "window_msa_nat", "ln_fwd", "ln_bwd")
 # launches per train step of the command line with TULIP_TPU_LN_PALLAS=1
 PER_STEP_CLI = dict(PER_STEP, ln_fwd=14, ln_bwd=14)
 CLI_BATCH, CLI_TRAIN, CLI_VAL = 8, 16, 4
-# the bf16 kernels of K3, K10 (token pass), the weight-gradient product and
-# the attention half-block (K1, K2, K12, K13), whose products must be
-# tensor-core instructions (HGMMA in the SASS; the attention core's 16 x 16
-# products are warp-level HMMA, counted beside them)
-TENSOR_CORE_KERNELS = ("two_matmul_tc_kernel", "mlp_bwd_hidden_kernel",
-                       "mlp_bwd_dy_kernel", "tn_gemm_tc_kernel",
+# the bf16 kernels of K3, K4, K10 and K11 (token passes), the
+# weight-gradient product and the attention half-block (K1, K2, K12, K13),
+# whose products must be tensor-core instructions (HGMMA in the SASS; the
+# attention core's 16 x 16 products are warp-level HMMA, counted beside them)
+TENSOR_CORE_KERNELS = ("two_matmul_tc_kernel", "ln_linear_tc_kernel",
+                       "mlp_bwd_hidden_kernel", "mlp_bwd_dy_kernel",
+                       "ln_linear_bwd_dy_kernel", "tn_gemm_tc_kernel",
                        "window_msa_tc_kernel")
 PAIR_OPS = 8   # operations per point pair of a nearest-neighbour sweep
 # chamfer kernels against their plain versions: the kernel fuses two FMAs
@@ -384,18 +391,50 @@ def kernel_cases(torch, device, batch=2, stages=STAGES):
                       lambda x=x, a=args: mlp.fused_two_matmul_ref(
                           x, *a, act="gelu", residual=True), False,
                       dict(work=work_two_matmul(N, C, 4 * C, C, e))))
-        merges = [(batch * (H // 2) * (W // 2), 4 * C, True)
-                  for (H, W), C, nh in stages[:-1]] + [(1000, 384, False)]
-        for N, K, on_path in merges:
-            x = to(rn(N, K))
-            args = [to(rn(K, scale=0.1, shift=1.0)), to(rn(K, scale=0.1)),
-                    to(rn(K // 2, K, scale=K ** -0.5))]
-            what = "merge" if on_path else "ragged"
-            cases.append(("ln_linear", "K4",
-                          f"ln_linear K4 {dn} {what} N={N} K={K} O={K // 2}",
-                          lambda x=x, a=args: mlp.fused_ln_linear(x, *a),
-                          lambda x=x, a=args: mlp.fused_ln_linear_ref(x, *a),
-                          on_path, dict(work=work_ln_linear(N, K, K // 2, e))))
+        cases += ln_linear_cases(to, rn, dn, e, batch, stages)
+        cases.append(ln_linear_case(to, rn, dn, e, 1000, 384, "ragged",
+                                    False))
+    return cases
+
+
+def ln_linear_case(to, rn, dn, e, N, K, what, on_path):
+    """One K4 case: the patch-merging LN + reduction K -> K / 2."""
+    from tulip_tpu_torch.ops import mlp
+    x = to(rn(N, K))
+    args = [to(rn(K, scale=0.1, shift=1.0)), to(rn(K, scale=0.1)),
+            to(rn(K // 2, K, scale=K ** -0.5))]
+    return ("ln_linear", "K4",
+            f"ln_linear K4 {dn} {what} N={N} K={K} O={K // 2}",
+            lambda: mlp.fused_ln_linear(x, *args),
+            lambda: mlp.fused_ln_linear_ref(x, *args), on_path,
+            dict(work=work_ln_linear(N, K, K // 2, e)))
+
+
+def ln_linear_cases(to, rn, dn, e, batch, stages=STAGES):
+    """K4 at the forward's three merges for one batch size and dtype."""
+    return [ln_linear_case(to, rn, dn, e, batch * (H // 2) * (W // 2), 4 * C,
+                           "merge", True) for (H, W), C, nh in stages[:-1]]
+
+
+def more_ln_linear_cases(torch, device):
+    """K4 beyond batch 2: the batch-8 and batch-1 forwards' merges (at batch
+    1-4 the bf16 kernel splits K over CTAs and a second launch adds the
+    partial sums) and, off the path, the deepest merge of TULIP-large (a
+    2 x 32 grid of 3,072 merged channels per image) at batch 1 and 8."""
+    g = torch.Generator().manual_seed(6)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        to = lambda t: t.to(device=device, dtype=dtype)
+        e = 2 if dtype == torch.bfloat16 else 4
+        for batch in (8, 1):
+            cases += ln_linear_cases(to, rn, dn, e, batch)
+            cases.append(ln_linear_case(to, rn, dn, e, batch * 64, 3072,
+                                        "tulip_large merge", False))
     return cases
 
 
@@ -475,13 +514,15 @@ def more_two_matmul_cases(torch, device):
 
 
 def check_deterministic(torch, device, cases):
-    """K3, K10 (its token pass, its weight-gradient products and column
-    sums), the attention half-block through its three entries (K1, K2, K12,
-    K13) and tn_gemm on their own: two runs on the same inputs must give
-    the same bits (no atomics, every cross-block sum in a fixed order)."""
+    """K3, K4, K10 and K11 (their token passes, weight-gradient products
+    and column sums), the attention half-block through its three entries
+    (K1, K2, K12, K13) and tn_gemm on their own: two runs on the same inputs
+    must give the same bits (no atomics, every cross-block sum in a fixed
+    order)."""
     from tulip_tpu_torch.ops import reduce as R
     runs = [(label, kfn) for kernel, _, label, kfn, *_ in cases
-            if kernel in ("two_matmul", "two_matmul_bwd", "window_msa",
+            if kernel in ("two_matmul", "two_matmul_bwd", "ln_linear",
+                          "ln_linear_bwd", "window_msa",
                           "window_msa_grouped", "window_msa_nat")
             and "bfloat16" in label]
     g = torch.Generator().manual_seed(4)
@@ -500,7 +541,8 @@ def check_deterministic(torch, device, cases):
                    if p is not None):
             differ.append(label)
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
-          f"K3 / K10 / K1 / K2 / K12 / K13 / tn_gemm cases bit-identical "
+          f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / tn_gemm cases "
+          f"bit-identical "
           f"over two runs", flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
@@ -637,17 +679,22 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                 lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd_ref(
                     x, *a, gr, **kw), True,
                 dict(work=work_two_matmul_bwd(N, C, Hd, O, e))))
-        for (H, W), C, nh in stages[:-1]:
-            N, K = batch * (H // 2) * (W // 2), 4 * C
+        # the step's three merges, then off the path a ragged token count
+        # and the deepest merge at batch 1 (dy split over CTAs in bf16)
+        merges = [(batch * (H // 2) * (W // 2), 4 * C, "merge", True)
+                  for (H, W), C, nh in stages[:-1]]
+        merges += [(1000, 384, "ragged", False),
+                   (256, 1536, "batch-1 merge", False)]
+        for N, K, what, on_path in merges:
             x, gr = to(rn(N, K)), to(rn(N, K // 2))
             args = [to(rn(K, scale=0.1, shift=1.0)), to(rn(K, scale=0.1)),
                     to(rn(K // 2, K, scale=K ** -0.5))]
             cases.append((
                 "ln_linear_bwd", "K11",
-                f"ln_linear_bwd K11 {dn} merge N={N} K={K} O={K // 2}",
+                f"ln_linear_bwd K11 {dn} {what} N={N} K={K} O={K // 2}",
                 lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd(x, *a, gr),
                 lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd_ref(x, *a, gr),
-                True, dict(work=work_ln_linear_bwd(N, K, K // 2, e))))
+                on_path, dict(work=work_ln_linear_bwd(N, K, K // 2, e))))
     return cases
 
 
@@ -1607,7 +1654,8 @@ def run_cli_phase(torch, dev, weights):
 # matches none is PyTorch's own
 PROFILE_CLASSES = {
     "window_msa": "K1/K2 attention half-block (its sum pass included)",
-    "two_matmul": "K3", "ln_linear_bwd": "K11", "ln_linear": "K4",
+    "two_matmul": "K3", "ln_linear_bwd": "K11 token pass (LN, dy, finish)",
+    "ln_linear": "K4 (LN pass, product, sum pass)",
     "attn_": "K8/K9", "mlp_bwd": "K10 token pass",
     "tn_gemm": "weight gradients", "colsum": "weight gradients",
     "ln_rows": "LN passes of K3 / K10", "tulip": "other kernels of the port"}
@@ -1733,12 +1781,62 @@ def k3_plan_ab(torch, dev):
     return out
 
 
+def time_paths(torch, dev, tree):
+    """``python3 chip_smoke.py --paths [--tree DIR]``: the wall ms of the
+    bf16 inference forward at batch 1, 4 and 8 (median and least of 40
+    synchronised forwards, twice over) and of the bf16 batch-8 train step
+    (timed_steps, twice), at the flagship size, for the package of this
+    checkout or of the checkout at DIR.  Two commits are compared inside
+    one call, on one card and one host, in the order parent, change,
+    change, parent: the host is shared, and its wall times differ by up to
+    1.8x between calls."""
+    from tulip_tpu_torch.models.tulip import apply_model, init_params, tulip_base
+    data_root = os.path.join(REPO, "build", "chip_smoke_durlar")
+    write_durlar(data_root, 8, 2048)
+    write_durlar(data_root, 2 * TRAIN_BATCH, 2048, split="train")
+    model = tulip_base(**FLAGSHIP)
+    weights = init_params(model.cfg, torch.Generator().manual_seed(0))
+    model.load_state_dict(weights, strict=True)
+    model = model.to(device=dev, dtype=torch.bfloat16)
+    fwd = lambda x, t: apply_model(model, x, t, compute_dtype=torch.bfloat16)
+    for _ in range(2):
+        for bs in (1, 4, 8):
+            low, high = load_batches(data_root, bs, 2048)[0]
+            x = torch.from_numpy(low["sample"]).to(dev)
+            t = torch.from_numpy(high["sample"]).to(dev)
+            for _ in range(5):
+                fwd(x, t)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(40):
+                t0 = time.perf_counter()
+                fwd(x, t)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            med = statistics.median(times)
+            print(f"paths {tree}: forward batch {bs} median {med * 1e3:.3f} "
+                  f"ms = {bs / med:.2f} img/s (min {min(times) * 1e3:.3f} "
+                  f"ms)", flush=True)
+    del model
+    batches = load_batches(data_root, TRAIN_BATCH, 2048, split="train")
+    for _ in range(2):
+        ms = timed_steps(torch, dev, weights, batches, 14, False)
+        print(f"paths {tree}: train step batch {TRAIN_BATCH} median of 12 "
+              f"{ms:.2f} ms", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    tree = "this checkout"
+    if "--tree" in sys.argv[1:]:
+        # the package of another checkout (a parent commit's), not this one's
+        tree = sys.argv[sys.argv.index("--tree") + 1]
+        sys.path.insert(0, os.path.abspath(tree))
     from tulip_tpu_torch.models.tulip import apply_model, init_params, tulip_base
     from tulip_tpu_torch.ops import build
 
@@ -1758,6 +1856,9 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         build.load()
         return profile_paths(torch, dev)
+    if "--paths" in sys.argv[1:]:
+        build.load()
+        return time_paths(torch, dev, tree)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1781,6 +1882,7 @@ def main() -> int:
     table = check_kernel_cases(torch, [c + (10,) for c in cases])
     more = more_two_matmul_cases(torch, dev)
     more += more_window_msa_cases(torch, dev)
+    more += more_ln_linear_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (10,) for c in more])
     train_cases = train_kernel_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (5,) for c in train_cases])

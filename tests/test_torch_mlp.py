@@ -425,3 +425,133 @@ def test_require_aligned_refuses_an_offset_view():
     build.require_aligned("none", None)
     with pytest.raises(ValueError, match="16-byte"):
         build.require_aligned("t", t[1:])
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of the bf16 tensor-core LN + matmul (K4) and the dy splits
+# its backward (K11) takes over from K10.
+# ---------------------------------------------------------------------------
+
+def _merge_shapes():
+    """(model, batch, N, K, O) of every patch merging of tulip_base (3) and
+    tulip_large (4) at 32 x 2048, patch 1 x 4, batch 1, 2, 4, 8, plus a
+    ragged token count."""
+    out = []
+    for model, stages in (("base", 4), ("large", 5)):
+        for batch in (1, 2, 4, 8):
+            for i in range(1, stages):
+                K = 4 * 96 * 2 ** (i - 1)
+                out.append((model, batch, batch * (32 >> i) * (512 >> i), K,
+                            K // 2))
+    return out + [("ragged", 0, 1000, 384, 192)]
+
+
+@pytest.mark.parametrize("model,batch,N,K,O", _merge_shapes())
+def test_ln_linear_plan_fits_and_covers(model, batch, N, K, O):
+    p = TM.ln_linear_plan(N, K, O)
+    rows, cols, splits = p["grid"]
+    assert p["rows"] == 64 and p["bn"] == (192 if O % 192 == 0 else 128)
+    # every row, column and 64-deep slab of K in exactly one CTA
+    assert (rows - 1) * 64 < N <= rows * 64
+    assert (cols - 1) * p["bn"] < O <= cols * p["bn"]
+    kt = -(-K // 64)
+    assert splits == p["splits"] >= 1 and p["kts"] >= 1
+    assert (splits - 1) * p["kts"] < kt <= splits * p["kts"]
+    # shared memory: alignment room + three stages of W (bn x 64) and y
+    # (64 x 64) in bf16; two CTAs fit an SM
+    assert p["smem"] == 1024 + 3 * (p["bn"] * 128 + 8192)
+    assert p["smem"] <= TM.SMEM_TWO_PER_SM < TM.SMEM_MAX == 232448
+    # the fp32 partial sums of a split launch stay under the cap
+    assert splits == 1 or splits * N * O * 4 <= TM.PARTIAL_CAP == 32 << 20
+    # K is split only where the tiles alone leave SMs idle, towards one CTA
+    # per SM (two where a split keeps six slabs)
+    if rows * cols > TM.NUM_SMS:
+        assert splits == 1
+    else:
+        assert rows * cols * splits <= 2 * TM.NUM_SMS
+        assert splits > 1 or kt < 4 or rows * cols * 2 > TM.NUM_SMS
+    # K11: dy = g W splits O; every 64-deep tile of O in exactly one split
+    s = TM.dy_splits(N, K, O)
+    ko = -(-O // 64)
+    assert 1 <= s <= ko and -(-ko // -(-ko // s)) == s
+    assert s == 1 or -(-N // 64) * -(-K // 192) * s <= TM.NUM_SMS
+
+
+def test_ln_linear_plan_splits_the_batch_1_merges():
+    """The plans the batch-1 forward of tulip_base runs: (row tiles, column
+    tiles, splits of K), about one CTA per SM each."""
+    assert [TM.ln_linear_plan(N, K, K // 2)["grid"] for N, K in
+            ((4096, 384), (1024, 768), (256, 1536))] == [
+                (64, 1, 2), (16, 2, 4), (4, 4, 8)]
+    assert TM.ln_linear_plan(32768, 384, 192)["grid"] == (512, 1, 1)
+    # a chain of 24 slabs alone on its SM is halved for a second CTA
+    assert TM.ln_linear_plan(2048, 1536, 768)["grid"] == (32, 4, 2)
+    # O no multiple of 192: 128-column tiles, the last one ragged
+    p = TM.ln_linear_plan(64, 512, 200)
+    assert p["bn"] == 128 and p["grid"][1] == 2
+
+
+@pytest.mark.parametrize("N,K,O", [(256, 1536, 768), (100, 384, 192),
+                                   (64, 3072, 1536), (50, 96, 40)])
+def test_split_k_partial_sums_equal_plain_float64(N, K, O):
+    """What the split launch of K4 computes: each split's 64-deep slabs of
+    K give a partial out, added in split order; in float64 that equals the
+    plain version to summation order (1e-12 of max|ref|).  K11's dy = g W,
+    split over O by dy_splits, likewise equals the plain backward's dx."""
+    rng = np.random.default_rng(12)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 1, s))
+    x, lnw, lnb, w, g = t(N, K), t(K), t(K), t(O, K) * K ** -0.5, t(N, O)
+    p = TM.ln_linear_plan(N, K, O)
+    y = TM.layer_norm(x, lnw, lnb, 1e-6)
+    out = torch.zeros(N, O, dtype=torch.float64)
+    for s in range(p["splits"]):
+        sl = slice(s * p["kts"] * 64, min(K, (s + 1) * p["kts"] * 64))
+        assert sl.start < K
+        out += y[:, sl] @ w[:, sl].T
+    ref = TM.fused_ln_linear_ref(x, lnw, lnb, w)
+    assert (out - ref).abs().max() <= 1e-12 * ref.abs().max()
+    splits = TM.dy_splits(N, K, O)
+    ko = -(-O // 64)
+    per = -(-ko // splits) * 64
+    dy = torch.zeros(N, K, dtype=torch.float64)
+    for s in range(splits):
+        sl = slice(s * per, min(O, (s + 1) * per))
+        assert sl.start < O
+        dy += g[:, sl] @ w[sl]
+    xh, rstd = TM._ln_stats(x, 1e-6)
+    dx = TM._ln_backward(dy, xh, rstd, lnw)[0]
+    ref_dx = TM.ln_linear_bwd_ref(x, lnw, lnb, w, g)[0]
+    assert (dx - ref_dx).abs().max() <= 1e-12 * ref_dx.abs().max()
+
+
+@pytest.mark.parametrize("what", ["ln_linear kernel", "ln_linear backward"])
+def test_ln_linear_refuses_what_the_kernels_do_not_take(what):
+    """The checks both K4 / K11 wrappers make on a CUDA tensor before any
+    pointer reaches C, held here through the function they call."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert TM.check_ln_linear(384, 192, bf16, what) is None
+    assert TM.check_ln_linear(384, 100, f32, what) is None
+    with pytest.raises(NotImplementedError, match="K % 32"):
+        TM.check_ln_linear(400, 200, bf16, what)
+    with pytest.raises(NotImplementedError, match="K % 32"):
+        TM.check_ln_linear(48, 24, f32, what)
+    with pytest.raises(NotImplementedError, match="O % 8"):
+        TM.check_ln_linear(384, 100, bf16, what)
+    x = torch.zeros(4 * 384 + 8, dtype=bf16)
+    ok = (("x", x[:4 * 384].view(4, 384)),
+          ("lnw", torch.zeros(384, dtype=bf16)))
+    assert TM.check_ln_linear(384, 192, bf16, what, ok) is None
+    off = (("x", x[1:4 * 384 + 1].view(4, 384)),)
+    with pytest.raises(ValueError, match="x must start on a 16-byte"):
+        TM.check_ln_linear(384, 192, bf16, what, off)
+    # fp32 reads element by element: an offset view is taken
+    assert TM.check_ln_linear(384, 192, f32, what,
+                              (("x", torch.zeros(9)[1:]),)) is None
+
+
+def test_forward_wrappers_refuse_other_devices():
+    m = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        TM.fused_ln_linear(m(16, 384), m(384), m(384), m(192, 384))
+    with pytest.raises(ValueError, match="cuda"):
+        TM.ln_linear(m(16, 384), m(384), m(384), m(192, 384))

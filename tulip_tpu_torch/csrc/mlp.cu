@@ -38,9 +38,42 @@
 // write fp32 partial sums that two_matmul_sum_kernel adds in split order:
 // no atomics, so the result does not depend on the schedule.
 //
-// fp32: two_matmul_kernel, the FMA kernel on the CUDA cores (16 rows per
-// CTA, common.cuh), the parity path.  ln_linear_kernel (K4) runs on it in
-// both types.
+// bf16 LN + matmul (K4): ln_linear_tc_kernel, on the tensor cores.
+// Bound on the H100: 2 N K O operations against N (K + O) + O K elements
+// moved; with O = K / 2 that is K / 3 operations per byte of bf16, so the
+// first merge (K 384) is bound by its bytes and the deeper ones by their
+// operations, all within a few microseconds at the model's sizes: what
+// matters is that every SM has work and that the weight is read from L2
+// once per 64 x BN output tile, not once per 16 rows.  Design:
+//   1. ln_linear_ln_kernel (the LN pass of mma.cuh): y = LN(x), rounded
+//      once, to scratch.  K >= 384 on every merge: 64 rows of y do not fit
+//      beside a ring at K 1,536, and with the output columns split over
+//      CTAs an LN inside the product would be repeated per column tile.
+//      It costs one write and one read of N K bf16.
+//   2. ln_linear_tc_kernel, grid (64-row tiles, tiles of BN output
+//      columns, splits of K): one warpgroup, the 64 x BN fp32 sums in
+//      registers, BN 192 where it divides O (every merge of the model)
+//      else 128; the W tile (BN x 64, K-major as stored) and the y tile
+//      (64 x 64) of each 64-deep slab of K arrive together through a ring
+//      of three stages (33 or 25 KB each: two CTAs share an SM).  A single
+//      split rounds once and stores through a staging tile with 16-byte
+//      stores.
+//   3. Few row and column tiles (batch 1-4, the deep merges): K is split
+//      over CTAs towards one per SM, or two where a split keeps six slabs
+//      (ops/mlp.py:ln_linear_plan), every slab in exactly one split; the
+//      splits write fp32 partial sums that ln_linear_sum_kernel adds in
+//      split order and rounds once: no atomics, equal bits from run to run.
+// What bounds it as built: one warpgroup per CTA reads (64 + BN) x 128
+// bytes from L2 per 64 x BN x 64 product (48 operations per byte at BN
+// 192), so the L2 and the waits on it, not the tensor cores, set the pace
+// (125-210 TFLOP/s at batch 8; a chain of 24 slabs alone on its SM is the
+// slowest, hence the second CTA); four stages were faster only for one CTA
+// per SM and slower for two, so three stayed.  The LN pass (one warp per
+// row, three passes over the row) reaches 1.3 TB/s and is half of the
+// first merge's time at batch 8.
+//
+// fp32: two_matmul_kernel and ln_linear_kernel, the FMA kernels on the CUDA
+// cores (16 rows per CTA, common.cuh), the parity path.
 #include "mma.cuh"
 
 namespace tulip {
@@ -397,6 +430,151 @@ cudaError_t launch_two_matmul_tc_bn2(int bn2, Args... args) {
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// LN + matmul (K4)
+// ---------------------------------------------------------------------------
+
+constexpr int kLnMmStages = 3;   // ring stages of ln_linear_tc_kernel
+
+__global__ void __launch_bounds__(kThreads) ln_linear_ln_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+    const bf16* __restrict__ lnb, bf16* __restrict__ y,
+    float* __restrict__ stat, int N, int C, float eps) {
+  ln_rows(x, lnw, lnb, y, stat, N, C, eps);
+}
+
+// grid (64-row tiles, tiles of BN output columns, splits of K): the
+// split's y W^T over its kts 64-deep slabs of K (the last split may hold
+// fewer, never none).  partial null: rounded once to out; else the fp32
+// sums go to partial[split][N][O].
+template <int BN>
+__global__ void __launch_bounds__(kWg) ln_linear_tc_kernel(
+    const bf16* __restrict__ y, const bf16* __restrict__ w,
+    bf16* __restrict__ out, float* __restrict__ partial, int N, int K, int O,
+    int kts) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t kB = BN * 128;        // W[BN columns][64 k], K-major
+  constexpr uint32_t kStage = kB + kSub;   // + y[64 rows][64 k]
+  unsigned char* sm = align_smem(smem_raw);
+  const uint32_t ring = smem_u32(sm);
+
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int kt0 = blockIdx.z * kts;
+  const int T = min(kts, (K + 63) / 64 - kt0);
+  const int row = frag_row();
+
+  float acc[BN / 2];
+  auto fetch = [&](int t, uint32_t st) {
+    const int k0 = (kt0 + t) * 64;
+    load_tile(st, w, K, n0, O, k0, K, BN);
+    load_tile(st + kB, y, K, r0, N, k0, K, kBM);
+  };
+  auto use = [&](int t, uint32_t st) {
+    const int k0 = (kt0 + t) * 64;
+    mma_tile<BN, 0, 0>(acc, st + kB, st, min(4, (K - k0) / 16), t == 0);
+    if (t + 1 < T)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+  };
+  stream_tiles<kLnMmStages>(ring, kStage, T, fetch, use);
+  fence_acc(acc);
+
+  if (partial) {
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int col = n0 + frag_col(jj);
+      if (col >= O) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long r = r0 + row + 8 * e;
+        if (r < N)
+          *reinterpret_cast<float2*>(
+              partial + ((size_t)blockIdx.z * N + r) * O + col) =
+              make_float2(acc[4 * jj + 2 * e], acc[4 * jj + 2 * e + 1]);
+      }
+    }
+    return;
+  }
+  // the ring is free once every warp's products have read it: it stages
+  // the rounded tile for 16-byte stores
+  __syncthreads();
+#pragma unroll
+  for (int jj = 0; jj < BN / 8; ++jj) {
+    const int fc = frag_col(jj);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<uint32_t*>(sm + (fc >> 6) * kSub +
+                                   swz(row + 8 * e, fc & 63)) =
+          pack_bf16(acc[4 * jj + 2 * e], acc[4 * jj + 2 * e + 1]);
+  }
+  __syncthreads();
+  store_staged(sm, out, O, r0, N, n0, O, BN / 64);
+}
+
+// out = round(sum over splits, in split order): two columns per thread.
+__global__ void __launch_bounds__(kThreads) ln_linear_sum_kernel(
+    const float* __restrict__ partial, bf16* __restrict__ out,
+    long long total, int splits) {
+  const long long idx =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) * 2;
+  if (idx >= total) return;
+  float v0 = 0.f, v1 = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 p =
+        *reinterpret_cast<const float2*>(partial + (size_t)s * total + idx);
+    v0 += p.x;
+    v1 += p.y;
+  }
+  *reinterpret_cast<uint32_t*>(out + idx) = pack_bf16(v0, v1);
+}
+
+template <int BN>
+cudaError_t launch_ln_linear_product(const bf16* y, const bf16* w, bf16* out,
+                                     float* partial, int N, int K, int O,
+                                     int kts, int splits, size_t smem,
+                                     cudaStream_t stream) {
+  cudaError_t err = prepare_smem(ln_linear_tc_kernel<BN>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBM - 1) / kBM, (O + BN - 1) / BN, splits);
+  ln_linear_tc_kernel<BN><<<grid, kWg, smem, stream>>>(y, w, out, partial, N,
+                                                       K, O, kts);
+  return cudaGetLastError();
+}
+
+// Plan (ops/mlp.py:ln_linear_plan): bn output columns per tile, splits of
+// K, smem bytes; y (N, K) bf16 and partial (splits, N, O) fp32 (null for
+// one split) are scratch.  A plan that differs from the kernel's needs is
+// refused.
+cudaError_t launch_ln_linear_tc(const bf16* x, bf16* out, const bf16* lnw,
+                                const bf16* lnb, const bf16* w, bf16* y,
+                                float* partial, int N, int K, int O,
+                                float eps, int bn, int splits, int smem,
+                                cudaStream_t stream) {
+  const int kt = (K + 63) / 64;
+  if (K % kKC || O % 8 || N <= 0 || O <= 0 || !y ||
+      bn != (O % 192 == 0 ? 192 : 128) || splits < 1 || splits > kt ||
+      (O + bn - 1) / bn > 65535 || (splits > 1) != (partial != nullptr))
+    return cudaErrorInvalidValue;
+  const int kts = (kt + splits - 1) / splits;
+  const size_t need = 1024 + (size_t)kLnMmStages * (bn * 128 + kSub);
+  if ((kt + kts - 1) / kts != splits || (size_t)smem != need)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_ln_rows(x, lnw, lnb, y, nullptr, N, K, eps, stream,
+                                   ln_linear_ln_kernel);
+  if (err != cudaSuccess) return err;
+  err = bn == 192 ? launch_ln_linear_product<192>(y, w, out, partial, N, K, O,
+                                                  kts, splits, need, stream)
+                  : launch_ln_linear_product<128>(y, w, out, partial, N, K, O,
+                                                  kts, splits, need, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long total = (long long)N * O;
+  ln_linear_sum_kernel<<<(unsigned)((total / 2 + kThreads - 1) / kThreads),
+                         kThreads, 0, stream>>>(partial, out, total, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace tulip
@@ -436,16 +614,24 @@ extern "C" int tulip_two_matmul(int dtype, int act, const void* x, void* out,
   return cudaErrorInvalidValue;
 }
 
+// fp32: the FMA kernel; y, partial and the plan (bn, splits, smem) are not
+// read.  bf16: the LN pass, the tensor-core product under that plan and,
+// for more than one split, the sum pass.
 extern "C" int tulip_ln_linear(int dtype, const void* x, void* out,
                                const void* lnw, const void* lnb,
-                               const void* w, int N, int K, int O, float eps,
-                               void* stream) {
+                               const void* w, void* y, void* partial, int N,
+                               int K, int O, float eps, int bn, int splits,
+                               int smem, void* stream) {
+  using bf16 = __nv_bfloat16;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return tulip::launch_ln_linear<float>(x, out, lnw, lnb, w, N, K, O, eps,
                                           s);
   if (dtype == 1)
-    return tulip::launch_ln_linear<__nv_bfloat16>(x, out, lnw, lnb, w, N, K,
-                                                  O, eps, s);
+    return tulip::tc::launch_ln_linear_tc(
+        static_cast<const bf16*>(x), static_cast<bf16*>(out),
+        static_cast<const bf16*>(lnw), static_cast<const bf16*>(lnb),
+        static_cast<const bf16*>(w), static_cast<bf16*>(y),
+        static_cast<float*>(partial), N, K, O, eps, bn, splits, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -46,9 +46,25 @@
 //   4. mlp_bwd_finish_kernel, 16 rows per CTA: the splits' dy added in
 //      split order, then the LN backward (ln_backward_rows) and + g.
 //
-// fp32: two_matmul_bwd_kernel, one launch on the CUDA cores (16 rows per
-// CTA, common.cuh), the parity path.  ln_linear_bwd_kernel (K11) runs on it
-// in both types.
+// bf16 LN + matmul backward (K11), on the tensor cores.  Bound on the
+// H100: 2 N K O operations for dy (dW = g^T y is tn_gemm's, reduce.cu)
+// against x, g in and dx out, N (2 K + O) elements: bytes at the first
+// merge, operations below it.  It is K10's token pass without the hidden
+// layer, so it runs three of K10's four launches under kernel names of its
+// own (one body each, so the two share every bit of arithmetic):
+//   1. ln_linear_bwd_ln_kernel: y = LN(x) and the rows' mean, 1/std.
+//   2. ln_linear_bwd_dy_kernel, grid (row tiles, tiles of K, splits of O):
+//      dy = g W (MN-major tiles of W, no transposed copy) in fp32 to
+//      scratch; O is split only when the grid would leave SMs idle
+//      (ops/mlp.py:dy_splits).
+//   3. ln_linear_bwd_finish_kernel, 16 rows per CTA: the splits' dy added
+//      in split order, the LN backward and the dlnw | dlnb partials.
+// What bounds it as built: the fp32 dy round trip (8 N K bytes, more than
+// x, g and dx together) and, at the deep merges, the L2 reads of one
+// warpgroup per CTA, as in K10.
+//
+// fp32: two_matmul_bwd_kernel and ln_linear_bwd_kernel, one launch each on
+// the CUDA cores (16 rows per CTA, common.cuh), the parity path.
 #include "mma.cuh"
 
 namespace tulip {
@@ -352,11 +368,13 @@ __global__ void __launch_bounds__(kWg) mlp_bwd_hidden_kernel(
 
 // grid (64-row tiles, tiles of BN columns of C, splits of Hd): the split's
 // dy = dh[:, split] W1[split, :] in fp32 to dyp[split][N][C]; kts 64-deep
-// tiles of Hd per split.
+// tiles of Hd per split.  Hd % 8 == 0: a last step of fewer than 16 hidden
+// units reads the tiles' zero fill.
 template <int BN>
-__global__ void __launch_bounds__(kWg) mlp_bwd_dy_kernel(
-    const bf16* __restrict__ dh, const bf16* __restrict__ w1,
-    float* __restrict__ dyp, int N, int C, int Hd, int kts) {
+__device__ __forceinline__ void dy_tile(const bf16* __restrict__ dh,
+                                        const bf16* __restrict__ w1,
+                                        float* __restrict__ dyp, int N, int C,
+                                        int Hd, int kts) {
   extern __shared__ unsigned char smem_raw[];
   constexpr uint32_t kB = b_tile_bytes<BN, 1>();
   constexpr uint32_t kStage = kB + kSub;
@@ -378,7 +396,7 @@ __global__ void __launch_bounds__(kWg) mlp_bwd_dy_kernel(
   };
   auto use = [&](int t, uint32_t st) {
     const int k0 = (kt0 + t) * 64;
-    mma_tile<BN, 0, 1>(acc, st + kB, st, min(4, (Hd - k0) / 16), t == 0);
+    mma_tile<BN, 0, 1>(acc, st + kB, st, min(4, (Hd - k0 + 15) / 16), t == 0);
     if (t + 1 < T) {
       wgmma_wait<1>();
       return;
@@ -402,9 +420,24 @@ __global__ void __launch_bounds__(kWg) mlp_bwd_dy_kernel(
   stream_tiles<kDyStages>(ring, kStage, T, fetch, use);
 }
 
+template <int BN>
+__global__ void __launch_bounds__(kWg) mlp_bwd_dy_kernel(
+    const bf16* __restrict__ dh, const bf16* __restrict__ w1,
+    float* __restrict__ dyp, int N, int C, int Hd, int kts) {
+  dy_tile<BN>(dh, w1, dyp, N, C, Hd, kts);
+}
+
+// K11: dy = g W, with g (N, O) as dh and W (O, K) as w1.
+template <int BN>
+__global__ void __launch_bounds__(kWg) ln_linear_bwd_dy_kernel(
+    const bf16* __restrict__ g, const bf16* __restrict__ w,
+    float* __restrict__ dyp, int N, int K, int O, int kts) {
+  dy_tile<BN>(g, w, dyp, N, K, O, kts);
+}
+
 // 16 rows per CTA: dy = the splits' partial sums added in split order, then
 // dx = LN^T(dy) [+ g] and the rows' dlnw | dlnb partial (ln_backward_rows).
-__global__ void __launch_bounds__(kThreads) mlp_bwd_finish_kernel(
+__device__ __forceinline__ void finish_rows(
     const bf16* __restrict__ x, const bf16* __restrict__ g,
     const bf16* __restrict__ lnw, const float* __restrict__ stat,
     const float* __restrict__ dyp, bf16* __restrict__ dx,
@@ -448,6 +481,53 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_finish_kernel(
                          r0, N, C);
 }
 
+__global__ void __launch_bounds__(kThreads) mlp_bwd_finish_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ g,
+    const bf16* __restrict__ lnw, const float* __restrict__ stat,
+    const float* __restrict__ dyp, bf16* __restrict__ dx,
+    float* __restrict__ part, int N, int C, int splits, int residual) {
+  finish_rows(x, g, lnw, stat, dyp, dx, part, N, C, splits, residual);
+}
+
+// K11: no residual (g is not read).
+__global__ void __launch_bounds__(kThreads) ln_linear_bwd_finish_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+    const float* __restrict__ stat, const float* __restrict__ dyp,
+    bf16* __restrict__ dx, float* __restrict__ part, int N, int K,
+    int splits) {
+  finish_rows(x, nullptr, lnw, stat, dyp, dx, part, N, K, splits, 0);
+}
+
+__global__ void __launch_bounds__(kThreads) ln_linear_bwd_ln_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+    const bf16* __restrict__ lnb, bf16* __restrict__ y,
+    float* __restrict__ stat, int N, int C, float eps) {
+  ln_rows(x, lnw, lnb, y, stat, N, C, eps);
+}
+
+// Launch a dy kernel (mlp_bwd_dy_kernel<bn> or ln_linear_bwd_dy_kernel<bn>)
+// over grid (row tiles, tiles of bn columns of C, splits).
+template <typename Kernel>
+cudaError_t launch_dy(Kernel kernel, int bn, const bf16* dh, const bf16* w1,
+                      float* dyp, int N, int C, int Hd, int kts, int splits,
+                      cudaStream_t stream) {
+  const size_t smem = 1024 + (size_t)kDyStages * ((bn / 64) * kSub + kSub);
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBM - 1) / kBM, (C + bn - 1) / bn, splits);
+  kernel<<<grid, kWg, smem, stream>>>(dh, w1, dyp, N, C, Hd, kts);
+  return cudaGetLastError();
+}
+
+// kts 64-deep tiles per split, or 0 when dy_splits does not put every tile
+// of Hd into exactly one non-empty split.
+inline int dy_tiles_per_split(int Hd, int dy_splits) {
+  const int kt = (Hd + 63) / 64;
+  if (dy_splits < 1 || dy_splits > kt) return 0;
+  const int kts = (kt + dy_splits - 1) / dy_splits;
+  return (kt + kts - 1) / kts == dy_splits ? kts : 0;
+}
+
 template <int ACT>
 cudaError_t launch_two_matmul_bwd_tc(const bf16* x, const bf16* g,
                                      const bf16* lnw, const bf16* lnb,
@@ -457,13 +537,10 @@ cudaError_t launch_two_matmul_bwd_tc(const bf16* x, const bf16* g,
                                      float* stat, float* dyp, int N, int C,
                                      int Hd, int O, int residual, float eps,
                                      int dy_splits, cudaStream_t stream) {
-  const int kt = (Hd + 63) / 64;
+  const int kts = dy_tiles_per_split(Hd, dy_splits);
   if (C % kKC || Hd % kKC || O % 8 || (residual && O != C) || N <= 0 ||
-      O <= 0 || !dyp || (lnw && (!y || !part || !stat)) || dy_splits < 1 ||
-      dy_splits > kt)
+      O <= 0 || !dyp || (lnw && (!y || !part || !stat)) || !kts)
     return cudaErrorInvalidValue;
-  const int kts = (kt + dy_splits - 1) / dy_splits;
-  if ((kt + kts - 1) / kts != dy_splits) return cudaErrorInvalidValue;
   cudaError_t err;
   const bf16* ysrc = x;
   if (lnw) {
@@ -471,34 +548,21 @@ cudaError_t launch_two_matmul_bwd_tc(const bf16* x, const bf16* g,
     if (err != cudaSuccess) return err;
     ysrc = y;
   }
-  const unsigned row_tiles = (N + kBM - 1) / kBM;
   {
     const size_t smem = 1024 + (size_t)kBwdStages * (128 * 128 + kSub) +
                         2 * kSub;
     err = prepare_smem(mlp_bwd_hidden_kernel<ACT>, smem);
     if (err != cudaSuccess) return err;
     mlp_bwd_hidden_kernel<ACT>
-        <<<dim3(row_tiles, (Hd + 127) / 128), kWg, smem, stream>>>(
+        <<<dim3((N + kBM - 1) / kBM, (Hd + 127) / 128), kWg, smem, stream>>>(
             ysrc, g, w1, b1, w2, a, dh, N, C, Hd, O);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (C % 192 == 0) {
-    const size_t smem = 1024 + (size_t)kDyStages * (3 * kSub + kSub);
-    err = prepare_smem(mlp_bwd_dy_kernel<192>, smem);
-    if (err != cudaSuccess) return err;
-    mlp_bwd_dy_kernel<192>
-        <<<dim3(row_tiles, C / 192, dy_splits), kWg, smem, stream>>>(
-            dh, w1, dyp, N, C, Hd, kts);
-  } else {
-    const size_t smem = 1024 + (size_t)kDyStages * (2 * kSub + kSub);
-    err = prepare_smem(mlp_bwd_dy_kernel<128>, smem);
-    if (err != cudaSuccess) return err;
-    mlp_bwd_dy_kernel<128>
-        <<<dim3(row_tiles, (C + 127) / 128, dy_splits), kWg, smem, stream>>>(
-            dh, w1, dyp, N, C, Hd, kts);
-  }
-  err = cudaGetLastError();
+  err = C % 192 == 0 ? launch_dy(mlp_bwd_dy_kernel<192>, 192, dh, w1, dyp, N,
+                                 C, Hd, kts, dy_splits, stream)
+                     : launch_dy(mlp_bwd_dy_kernel<128>, 128, dh, w1, dyp, N,
+                                 C, Hd, kts, dy_splits, stream);
   if (err != cudaSuccess) return err;
   const size_t smem =
       sizeof(float) * ((residual ? 2 : 1) * kRows * C + 2 * kRows);
@@ -506,6 +570,37 @@ cudaError_t launch_two_matmul_bwd_tc(const bf16* x, const bf16* g,
   if (err != cudaSuccess) return err;
   mlp_bwd_finish_kernel<<<(N + kRows - 1) / kRows, kThreads, smem, stream>>>(
       x, g, lnw, stat, dyp, dx, part, N, C, dy_splits, residual);
+  return cudaGetLastError();
+}
+
+// K11's token pass: stat (N, 2) and dyp (dy_splits, N, K) are fp32 scratch,
+// y (N, K) the LN output that dW = g^T y reads, part one dlnw | dlnb row per
+// 16 rows.
+inline cudaError_t launch_ln_linear_bwd_tc(const bf16* x, const bf16* g,
+                                           const bf16* lnw, const bf16* lnb,
+                                           const bf16* w, bf16* dx, bf16* y,
+                                           float* part, float* stat,
+                                           float* dyp, int N, int K, int O,
+                                           float eps, int dy_splits,
+                                           cudaStream_t stream) {
+  const int kts = dy_tiles_per_split(O, dy_splits);
+  if (K % kKC || O % 8 || N <= 0 || O <= 0 || !y || !part || !stat || !dyp ||
+      !kts)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_ln_rows(x, lnw, lnb, y, stat, N, K, eps, stream,
+                                   ln_linear_bwd_ln_kernel);
+  if (err != cudaSuccess) return err;
+  err = K % 192 == 0 ? launch_dy(ln_linear_bwd_dy_kernel<192>, 192, g, w, dyp,
+                                 N, K, O, kts, dy_splits, stream)
+                     : launch_dy(ln_linear_bwd_dy_kernel<128>, 128, g, w, dyp,
+                                 N, K, O, kts, dy_splits, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * (kRows * K + 2 * kRows);
+  err = prepare_smem(ln_linear_bwd_finish_kernel, smem);
+  if (err != cudaSuccess) return err;
+  ln_linear_bwd_finish_kernel<<<(N + kRows - 1) / kRows, kThreads, smem,
+                                stream>>>(x, lnw, stat, dyp, dx, part, N, K,
+                                          dy_splits);
   return cudaGetLastError();
 }
 
@@ -552,18 +647,26 @@ extern "C" int tulip_two_matmul_bwd(int dtype, int act, const void* x,
   return cudaErrorInvalidValue;
 }
 
+// fp32: the FMA kernel; stat, dyp and dy_splits are not read.  bf16: the
+// three tensor-core launches.  part: one dlnw | dlnb row per 16 rows.
 extern "C" int tulip_ln_linear_bwd(int dtype, const void* x, const void* g,
                                    const void* lnw, const void* lnb,
                                    const void* w, void* dx, void* y,
-                                   void* part, int N, int K, int O, float eps,
+                                   void* part, void* stat, void* dyp, int N,
+                                   int K, int O, float eps, int dy_splits,
                                    void* stream) {
+  using bf16 = __nv_bfloat16;
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<float*>(part);
   if (dtype == 0)
     return tulip::launch_ln_linear_bwd<float>(x, g, lnw, lnb, w, dx, y, p, N,
                                               K, O, eps, s);
   if (dtype == 1)
-    return tulip::launch_ln_linear_bwd<__nv_bfloat16>(x, g, lnw, lnb, w, dx,
-                                                      y, p, N, K, O, eps, s);
+    return tulip::tc::launch_ln_linear_bwd_tc(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+        static_cast<const bf16*>(lnw), static_cast<const bf16*>(lnb),
+        static_cast<const bf16*>(w), static_cast<bf16*>(dx),
+        static_cast<bf16*>(y), p, static_cast<float*>(stat),
+        static_cast<float*>(dyp), N, K, O, eps, dy_splits, s);
   return cudaErrorInvalidValue;
 }

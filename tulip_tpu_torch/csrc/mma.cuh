@@ -383,12 +383,16 @@ __device__ __forceinline__ float2 ln_one_row(const bf16* __restrict__ x,
 // y = LN(x) rounded to bf16, and each row's mean and 1/std to stat[2r],
 // stat[2r + 1] (stat may be null): the LayerNorm that the fused kernels
 // apply in shared memory, as a pass of its own for the kernels that stream
-// LN(x) as a product operand.  One warp per row (ln_one_row).
+// LN(x) as a product operand.  One warp per row (ln_one_row).  The pass has
+// one body and a kernel name per caller, so that a profile tells K3 / K10's
+// pass (ln_rows_kernel) from K4's and K11's (mlp.cu, mlp_bwd.cu).
 constexpr int kLnRows = kThreads / 32;   // rows per CTA
-static __global__ void __launch_bounds__(kThreads) ln_rows_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ lnw,
-    const bf16* __restrict__ lnb, bf16* __restrict__ y,
-    float* __restrict__ stat, int N, int C, float eps) {
+__device__ __forceinline__ void ln_rows(const bf16* __restrict__ x,
+                                        const bf16* __restrict__ lnw,
+                                        const bf16* __restrict__ lnb,
+                                        bf16* __restrict__ y,
+                                        float* __restrict__ stat, int N,
+                                        int C, float eps) {
   const long long r = (long long)blockIdx.x * kLnRows + (threadIdx.x >> 5);
   if (r >= N) return;
   const float2 st = ln_one_row(x + r * C, lnw, lnb, y + r * C, C, eps);
@@ -398,11 +402,21 @@ static __global__ void __launch_bounds__(kThreads) ln_rows_kernel(
   }
 }
 
-static inline cudaError_t launch_ln_rows(const bf16* x, const bf16* lnw,
-                                  const bf16* lnb, bf16* y, float* stat,
-                                  int N, int C, float eps,
-                                  cudaStream_t stream) {
-  ln_rows_kernel<<<(N + kLnRows - 1) / kLnRows, kThreads, 0, stream>>>(
+static __global__ void __launch_bounds__(kThreads) ln_rows_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+    const bf16* __restrict__ lnb, bf16* __restrict__ y,
+    float* __restrict__ stat, int N, int C, float eps) {
+  ln_rows(x, lnw, lnb, y, stat, N, C, eps);
+}
+
+using LnRowsKernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*,
+                              float*, int, int, float);
+
+static inline cudaError_t launch_ln_rows(
+    const bf16* x, const bf16* lnw, const bf16* lnb, bf16* y, float* stat,
+    int N, int C, float eps, cudaStream_t stream,
+    LnRowsKernel kernel = ln_rows_kernel) {
+  kernel<<<(N + kLnRows - 1) / kLnRows, kThreads, 0, stream>>>(
       x, lnw, lnb, y, stat, N, C, eps);
   return cudaGetLastError();
 }

@@ -47,8 +47,9 @@ SIGNATURES = {
     # N, C, Hd, O, residual, eps, hs, splits, resident, bn2, smem, stream
     "tulip_two_matmul": ([_I, _I] + [_P] * 10 + [_I] * 5 + [_F] + [_I] * 5
                          + [_P]),
-    # dtype, x, out, lnw, lnb, w, N, K, O, eps, stream
-    "tulip_ln_linear": [_I] + [_P] * 5 + [_I] * 3 + [_F, _P],
+    # dtype, x, out, lnw, lnb, w, y, partial, N, K, O, eps, bn, splits,
+    # smem, stream
+    "tulip_ln_linear": [_I] + [_P] * 7 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
     # a, b, out, N, M, chunk, stream
     "tulip_nn_brute": [_P] * 3 + [_I] * 3 + [_P],
     # a_s, b_s, lb_sorted, order, out, N, M, chunk, tile, stream
@@ -64,8 +65,9 @@ SIGNATURES = {
     # dtype, act, x, g, lnw, lnb, w1, b1, w2, dx, y, a, dh, part, stat, dyp,
     # N, C, Hd, O, residual, eps, dy_splits, stream
     "tulip_two_matmul_bwd": [_I, _I] + [_P] * 14 + [_I] * 5 + [_F, _I, _P],
-    # dtype, x, g, lnw, lnb, w, dx, y, part, N, K, O, eps, stream
-    "tulip_ln_linear_bwd": [_I] + [_P] * 8 + [_I] * 3 + [_F, _P],
+    # dtype, x, g, lnw, lnb, w, dx, y, part, stat, dyp, N, K, O, eps,
+    # dy_splits, stream
+    "tulip_ln_linear_bwd": [_I] + [_P] * 10 + [_I] * 3 + [_F, _I, _P],
     # dtype, x, w, b, y, N, C, eps, stream
     "tulip_ln_fwd": [_I] + [_P] * 4 + [_L, _I, _F, _P],
     # dtype, x, w, g, dx, part, N, C, rows per block, eps, stream

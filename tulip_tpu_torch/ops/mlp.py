@@ -14,10 +14,11 @@ join each pair as a ``torch.autograd.Function`` (the training path).
 Each wrapper takes its plain PyTorch version (``*_ref``) for a CPU tensor
 and launches its kernels for a CUDA tensor; any other device raises.
 
-In bf16 K3, K10's token pass and the weight-gradient products run on the
-tensor cores (``csrc/mma.cuh``) under the launch plans computed here
-(:func:`two_matmul_plan`, :func:`dy_splits`, ``reduce.tn_gemm_plan``); in
-fp32 they run on the FMA kernels, the parity path.
+In bf16 K3, K4, the token passes of K10 and K11 and the weight-gradient
+products run on the tensor cores (``csrc/mma.cuh``) under the launch plans
+computed here (:func:`two_matmul_plan`, :func:`ln_linear_plan`,
+:func:`dy_splits`, ``reduce.tn_gemm_plan``); in fp32 they run on the FMA
+kernels, the parity path.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ _ROWS = 64             # token rows per CTA of the tensor-core kernels
 _HID_TILE = 128        # hidden units per tile (csrc/mlp.cu kHidTile)
 _STAGES = 3            # csrc/mlp.cu kMlpStages
 _SUB = 8192            # bytes of a 64 x 64 bf16 operand tile
+_LN_MM_STAGES = 3      # csrc/mlp.cu kLnMmStages
+PARTIAL_CAP = 32 << 20   # bytes of fp32 partial sums a split launch may write
 
 
 def check_widths(C: int, Hd: int, O: int, residual: bool, what: str) -> None:
@@ -93,6 +96,53 @@ def dy_splits(N: int, C: int, Hd: int) -> int:
     kt = -(-Hd // 64)
     want = max(1, min(NUM_SMS // ctas, kt // 4))
     return -(-kt // -(-kt // want))
+
+
+def ln_linear_plan(N: int, K: int, O: int) -> dict:
+    """Launch plan of the bf16 tensor-core K4 (``csrc/mlp.cu``
+    ln_linear_tc_kernel), grid (row tiles, column tiles, splits):
+
+    rows    token rows per CTA (64, one warpgroup);
+    bn      output columns per CTA (``reduce.mn_tile``);
+    splits  splits of K: 1 when row tiles x column tiles exceed the SM
+            count, else enough for about one CTA per SM with at least two
+            64-deep slabs a split, or for two CTAs per SM where a split
+            keeps six (a chain of 12 or 24 slabs alone on its SM measured
+            1.2x slower than two half chains and the sum pass; shorter
+            ones lost to it: NVIDIA H100 80GB HBM3, 700 W); every slab in
+            exactly one split and the fp32 partial sums (splits, N, O) at
+            most ``PARTIAL_CAP``; above 1 a second launch adds the partial
+            sums in split order;
+    kts     64-deep slabs of K per split (the last split may hold fewer);
+    smem    dynamic shared bytes: 1 KB alignment room + the ring of
+            (bn + 64) x 64 bf16 stages.  The C entry point recomputes it
+            and refuses a plan that differs."""
+    bn = mn_tile(O)
+    row_tiles, col_tiles = -(-N // _ROWS), -(-O // bn)
+    kt = -(-K // 64)
+    ctas = row_tiles * col_tiles
+    want = max(min(NUM_SMS // ctas, kt // 2),
+               min(2 * NUM_SMS // ctas, kt // 6))
+    want = max(1, min(want, PARTIAL_CAP // (4 * N * O)))
+    kts = -(-kt // want)
+    splits = -(-kt // kts)
+    return dict(rows=_ROWS, bn=bn, splits=splits, kts=kts,
+                grid=(row_tiles, col_tiles, splits),
+                smem=1024 + _LN_MM_STAGES * (bn * 128 + _SUB))
+
+
+def check_ln_linear(K: int, O: int, dtype, what: str, operands=()) -> None:
+    """Raise for what the K4 / K11 kernels do not take: K % 32 != 0 and, in
+    bf16, O % 8 != 0 or an operand (name, tensor) that does not start on a
+    16-byte boundary."""
+    if K % 32:
+        raise NotImplementedError(f"{what} takes K % 32 == 0, got K={K}")
+    if dtype != torch.bfloat16:
+        return
+    if O % 8:
+        raise NotImplementedError(f"bf16 {what} takes O % 8 == 0, got O={O}")
+    for name, t in operands:
+        build.require_aligned(name, t)
 
 
 def fused_two_matmul_ref(x2d, lnw, lnb, w1, b1, w2, b2, *, act: str,
@@ -180,29 +230,39 @@ def fused_ln_linear_ref(x2d, lnw, lnb, w, *, eps: float = 1e-6):
 
 
 def fused_ln_linear(x2d, lnw, lnb, w, *, eps: float = 1e-6):
-    """LN(x) @ w.T (the patch-merging norm + reduction)."""
+    """LN(x) @ w.T (the patch-merging norm + reduction).  CUDA, bf16: the
+    LN pass to scratch y, the tensor-core product under
+    :func:`ln_linear_plan` and, where K is split, the sum pass."""
     if x2d.device.type == "cpu":
         return fused_ln_linear_ref(x2d, lnw, lnb, w, eps=eps)
     if x2d.device.type != "cuda":
         raise build.not_cuda(x2d)
     N, K = x2d.shape
     O = w.shape[0]
-    if K % 32:
-        raise NotImplementedError(f"ln_linear kernel takes K % 32 == 0, "
-                                  f"got K={K}")
     dev, d = x2d.device, x2d.dtype
+    check_ln_linear(K, O, d, "ln_linear kernel",
+                    (("x", x2d), ("lnw", lnw), ("lnb", lnb), ("w", w)))
     build.require(x2d, "x", dev, d, (N, K))
     build.require(lnw, "lnw", dev, d, (K,))
     build.require(lnb, "lnb", dev, d, (K,))
     build.require(w, "w", dev, d, (O, K))
     lib = build.load()
     out = torch.empty((N, O), device=dev, dtype=d)
+    y = partial = None
+    plan = dict(bn=0, splits=0, smem=0)
+    if d == torch.bfloat16:
+        plan = ln_linear_plan(N, K, O)
+        y = torch.empty_like(x2d)
+        if plan["splits"] > 1:
+            partial = torch.empty((plan["splits"], N, O), device=dev,
+                                  dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tulip_ln_linear(
             build.dtype_code(x2d), x2d.data_ptr(), out.data_ptr(),
-            lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), N, K, O,
-            float(eps), stream)
+            lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), build.ptr(y),
+            build.ptr(partial), N, K, O, float(eps), plan["bn"],
+            plan["splits"], plan["smem"], stream)
     build.check(lib, err, "ln_linear")
     fused_ln_linear.launches += 1
     return out
@@ -351,32 +411,42 @@ def ln_linear_bwd_ref(x2d, lnw, lnb, w, g, *, eps: float = 1e-6):
 
 def ln_linear_bwd(x2d, lnw, lnb, w, g, *, eps: float = 1e-6):
     """Backward of :func:`fused_ln_linear` (K11): the token pass (dy = g W,
-    LN backward, scratch y) then dW = g^T y and the LN column sums."""
+    LN backward, scratch y; in bf16 also the rows' LN statistics and dy in
+    fp32, one per split of :func:`dy_splits`) then dW = g^T y and the LN
+    column sums."""
     if x2d.device.type == "cpu":
         return ln_linear_bwd_ref(x2d, lnw, lnb, w, g, eps=eps)
     if x2d.device.type != "cuda":
         raise build.not_cuda(x2d)
     N, K = x2d.shape
     O = w.shape[0]
-    if K % 32:
-        raise NotImplementedError(f"ln_linear backward takes K % 32 == 0, "
-                                  f"got K={K}")
     dev, d = x2d.device, x2d.dtype
+    check_ln_linear(K, O, d, "ln_linear backward",
+                    (("x", x2d), ("g", g), ("lnw", lnw), ("lnb", lnb),
+                     ("w", w)))
     build.require(x2d, "x", dev, d, (N, K))
     build.require(g, "g", dev, d, (N, O))
     build.require(lnw, "lnw", dev, d, (K,))
     build.require(lnb, "lnb", dev, d, (K,))
     build.require(w, "w", dev, d, (O, K))
+    f32 = torch.float32
     dx = torch.empty_like(x2d)
     y = torch.empty_like(x2d)
-    part = torch.empty((-(-N // 16), 2 * K), device=dev, dtype=torch.float32)
+    part = torch.empty((-(-N // 16), 2 * K), device=dev, dtype=f32)
+    stat = dyp = None
+    splits = 0
+    if d == torch.bfloat16:
+        splits = dy_splits(N, K, O)
+        stat = torch.empty((N, 2), device=dev, dtype=f32)
+        dyp = torch.empty((splits, N, K), device=dev, dtype=f32)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tulip_ln_linear_bwd(
             build.dtype_code(x2d), x2d.data_ptr(), g.data_ptr(),
             lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), dx.data_ptr(),
-            y.data_ptr(), part.data_ptr(), N, K, O, float(eps), stream)
+            y.data_ptr(), part.data_ptr(), build.ptr(stat), build.ptr(dyp),
+            N, K, O, float(eps), splits, stream)
     build.check(lib, err, "ln_linear_bwd")
     dln = colsum(part).to(d)
     out = (dx, dln[:K], dln[K:], tn_gemm(g, y).to(d))

@@ -24,8 +24,9 @@ _SLICE = {torch.float32: 16, torch.bfloat16: 64}
 
 
 def mn_tile(n: int) -> int:
-    """Output columns per CTA of the bf16 products whose weight operand is
-    read down its columns (csrc/mlp_bwd.cu dy, csrc/reduce.cu tn_gemm)."""
+    """Output columns per CTA of the bf16 products that tile their output
+    columns over the grid (csrc/mlp.cu ln_linear, csrc/mlp_bwd.cu dy,
+    csrc/reduce.cu tn_gemm): 192 where that divides n, else 128."""
     return 192 if n % 192 == 0 else 128
 
 

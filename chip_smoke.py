@@ -19,7 +19,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    median kernel and plain times from CUDA events.  Then the three chamfer
    kernels (K5, K6, K7; fp32) on 262,144-point clouds of a synthetic DurLAR
    scan and a perturbed copy, and on a ragged, a uniform and a degenerate
-   cloud: each against its plain version and against K7.
+   cloud: each against its plain version, K5 and K6 against K7 bit for bit
+   (K5 in both directions and over two runs), K5's plan kernels against
+   h2_plan, and the pair shares K5 evaluated and an exact sweep needs.
 4. main path: a synthetic DurLAR folder read by tulip_tpu_torch.data, TULIP-base
    32x2048 -> 128x2048 with random weights from a seeded generator, bf16
    forwards through apply_model at batches 1, 4 and 8; launches per forward,
@@ -33,7 +35,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    same engine with the plain chamfer (chamfer_impl "xla") and with K7
    ("pallas") must agree; the MC full loop must equal its shortcut; K6
    through the metric API (chamfer_distance without pad_to); forward and
-   metric ms per sample.
+   metric ms per sample; K5 checked and timed as in phase 3 on the clouds
+   the metric step gives it (sample 0's gt against the random-weight pred).
 7. training: a synthetic DurLAR train split, TULIP-base 32x2048 ->
    128x2048, bf16 over fp32 master weights, batch 8, drop_path_rate 0.1
    drawn from a device generator, AdamW (lr 5e-4, wd 0.01, warmup-cosine
@@ -201,6 +204,8 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
 # them, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# fp32 instructions per second outside the tensor cores (an FMA is 2 FLOP)
+FP32_ISSUE = PEAK_FLOPS["float32"] / 2
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -903,9 +908,65 @@ def needed_pair_share(torch, a, b, d_a, d_b=None, tile=256, chunk=1024):
     return float(need.float().mean())
 
 
-def chamfer_checks(torch, device):
-    """Table rows of K5, K6, K7 against their plain versions and against
-    K7, with kernel and plain ms (CUDA events) for the on-path clouds."""
+def k5_pair_shares(torch, label, a, b, ref_a, ref_b):
+    """The "nn_needed_pair_share" line of one cloud pair: the share of all
+    point pairs an exact sweep needs over Morton tiles of 256 x 1024 points
+    (the tiling of the earlier K5) and of K5's own 128 x 32, beside the
+    share K5 evaluated in this call (its listed tile pairs per round x 128
+    x 32), and the work floor: the needed pairs at K5's tiling x PAIR_OPS
+    instructions at the fp32 issue rate.  Diagnostics, no part of a
+    bound."""
+    from tulip_tpu_torch.ops import chamfer as C
+    C.min_sq_dists_h2(a, b, 1024)
+    listed = C.min_sq_dists_h2.last_counts.tolist()[0::2]
+    N, M = a.shape[0], b.shape[0]
+    tile_pairs = C.H2_ROWS * C.H2_COLS
+    need_k5 = needed_pair_share(torch, a, b, ref_a, ref_b, C.H2_ROWS,
+                                C.H2_COLS)
+    out = {"clouds": label,
+           "one direction (K6), 256 x 1024": needed_pair_share(
+               torch, a, b, ref_a),
+           "both directions, 256 x 1024": needed_pair_share(
+               torch, a, b, ref_a, ref_b),
+           "both directions, K5's 128 x 32": need_k5,
+           "evaluated by K5 (128 x 32)": sum(listed) * tile_pairs / (N * M),
+           "evaluated by K5 per round": [n * tile_pairs / (N * M)
+                                         for n in listed],
+           "work floor ms (needed at 128 x 32)": (
+               need_k5 * N * M * PAIR_OPS / FP32_ISSUE * 1e3),
+           "tiling": "Morton order, query x target points per tile"}
+    print(json.dumps({"nn_needed_pair_share": out}), flush=True)
+    return out
+
+
+def k5_plan_equal(torch, a, b):
+    """K5's plan kernels (Morton codes, one argsort, the sorted clouds and
+    tile boxes) against their plain version ops/chamfer.py:h2_plan: the
+    same orders and bits."""
+    from tulip_tpu_torch.ops import chamfer as C
+    N, M = a.shape[0], b.shape[0]
+    Ti, Tj, _ = C.h2_sizes(N, M)
+    buf = C._h2_buffers(N, M, a.device)
+    perm = C._h2_device_plan(a, b, buf)
+    pa, pb, a_s, b_s, (ca, ha), (cb, hb) = C.h2_plan(a, b)
+    got = buf["boxes"].split([3 * Ti, 3 * Ti, 3 * Tj, 3 * Tj])
+    want = (ca, ha, cb, hb)
+    return bool(torch.equal(perm[:N], pa) and torch.equal(perm[N:] - N, pb)
+                and torch.equal(buf["a_s"].view(N, 3), a_s)
+                and torch.equal(buf["b_s"].view(M, 3), b_s)
+                and all(torch.equal(g.view(-1, 3), w)
+                        for g, w in zip(got, want)))
+
+
+def chamfer_rows(torch, device, label, a, b, m_real, on_path, timed=("K7",
+                 "K6", "K5")):
+    """Table rows of K7, K6, K5 on one cloud pair against their plain
+    versions (per element CHAMFER_RTOL |ref| + CHAMFER_ATOL) and K5 / K6
+    against K7 bit for bit (torch.equal; K5 in both directions, over the
+    real rows of b); K5 twice for the same bits, and its plan kernels
+    against h2_plan (k5_plan_equal).  On the path, the kernels
+    in `timed` get kernel and plain ms (CUDA events) and their rows; the
+    others are checked and left out of the table."""
     from tulip_tpu_torch.ops import chamfer as C
 
     def excess(out, ref):
@@ -913,81 +974,90 @@ def chamfer_checks(torch, device):
         return float(((out - ref).abs()
                       / (CHAMFER_RTOL * ref.abs() + CHAMFER_ATOL)).max())
 
-    rows = []
-    for label, a, b, m_real, on_path in chamfer_clouds(torch, device):
-        # K7's chunk on the path is the default 4096 (it has no
-        # preferred_chunk); K5 / K6 use their preferred 1024
-        c7 = 4096 if on_path else 1024
-        pad = (-a.shape[0]) % c7
-        a_pad = torch.cat([a, torch.full((pad, 3), 1e8, device=device)])
-        ref_a, plain_a_ms = timed_once(
-            torch, lambda: C.min_sq_dists_plain(a, b, 1024))
-        ref_b, plain_b_ms = timed_once(
-            torch, lambda: C._min_sq_dists(b, a, 1024))
-        k7 = C.min_sq_dists_brute(a, b, c7)
-        k7b = C.min_sq_dists_brute(b, a_pad, c7)[:m_real]
-        k6 = C.min_sq_dists_h(a, b, 1024)
-        k5a, k5b = C.min_sq_dists_h2(a, b, 1024)
-        torch.cuda.synchronize()
-        checks = {
-            "K7": {"plain": excess(k7, ref_a)},
-            "K6": {"plain": excess(k6, ref_a), "K7": excess(k6, k7)},
-            "K5": {"plain a->b": excess(k5a, ref_a),
-                   "plain b->a": excess(k5b, ref_b),
-                   "K7 a->b": excess(k5a, k7),
-                   "K7 b->a": excess(k5b[:m_real], k7b)}}
-        abs_err = {"K7": float((k7 - ref_a).abs().max()),
-                   "K6": float((k6 - ref_a).abs().max()),
-                   "K5": max(float((k5a - ref_a).abs().max()),
-                             float((k5b - ref_b).abs().max()))}
-        times = {"K7": (None, None), "K6": (None, None), "K5": (None, None)}
-        work = {}
-        if on_path:
-            N, M = a.shape[0], b.shape[0]
-            # bytes: both clouds in, the minima out.  Operations: brute
-            # force is all N x M pairs by definition; the two skipping
-            # searches need at least one pair per minimum they return, so
-            # their bound is the bytes'
-            work = {"K7": ((N + M) * 12 + N * 4, N * M * PAIR_OPS),
-                    "K6": ((N + M) * 12 + N * 4, N * PAIR_OPS),
-                    "K5": ((N + M) * 16, (N + M) * PAIR_OPS)}
-            print(json.dumps({"nn_needed_pair_share": {
-                "one direction (K6)": needed_pair_share(torch, a, b, ref_a),
-                "both directions (K5)": needed_pair_share(torch, a, b, ref_a,
-                                                          ref_b),
-                "tiling": "Morton order, 256 queries x 1024 targets",
-                "clouds": label}}), flush=True)
+    # K7's chunk on the path is the default 4096 (it has no
+    # preferred_chunk); K5 / K6 use their preferred 1024
+    c7 = 4096 if on_path else 1024
+    pad = (-a.shape[0]) % c7
+    a_pad = torch.cat([a, torch.full((pad, 3), 1e8, device=device)])
+    ref_a, plain_a_ms = timed_once(
+        torch, lambda: C.min_sq_dists_plain(a, b, 1024))
+    ref_b, plain_b_ms = timed_once(
+        torch, lambda: C._min_sq_dists(b, a, 1024))
+    k7 = C.min_sq_dists_brute(a, b, c7)
+    k7b = C.min_sq_dists_brute(b, a_pad, c7)[:m_real]
+    k6 = C.min_sq_dists_h(a, b, 1024)
+    k5a, k5b = C.min_sq_dists_h2(a, b, 1024)
+    again = C.min_sq_dists_h2(a, b, 1024)
+    torch.cuda.synchronize()
+    same = {"K7 a->b": bool(torch.equal(k5a, k7)),
+            "K7 b->a": bool(torch.equal(k5b[:m_real], k7b)),
+            "run twice": bool(torch.equal(k5a, again[0])
+                              and torch.equal(k5b, again[1])),
+            "plan": k5_plan_equal(torch, a, b)}
+    checks = {
+        "K7": {"plain": excess(k7, ref_a)},
+        "K6": {"plain": excess(k6, ref_a), "K7": excess(k6, k7)},
+        "K5": {"plain a->b": excess(k5a, ref_a),
+               "plain b->a": excess(k5b, ref_b)}}
+    equal = {"K7": True, "K6": bool(torch.equal(k6, k7)),
+             "K5": all(same.values())}
+    abs_err = {"K7": float((k7 - ref_a).abs().max()),
+               "K6": float((k6 - ref_a).abs().max()),
+               "K5": max(float((k5a - ref_a).abs().max()),
+                         float((k5b - ref_b).abs().max()))}
+    times = {"K7": (None, None), "K6": (None, None), "K5": (None, None)}
+    work = {}
+    if on_path:
+        N, M = a.shape[0], b.shape[0]
+        # bytes: both clouds in, the minima out.  Operations: brute
+        # force is all N x M pairs by definition; the two skipping
+        # searches need at least one pair per minimum they return, so
+        # their bound is the bytes'
+        work = {"K7": ((N + M) * 12 + N * 4, N * M * PAIR_OPS),
+                "K6": ((N + M) * 12 + N * 4, N * PAIR_OPS),
+                "K5": ((N + M) * 16, (N + M) * PAIR_OPS)}
+        k5_pair_shares(torch, label, a, b, ref_a, ref_b)
+        if "K7" in timed:
             _, plain7 = timed_once(
                 torch, lambda: C.min_sq_dists_plain(a, b, c7))
-            times = {
-                "K7": (cuda_ms(torch, lambda: C.min_sq_dists_brute(a, b, c7),
-                               iters=10, warmup=2), plain7),
-                "K6": (cuda_ms(torch, lambda: C.min_sq_dists_h(a, b, 1024),
-                               iters=10, warmup=2), plain_a_ms),
-                "K5": (cuda_ms(torch, lambda: C.min_sq_dists_h2(a, b, 1024),
-                               iters=10, warmup=2), plain_a_ms + plain_b_ms)}
-        for knum, kernel in (("K7", "nn_brute"), ("K6", "nn_h"),
-                             ("K5", "nn_h2")):
-            worst = max(checks[knum].values())
-            ms, plain_ms = times[knum]
-            rows.append(dict(kernel=kernel, knum=knum, dtype="float32",
-                             label=f"{kernel} {knum} fp32 {label}",
-                             on_path=on_path, checks=checks[knum],
-                             max_abs_err=abs_err[knum], ms=ms,
-                             plain_ms=plain_ms, library_ms=None,
-                             ok=worst <= 1.0))
-            r = rows[-1]
-            t = ""
-            if ms is not None:
-                r["bytes"], r["flops"] = work[knum]
-                r["bound_ms"], r["bound_by"] = bound_ms(*work[knum],
-                                                        "float32")
-                t = (f" kernel {ms:.3f} ms plain {plain_ms:.1f} ms bound "
-                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-            print(f"kernel {'ok ' if r['ok'] else 'BAD'} {r['label']}: "
-                  f"excess over {CHAMFER_RTOL:.0e}|ref|+{CHAMFER_ATOL:.0e} "
-                  f"(limit 1) {checks[knum]}, max abs err "
-                  f"{abs_err[knum]:.3e}{t}", flush=True)
+            times["K7"] = (cuda_ms(torch, lambda: C.min_sq_dists_brute(
+                a, b, c7), iters=10, warmup=2), plain7)
+        if "K6" in timed:
+            times["K6"] = (cuda_ms(torch, lambda: C.min_sq_dists_h(
+                a, b, 1024), iters=10, warmup=2), plain_a_ms)
+        times["K5"] = (cuda_ms(torch, lambda: C.min_sq_dists_h2(a, b, 1024),
+                               iters=10, warmup=2), plain_a_ms + plain_b_ms)
+    rows = []
+    for knum, kernel in (("K7", "nn_brute"), ("K6", "nn_h"),
+                         ("K5", "nn_h2")):
+        worst = max(checks[knum].values())
+        ms, plain_ms = times[knum]
+        r = dict(kernel=kernel, knum=knum, dtype="float32",
+                 label=f"{kernel} {knum} fp32 {label}",
+                 on_path=on_path and knum in timed, checks=checks[knum],
+                 equal_to_k7=(same if knum == "K5" else equal[knum]),
+                 max_abs_err=abs_err[knum], ms=ms, plain_ms=plain_ms,
+                 library_ms=None, ok=worst <= 1.0 and equal[knum])
+        t = ""
+        if ms is not None:
+            r["bytes"], r["flops"] = work[knum]
+            r["bound_ms"], r["bound_by"] = bound_ms(*work[knum], "float32")
+            t = (f" kernel {ms:.3f} ms plain {plain_ms:.1f} ms bound "
+                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"kernel {'ok ' if r['ok'] else 'BAD'} {r['label']}: "
+              f"excess over {CHAMFER_RTOL:.0e}|ref|+{CHAMFER_ATOL:.0e} "
+              f"(limit 1) {checks[knum]}, bit-equal {r['equal_to_k7']}, "
+              f"max abs err {abs_err[knum]:.3e}{t}", flush=True)
+        if r["on_path"] or not on_path:
+            rows.append(r)
+    return rows
+
+
+def chamfer_checks(torch, device):
+    """Table rows of K5, K6, K7 on chamfer_clouds (chamfer_rows)."""
+    rows = []
+    for label, a, b, m_real, on_path in chamfer_clouds(torch, device):
+        rows += chamfer_rows(torch, device, label, a, b, m_real, on_path)
     return rows
 
 
@@ -1206,10 +1276,19 @@ def run_eval_phase(torch, dev, data_root, model16, model32):
                                        iters=5, warmup=1),
                   metrics_k5=cuda_ms(torch, lambda: metrics_fn(*outs[:3]),
                                      iters=5, warmup=1))
+        # K5 on the clouds the metric step hands it (sample 0): a timed case
+        # of the path beside phase 3's perturbed copy
+        rows = chamfer_rows(
+            torch, dev, f"eval path: sample 0 gt vs random-weight pred "
+            f"N=M={pcd_gt.shape[0]}", pcd_gt, pcd_pred, pcd_gt.shape[0],
+            True, timed=("K5",))
     print(f"eval ms per sample (CUDA events, median of 5): forward fp32 "
           f"{ms['forward_fp32']:.2f}, forward bf16 {ms['forward_bf16']:.2f},"
           f" metrics with K5 {ms['metrics_k5']:.2f}", flush=True)
-    report.update(launches=total, ms_per_sample=ms)
+    bad = [r["label"] for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"K5 on the eval clouds: {bad}")
+    report.update(launches=total, ms_per_sample=ms, k5_rows=rows)
     return report
 
 
@@ -1669,7 +1748,7 @@ def profile_paths(torch, dev):
     per iteration of every kernel name above 0.5 % (the port's kernels by
     their C++ names, the rest by PyTorch's; the attention half-block's
     kernels whatever their share) and the sums by PROFILE_CLASSES, then
-    k3_plan_ab.  Also
+    k3_plan_ab and profile_k5.  Also
     written to chiprun_out/profile.json.  No check, no kernel table: the default run
     does those."""
     from torch.autograd import DeviceType
@@ -1747,11 +1826,62 @@ def profile_paths(torch, dev):
     del tm, step
     torch.cuda.empty_cache()
     report["k3_plan"] = k3_plan_ab(torch, dev)
+    report["k5"] = profile_k5(torch, dev)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile.json"), "w") as f:
         json.dump(report, f, indent=1)
     return 0
+
+
+# K5's kernels by name -> class of its breakdown; PyTorch's kernels in a
+# K5 call (the argsort, memsets) are plan glue
+K5_CLASSES = {"nn2_box": "plan glue", "nn2_morton": "plan glue",
+              "nn2_gather": "plan glue", "nn2_bound": "plan glue",
+              "nn2_first_pass": "first pass", "nn2_ub": "first pass",
+              "nn2_list": "compaction", "nn2_sweep": "sweep",
+              "nn2_unsort": "unsort"}
+
+
+def profile_k5(torch, dev):
+    """K5 on phase 3's scan and perturbed copy and on a cloud pair far
+    apart (the scan against the scan scaled by 0.7, as a poor prediction
+    is), by torch.profiler: device ms per call (mean of 5) by kernel name
+    and by class: plan glue (codes, the argsort, sorted clouds and boxes,
+    the bound kernel), first pass (round 0's sweep and the upper-bound
+    kernels), compaction (the list kernels), sweep (rounds 1-3), unsort."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tulip_tpu_torch.ops import chamfer as C
+    label, a, b, _, _ = chamfer_clouds(torch, dev)[0]
+    out = {}
+    for name, x, y in ((label, a, b), ("scan vs the scan x 0.7", a, a * 0.7)):
+        for _ in range(2):
+            C.min_sq_dists_h2(x, y, 1024)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                C.min_sq_dists_h2(x, y, 1024)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.self_device_time_total / 5 / 1e3
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.self_device_time_total > 0}
+        classes = dict.fromkeys(["plan glue", "first pass", "compaction",
+                                 "sweep", "unsort"], 0.0)
+        for key, ms in kernels.items():
+            classes[next((c for sub, c in K5_CLASSES.items() if sub in key),
+                         "plan glue")] += ms
+        total = sum(kernels.values())
+        print(f"profile K5 {name}: device {total:.4f} ms per call; by class "
+              f"{ {c: round(ms, 4) for c, ms in classes.items()} }",
+              flush=True)
+        for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:8.4f} ms {key[:100]}", flush=True)
+        out[name] = dict(device_ms=total, classes=classes, kernels=kernels)
+    return out
 
 
 def k3_plan_ab(torch, dev):
@@ -1784,8 +1914,9 @@ def k3_plan_ab(torch, dev):
 def time_paths(torch, dev, tree):
     """``python3 chip_smoke.py --paths [--tree DIR]``: the wall ms of the
     bf16 inference forward at batch 1, 4 and 8 (median and least of 40
-    synchronised forwards, twice over) and of the bf16 batch-8 train step
-    (timed_steps, twice), at the flagship size, for the package of this
+    synchronised forwards, twice over), K5 and the eval metric step
+    (time_paths_k5) and the bf16 batch-8 train step (timed_steps, twice),
+    at the flagship size, for the package of this
     checkout or of the checkout at DIR.  Two commits are compared inside
     one call, on one card and one host, in the order parent, change,
     change, parent: the host is shared, and its wall times differ by up to
@@ -1818,12 +1949,47 @@ def time_paths(torch, dev, tree):
                   f"ms = {bs / med:.2f} img/s (min {min(times) * 1e3:.3f} "
                   f"ms)", flush=True)
     del model
+    time_paths_k5(torch, dev, tree, data_root, weights)
     batches = load_batches(data_root, TRAIN_BATCH, 2048, split="train")
     for _ in range(2):
         ms = timed_steps(torch, dev, weights, batches, 14, False)
         print(f"paths {tree}: train step batch {TRAIN_BATCH} median of 12 "
               f"{ms:.2f} ms", flush=True)
     return 0
+
+
+def time_paths_k5(torch, dev, tree, data_root, weights):
+    """Part of --paths: K5 (min_sq_dists_h2) on phase 3's scan and
+    perturbed copy and on phase 6's clouds (sample 0's gt against the fp32
+    random-weight pred), and phase 6's metric step on the same sample
+    (median of 10 by CUDA events, twice over)."""
+    from tulip_tpu_torch.eval import engine as E
+    from tulip_tpu_torch.eval.geometry import img_to_pcd_durlar_torch
+    from tulip_tpu_torch.models.tulip import tulip_base
+    from tulip_tpu_torch.ops import chamfer as C
+    _, a, b, _, _ = chamfer_clouds(torch, dev)[0]
+    model32 = tulip_base(**FLAGSHIP)
+    model32.load_state_dict(weights, strict=True)
+    model32 = model32.to(dev)
+    low, high = load_batches(data_root, 1, 2048)[0]
+    fwd = E._make_eval_forward(model32, "durlar", True, E._GATES,
+                               torch.float32)
+    metrics_fn = E._make_device_metrics("durlar", eval_args(os.path.join(
+        REPO, "build", "chip_smoke_eval")), mc=False)
+    with torch.no_grad():
+        outs = fwd(torch.from_numpy(low["sample"]).to(dev),
+                   torch.from_numpy(high["sample"]).to(dev))
+        dm = metrics_fn(*outs[:3])
+        gt = img_to_pcd_durlar_torch(dm["high_gated"])
+        pred = img_to_pcd_durlar_torch(dm["pred_inj"])
+        for _ in range(2):
+            ms = [cuda_ms(torch, lambda: C.min_sq_dists_h2(x, y, 1024),
+                          iters=10, warmup=2) for x, y in ((a, b), (gt, pred))]
+            step = cuda_ms(torch, lambda: metrics_fn(*outs[:3]), iters=10,
+                           warmup=2)
+            print(f"paths {tree}: K5 scan vs perturbed copy {ms[0]:.4f} ms, "
+                  f"K5 eval clouds {ms[1]:.4f} ms, eval metric step "
+                  f"{step:.4f} ms", flush=True)
 
 
 def main() -> int:
@@ -1970,6 +2136,7 @@ def main() -> int:
 
     # -- 6. eval -----------------------------------------------------------
     eval_report = run_eval_phase(torch, dev, data_root, model, model32)
+    table += eval_report.pop("k5_rows")
 
     # -- 7. training -------------------------------------------------------
     del model, model32, cpu_model

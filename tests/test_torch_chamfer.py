@@ -1,7 +1,8 @@
 """The port's nearest-neighbour sweeps (tulip_tpu_torch.ops.chamfer) against
 the JAX package's K7 / K6 / K5 (Pallas, interpret mode on the CPU) and a
-numpy brute force, the K5 / K6 tables against JAX's, and the tables' skip
-rule replayed in torch.
+numpy brute force, the K5 / K6 tables against JAX's, K6's skip rule and
+K5's rounds of tile pairs replayed in torch (bit for bit against the plain
+minima: the same direct-form distances and an exact minimum).
 
 Tolerances: against numpy (the same direct-form fp32 distances) 1e-6
 relative + 1e-6 m^2 (summation order of three terms); against JAX rtol 1e-4
@@ -135,57 +136,295 @@ def test_tables_match_jax():
     np.testing.assert_array_equal(order.numpy(), jorder)
 
 
-def _replay(a, b, chunk, pair, tile):
-    """The kernels' walk over the plan, in order on the CPU: K6 stops at the
-    first chunk whose bound reaches the tile's worst minimum; K5 skips a
-    chunk unless its bound is below the tile's or the chunk's worst minimum.
-    Returns (d_a, d_b or None, chunks visited, chunks in all)."""
-    pa, pb, a_s, b_s, lb_sorted, order = C.plan(
-        a, b, chunk, tile=tile, bounds="box" if pair else "sphere")
-    N, M = a.shape[0], b.shape[0]
+def _replay(a, b, chunk, tile):
+    """K6's walk over its plan, in order on the CPU: stop at the first chunk
+    whose bound reaches the tile's worst minimum.  Returns (d_a, chunks
+    visited, chunks in all)."""
+    pa, _, a_s, b_s, lb_sorted, order = C.plan(a, b, chunk, tile=tile,
+                                               bounds="sphere")
+    N = a.shape[0]
     da = torch.full((N,), 1e30)
-    db = torch.full((M,), 1e30)
     visits = 0
     for i in range(lb_sorted.shape[0]):
         rows = slice(i * tile, min((i + 1) * tile, N))
         for k in range(lb_sorted.shape[1]):
-            lb = lb_sorted[i, k]
             cols = slice(int(order[i, k]) * chunk, (int(order[i, k]) + 1)
                          * chunk)
-            cur_a = da[rows].max()
-            if pair and not (lb < cur_a or lb < db[cols].max()):
-                continue
-            if not pair and k > 0 and lb >= cur_a:
+            if k > 0 and lb_sorted[i, k] >= da[rows].max():
                 break
             d = C.min_sq_dists_plain(a_s[rows], b_s[cols], chunk)
             da[rows] = torch.minimum(da[rows], d)
-            if pair:
-                db[cols] = torch.minimum(
-                    db[cols], C._min_sq_dists(b_s[cols], a_s[rows], chunk))
             visits += 1
-    d_a = C._unsort(da, pa)
-    d_b = C._unsort(db, pb) if pair else None
-    return d_a, d_b, visits, lb_sorted.numel()
+    return C._unsort(da, pa), visits, lb_sorted.numel()
 
 
-@pytest.mark.parametrize("pair", [False, True])
-def test_skip_rule_is_exact(pair):
-    """Replaying the tables with the kernels' skip rule gives the brute
-    minima exactly and skips work on a scan-like cloud (small tiles, so that
-    this size has tile pairs to skip; the rule does not depend on them)."""
+def _sweep_pairs(sel, a_s, b_s, da, db):
+    """The plain minima of every listed tile pair, folded into da / db."""
+    N, R, K = a_s.shape[0], C.H2_ROWS, C.H2_COLS
+    for i, j in sel.nonzero().tolist():
+        rows = slice(i * R, min((i + 1) * R, N))
+        cols = slice(j * K, (j + 1) * K)
+        da[rows] = torch.minimum(da[rows],
+                                 C._min_sq_dists(a_s[rows], b_s[cols], K))
+        db[cols] = torch.minimum(db[cols],
+                                 C._min_sq_dists(b_s[cols], a_s[rows], R))
+
+
+def _replay_h2(a, b):
+    """K5's rounds on the CPU: the first pairs, then for each fraction the
+    upper bounds from the minima so far and the pairs they list.  Returns
+    (d_a, d_b, pairs per round, the union of the rounds, the bound table,
+    the Morton orders)."""
+    pa, pb, a_s, b_s, (ca, ha), (cb, hb) = C.h2_plan(a, b)
+    lb = C.box_lb_table(ca, ha, cb, hb)
+    da = torch.full((a.shape[0],), 1e30)
+    db = torch.full((b.shape[0],), 1e30)
+    done = C.h2_first_pairs(lb)
+    counts = [int(done.sum())]
+    _sweep_pairs(done, a_s, b_s, da, db)
+    for frac in C.H2_FRACS:
+        sel = C.h2_round_pairs(lb, *C.h2_upper_bounds(da, db), frac, done)
+        _sweep_pairs(sel, a_s, b_s, da, db)
+        done |= sel
+        counts.append(int(sel.sum()))
+    return C._unsort(da, pa), C._unsort(db, pb), counts, done, lb, (pa, pb)
+
+
+def _skip_cloud():
     rng = np.random.default_rng(5)
     a = _clustered(rng, 3000)
     b = np.concatenate([(a[:2800] + rng.normal(0, 0.05, (2800, 3)))
                         .astype(np.float32),
                         np.full((272, 3), 1e8, np.float32)])
-    ref_a, ref_b = _brute(a, b[:2800])
-    d_a, d_b, visits, total = _replay(torch.from_numpy(a),
-                                      torch.from_numpy(b), 256, pair, 128)
-    np.testing.assert_allclose(d_a.numpy(), ref_a, rtol=1e-6, atol=1e-6)
-    if pair:
-        np.testing.assert_allclose(d_b.numpy()[:2800], ref_b, rtol=1e-6,
-                                   atol=1e-6)
-    assert visits < total
+    return a, b, 2800
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_skip_rule_is_exact(pair):
+    """K6 (pair False): replaying its tables with its early stop gives the
+    brute minima and skips work (small tiles, so that this size has tile
+    pairs to skip; the rule does not depend on them).  K5 (pair True): the
+    rounds of first pairs and upper bounds give the plain minima exactly in
+    both directions (ragged N = 3000 against a b padded with sentinels) and
+    leave pairs out."""
+    a, b, m_real = _skip_cloud()
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ref_a, ref_b = _brute(a, b[:m_real])
+    if not pair:
+        d_a, visits, total = _replay(ta, tb, 256, 128)
+        np.testing.assert_allclose(d_a.numpy(), ref_a, rtol=1e-6, atol=1e-6)
+        assert visits < total
+        return
+    d_a, d_b, counts, done, _, _ = _replay_h2(ta, tb)
+    assert torch.equal(d_a, C.min_sq_dists_plain(ta, tb, 32))
+    assert torch.equal(d_b[:m_real], C._min_sq_dists(tb, ta, 1000)[:m_real])
+    np.testing.assert_allclose(d_b.numpy()[:m_real], ref_b, rtol=1e-6,
+                               atol=1e-6)
+    assert sum(counts) == int(done.sum()) < done.numel()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_h2_rounds_are_exact_and_cover_the_needed_pairs(name):
+    """On every cloud: the rounds give the plain minima bit for bit in both
+    directions (real rows of b), no pair is listed twice, and every tile
+    pair that the true minima need (its bound at or below the worst true
+    minimum of its query tile or of its target tile) is listed."""
+    a, b, m_real = CASES[name]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    d_a, d_b, counts, done, lb, (pa, pb) = _replay_h2(ta, tb)
+    ref_a = C.min_sq_dists_plain(ta, tb, 32)
+    ref_b = C._min_sq_dists(tb, ta, 100)
+    assert torch.equal(d_a, ref_a)
+    assert torch.equal(d_b[:m_real], ref_b[:m_real])
+    assert sum(counts) == int(done.sum())
+    ub_a, ub_b = C.h2_upper_bounds(ref_a[pa], ref_b[pb])
+    need = (lb <= ub_a[:, None]) | (lb <= ub_b[None, :])
+    assert not (need & ~done).any()
+
+
+def test_h2_lists_less_than_all_pairs_on_a_scan():
+    """On a scan against a perturbed copy the rounds list a small share of
+    the tile pairs, near the share the true minima need."""
+    a, b, _ = CASES["scan-and-perturbed-copy"]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    d_a, d_b, counts, done, lb, (pa, pb) = _replay_h2(ta, tb)
+    ub_a, ub_b = C.h2_upper_bounds(d_a[pa], d_b[pb])
+    need = (lb <= ub_a[:, None]) | (lb <= ub_b[None, :])
+    assert int(need.sum()) <= int(done.sum()) < done.numel() // 2
+
+
+def test_h2_tables_match_jax():
+    """K5's tile boxes at its own sizes (128 queries, 32 targets) equal
+    JH._tile_boxes, and its bound table the JAX formula of
+    min_sq_dists_pallas_h2 on those boxes."""
+    a, b, _ = CASES["scan-and-perturbed-copy"]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    pa, pb, a_s, b_s, (ca, ha), (cb, hb) = C.h2_plan(ta, tb)
+    ref_pa, ref_pb = C._morton_order(ta, tb)
+    assert torch.equal(pa, ref_pa) and torch.equal(pb, ref_pb)
+    for (c, h), pts, tile in (((ca, ha), a_s, C.H2_ROWS),
+                              ((cb, hb), b_s, C.H2_COLS)):
+        jc, jh = JH._tile_boxes(jnp.asarray(pts.numpy()), tile)
+        np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
+    lb = C.box_lb_table(ca, ha, cb, hb)
+    jca, jha, jcb, jhb = (jnp.asarray(t.numpy()) for t in (ca, ha, cb, hb))
+    gap = jnp.maximum(jnp.abs(jca[:, None, :] - jcb[None, :, :])
+                      - jha[:, None, :] - jhb[None, :, :], 0.0)
+    lb_lin = jnp.maximum(jnp.sqrt(jnp.sum(gap * gap, axis=-1)) - 1e-3, 0.0)
+    np.testing.assert_allclose(lb.numpy(), np.asarray(lb_lin * lb_lin),
+                               rtol=1e-6)
+    assert lb.shape == (C.h2_sizes(*a.shape[:1], b.shape[0])[:2])
+
+
+def test_h2_sizes():
+    assert C.h2_sizes(262144, 262144) == (2048, 8192, 256)
+    assert C.h2_sizes(1400, 3072) == (11, 96, 3)
+    with pytest.raises(ValueError, match="multiple"):
+        C.h2_sizes(100, 1000)
+    assert C.h2_sizes(128 * 2 ** 14, 32 * (2 ** 17 - 1)) == (
+        2 ** 14, 2 ** 17 - 1, 2 ** 12)
+    with pytest.raises(ValueError, match="K5 takes"):
+        C.h2_sizes(2 ** 22, 2 ** 21)
+
+
+def test_h2_s_threshold():
+    """lb < t exactly when the squared gap s < h2_s_threshold(t), for s and
+    t across the scales of the bounds (0, the slack's square, metres, the
+    1e8 sentinels' 3e16) and for t = lb of some of the s themselves."""
+    g = torch.Generator().manual_seed(0)
+    s = torch.cat([torch.rand(20000, generator=g) ** 4 * 100,
+                   torch.tensor([0.0, 1e-6, 1e-6 + 1e-12, 1e6, 3e16])])
+    t = torch.cat([torch.rand(200, generator=g) ** 3 * 100,
+                   torch.tensor([0.0, -1.0, 1e-12, 1e-7, 5e16,
+                                 float("inf")]), C._lb_of(s[:100])])
+    thr = C.h2_s_threshold(t)
+    assert torch.equal(C._lb_of(s)[None] < t[:, None],
+                       s[None] < thr[:, None])
+
+
+def _warp_s_threshold(t):
+    """csrc/chamfer.cu:s_threshold step by step: 32 probes a step, one
+    ballot, the step between the last probe below t and the first at or
+    above it."""
+    if not t > 0:
+        return 0.0
+    lo, hi = 0, 0x7F800000
+
+    def lb(bits):
+        s = torch.tensor([bits], dtype=torch.int32).view(torch.float32)
+        return float(C._lb_of(s)[0])
+
+    while hi - lo > 1:
+        step = (hi - lo + 31) // 32
+        probes = [min(lo + step * (lane + 1), hi) for lane in range(32)]
+        ge = [p == hi or lb(p) >= t for p in probes]
+        f = ge.index(True)
+        assert all(ge[f:])                  # the ballot is a run of ones
+        lo, hi = lo + step * f, min(lo + step * (f + 1), hi)
+    return float(torch.tensor([hi], dtype=torch.int32).view(torch.float32))
+
+
+def test_h2_warp_search_finds_the_threshold():
+    """The kernel's 32-way search and the plain binary search agree."""
+    t = torch.tensor([0.0, 1e-12, 1e-7, 2.5e-3, 0.31, 7.0, 1234.5, 3e16,
+                      float("inf")], dtype=torch.float32)
+    ref = C.h2_s_threshold(t)
+    for k in range(t.numel()):
+        assert _warp_s_threshold(float(t[k])) == float(ref[k])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_h2_threshold_tests_select_the_rounds_pairs(name):
+    """The kernels' form of the rules: round 0 as squared gap < the
+    threshold of the float above the row's (column's) smallest bound, a
+    later round as squared gap < the threshold of frac x ub; both select
+    exactly the pairs of h2_first_pairs / h2_round_pairs."""
+    a, b, _ = CASES[name]
+    _, _, a_s, b_s, (ca, ha), (cb, hb) = C.h2_plan(torch.from_numpy(a),
+                                                  torch.from_numpy(b))
+    s = C.box_gap2_table(ca, ha, cb, hb)
+    lb = C._lb_of(s)
+    inf = torch.tensor(float("inf"))
+    first = ((s < C.h2_s_threshold(torch.nextafter(lb.amin(1), inf))[:, None])
+             | (s < C.h2_s_threshold(torch.nextafter(lb.amin(0), inf))[None]))
+    assert torch.equal(first, C.h2_first_pairs(lb))
+    d_a = C.min_sq_dists_plain(a_s, b_s, 32)
+    d_b = C._min_sq_dists(b_s, a_s, 100)
+    ub_a, ub_b = C.h2_upper_bounds(d_a * 4, d_b * 4)
+    for frac in C.H2_FRACS:
+        thr_a = C.h2_s_threshold(frac * ub_a)
+        thr_b = C.h2_s_threshold(frac * ub_b)
+        later = ((s < thr_a[:, None]) | (s < thr_b[None])) & ~first
+        assert torch.equal(later, C.h2_round_pairs(lb, ub_a, ub_b, frac,
+                                                   first))
+        # the list kernel passes over a word of 32 target tiles when its
+        # smallest s reaches both the row's threshold and the word's
+        # largest column threshold: no pair of the round lies there
+        pad = (-s.shape[1]) % 32
+        sw = torch.nn.functional.pad(s, (0, pad), value=float("inf"))
+        tw = torch.nn.functional.pad(thr_b, (0, pad))
+        smin = sw.reshape(s.shape[0], -1, 32).amin(2)
+        wmax = tw.reshape(-1, 32).amax(1)
+        keep = (smin < thr_a[:, None]) | (smin < wmax[None])
+        assert not (later & ~keep.repeat_interleave(32, 1)[:, :s.shape[1]]
+                    ).any()
+
+
+def test_h2_one_argsort_orders_both_clouds():
+    """The device plan sorts a's codes and b's codes tagged with bit 30 in
+    one stable argsort: its two halves are _morton_order's two orders."""
+    a, b, _ = CASES["clustered-sentinel-ragged"]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    lo_a, hi_a = C._real_box(ta)
+    lo_b, hi_b = C._real_box(tb)
+    lo = torch.minimum(lo_a, lo_b)
+    span = torch.clamp(torch.maximum(hi_a, hi_b) - lo, min=1e-6)
+    codes = torch.cat([C._morton10(ta, lo, span),
+                       C._morton10(tb, lo, span) | (1 << 30)]).to(torch.int32)
+    perm = torch.argsort(codes, stable=True)
+    pa, pb = C._morton_order(ta, tb)
+    N = a.shape[0]
+    assert torch.equal(perm[:N], pa) and torch.equal(perm[N:] - N, pb)
+
+
+def test_h2_buffers():
+    """The scratch of one call, carved from two allocations (on the meta
+    device here), and the counts apart: every piece at its size, the list
+    at one int per tile pair."""
+    N, M = 262144, 262144
+    buf = C._h2_buffers(N, M, "meta")
+    Ti, Tj, W = C.h2_sizes(N, M)
+    sizes = {k: v.numel() for k, v in buf.items()}
+    assert sizes == dict(partial=6 * 264, boxes=6 * (Ti + Tj), thr=Ti + Tj,
+                         wmax=W, smin=Ti * W, a_s=3 * N, b_s=3 * M, sa=N,
+                         sb=M, codes=N + M, counts=8, done=Ti * W,
+                         list=Ti * Tj)
+    assert buf["list"].dtype == torch.int32
+    assert buf["thr"].dtype == torch.float32
+
+
+def test_h2_reduce_scatter_lane_map():
+    """A numpy emulation of csrc/chamfer.cu:reduce_scatter_min: after the
+    five steps lane l holds the minimum over the 32 lanes of column l."""
+    rng = np.random.default_rng(7)
+    v = rng.random((32, 32)).astype(np.float32)     # v[lane, column]
+    ref = v.min(0)
+    cur = v.copy()
+    s = 16
+    while s >= 1:
+        nxt = cur.copy()
+        for lane in range(32):
+            upper = bool(lane & s)
+            for k in range(s):
+                partner = lane ^ s
+                p_upper = bool(partner & s)
+                send = cur[partner, k] if p_upper else cur[partner, k + s]
+                keep = cur[lane, k + s] if upper else cur[lane, k]
+                nxt[lane, k] = min(keep, send)
+        cur = nxt
+        s //= 2
+    np.testing.assert_array_equal(cur[:, 0], ref)
 
 
 def test_registry():

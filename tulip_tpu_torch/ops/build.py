@@ -54,8 +54,13 @@ SIGNATURES = {
     "tulip_nn_brute": [_P] * 3 + [_I] * 3 + [_P],
     # a_s, b_s, lb_sorted, order, out, N, M, chunk, tile, stream
     "tulip_nn_h": [_P] * 5 + [_I] * 4 + [_P],
-    # a_s, b_s, lb_sorted, order, out_a, out_b, N, M, chunk, tile, stream
-    "tulip_nn_h2": [_P] * 6 + [_I] * 4 + [_P],
+    # a, b, partial, codes, N, M, stream
+    "tulip_nn_h2_codes": [_P] * 4 + [_I] * 2 + [_P],
+    # a, b, perm, a_s, b_s, boxes, N, M, stream
+    "tulip_nn_h2_gather": [_P] * 6 + [_I] * 2 + [_P],
+    # a_s, b_s, boxes, perm, thr, wmax, smin, sa, sb, counts, done, list,
+    # out_a, out_b, N, M, stream
+    "tulip_nn_h2": [_P] * 14 + [_I] * 2 + [_P],
     # dtype, qkv, out, bias, mask, B, H, W, C, nh, wh, ww, sh, sw, scale,
     # stream
     "tulip_attn_fwd": [_I] + [_P] * 4 + [_I] * 9 + [_F, _P],

@@ -4,7 +4,8 @@ chamfer metric, and the chamfer impl registry.
 Replaces tulip_tpu/ops/chamfer.py (``min_sq_dists_xla``), the Pallas
 kernels tulip_tpu/ops/pallas/chamfer.py ``_kernel`` (K7, brute force) and
 chamfer_h.py ``_kernel_h`` (K6, one direction with tile skipping) and
-``_kernel_h2`` (K5, both directions from one sweep), and the registry of
+``_kernel_h2`` (K5, both directions over a list of tile pairs built on the
+device), and the registry of
 tulip_tpu/ops/__init__.py.  The kernels are in ``csrc/chamfer.cu``.
 
 Every wrapper takes the plain version (:func:`min_sq_dists_plain`, the
@@ -28,7 +29,7 @@ import torch
 
 from . import build
 
-QUERY_TILE = 512        # query rows per CUDA block (csrc/chamfer.cu kTile)
+QUERY_TILE = 512        # K6's query rows per CUDA block (chamfer.cu kTile)
 _PLAIN_ROWS = 16384     # query rows per step of the plain version
 _BOUND_SLACK = 1e-3     # m, absorbs fp32 rounding in bounds and distances
 
@@ -99,8 +100,8 @@ min_sq_dists_brute.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Host-side glue of K5 / K6 (chamfer_h.py:39-59, 108-162, 196-202, 264-311),
-# plain torch on the tensors' device.
+# Host-side glue of K6 and of K5's plan (chamfer_h.py:39-59, 108-162,
+# 196-202, 264-311), plain torch on the tensors' device.
 # ---------------------------------------------------------------------------
 
 def _morton10(x, lo, span):
@@ -172,30 +173,68 @@ def _sphere_lb(a_s, b_s, tile, chunk):
     return torch.clamp(dc - ra[:, None] - rb[None, :] - _BOUND_SLACK, min=0.0)
 
 
-def _box_lb(a_s, b_s, tile, chunk):
-    ca, ha = _tile_boxes(a_s, tile)
-    cb, hb = _tile_boxes(b_s, chunk)
+def box_gap2_table(ca, ha, cb, hb):
+    """Squared norm (Ti, Tj) of the per-axis gaps between query box i and
+    target box j (centers c, half-extents h), in the operations and order of
+    csrc/chamfer.cu:box_gap2."""
     gap = torch.clamp((ca[:, None, :] - cb[None, :, :]).abs()
                       - ha[:, None, :] - hb[None, :, :], min=0.0)
-    return torch.clamp(torch.sqrt((gap * gap).sum(-1)) - _BOUND_SLACK,
-                       min=0.0)
+    sq = gap * gap
+    return sq[..., 0] + sq[..., 1] + sq[..., 2]
+
+
+def box_lb_table(ca, ha, cb, hb):
+    """Squared lower bound (Ti, Tj) on the distance between a point of
+    query box i and one of target box j: the norm of the per-axis gaps less
+    1e-3 m of slack, squared (chamfer_h.py's box bound)."""
+    return _lb_of(box_gap2_table(ca, ha, cb, hb))
+
+
+def _lb_of(s):
+    """(sqrt(s) - 1e-3 m)^2, floored at 0: the bound of a squared gap s."""
+    lin = torch.clamp(torch.sqrt(s) - _BOUND_SLACK, min=0.0)
+    return lin * lin
+
+
+def h2_s_threshold(t):
+    """The least s >= 0 with _lb_of(s) >= t (0 where t <= 0), elementwise:
+    for s >= 0, _lb_of(s) < t exactly when s < h2_s_threshold(t), since
+    _lb_of is monotone.  The kernels test squared gaps against these
+    (csrc/chamfer.cu:s_threshold, the same binary search over the bits of
+    s) and take no square root in their loops."""
+    t = t.float()
+    lo = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
+    hi = torch.full_like(lo, 0x7f800000)
+    for _ in range(31):
+        mid = lo + (hi - lo) // 2
+        ok = _lb_of(mid.view(torch.float32)) >= t
+        hi = torch.where(ok, mid, hi)
+        lo = torch.where(ok, lo, mid)
+    return torch.where(t > 0, hi.view(torch.float32), torch.zeros_like(t))
+
+
+def _box_lb(a_s, b_s, tile, chunk):
+    return box_lb_table(*_tile_boxes(a_s, tile), *_tile_boxes(b_s, chunk))
 
 
 def plan(a, b, chunk, tile=QUERY_TILE, bounds="box"):
-    """The tables K5 / K6 walk: (pa, pb, a_s, b_s, lb_sorted, order).
+    """The tables K6 walks (``bounds="sphere"``) and the JAX K5's box
+    tables (``bounds="box"``): (pa, pb, a_s, b_s, lb_sorted, order).
 
     pa / pb sort a / b in Morton order; lb (ceil(N / tile), M / chunk) is
     the squared lower bound on the distance between query tile i of a_s and
-    target chunk j of b_s (``bounds``: "sphere" for K6, "box" for K5), with
+    target chunk j of b_s (spheres or boxes: :func:`box_lb_table`), with
     1e-3 m of slack before squaring; each row of ``order`` lists the chunks
     by ascending bound (stable, as jnp.argsort) and ``lb_sorted`` the
     bounds in that order."""
     pa, pb = _morton_order(a, b)
     a_s = a[pa].contiguous()
     b_s = b[pb].contiguous()
-    lb_lin = (_sphere_lb if bounds == "sphere" else _box_lb)(a_s, b_s, tile,
-                                                            chunk)
-    lb = lb_lin * lb_lin
+    if bounds == "sphere":
+        lb_lin = _sphere_lb(a_s, b_s, tile, chunk)
+        lb = lb_lin * lb_lin
+    else:
+        lb = _box_lb(a_s, b_s, tile, chunk)
     order = torch.argsort(lb, dim=1, stable=True)
     lb_sorted = torch.take_along_dim(lb, order, dim=1).contiguous()
     return pa, pb, a_s, b_s, lb_sorted, order.to(torch.int32).contiguous()
@@ -228,6 +267,69 @@ def min_sq_dists_h(a, b, chunk: int = 1024):
 min_sq_dists_h.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K5's plan and its pair rounds (csrc/chamfer.cu, section "K5"), plain torch:
+# the kernels' plain versions; the tests replay the rounds on the CPU.
+# ---------------------------------------------------------------------------
+
+H2_ROWS = 128             # query points per tile (kRows: 4 per lane)
+H2_COLS = 32              # target points per tile (kCols: 1 per lane)
+H2_FRACS = (1 / 64, 1 / 8, 1.0)   # the rounds after the first: lb < f ub
+_H2_BOX_BLOCKS = 264      # blocks of the box and code kernels (kBoxBlocks)
+
+
+def h2_sizes(N, M):
+    """(query tiles, target tiles, bitmap words per row) of K5; raises
+    where the kernels' int32 pair index cannot hold the tile pairs (beyond
+    about 2.9M points a side)."""
+    if M % H2_COLS:
+        raise ValueError(f"M={M} is not a multiple of {H2_COLS}")
+    Ti, Tj = -(-N // H2_ROWS), M // H2_COLS
+    if Ti * Tj >= 2 ** 31:
+        raise ValueError(f"K5 takes fewer than 2^31 tile pairs; got N={N}, "
+                         f"M={M}")
+    return Ti, Tj, -(-Tj // 32)
+
+
+def h2_plan(a, b):
+    """(pa, pb, a_s, b_s, (ca, ha), (cb, hb)): the Morton orders, the sorted
+    clouds and the AABBs of their H2_ROWS / H2_COLS tiles; the plain version
+    of :func:`_h2_device_plan`."""
+    pa, pb = _morton_order(a, b)
+    a_s = a[pa].contiguous()
+    b_s = b[pb].contiguous()
+    return (pa, pb, a_s, b_s, _tile_boxes(a_s, H2_ROWS),
+            _tile_boxes(b_s, H2_COLS))
+
+
+def h2_first_pairs(lb):
+    """Round 0: every tile pair at its row's or its column's smallest bound
+    (all ties), so every query and target gets a true partial minimum."""
+    return (lb == lb.amin(1, keepdim=True)) | (lb == lb.amin(0, keepdim=True))
+
+
+def _tile_max(d, tile):
+    pad = (-d.shape[0]) % tile
+    if pad:
+        d = torch.cat([d, d[-1:].expand(pad)])
+    return d.reshape(-1, tile).amax(1)
+
+
+def h2_upper_bounds(d_a, d_b):
+    """(ub_a, ub_b): each tile's largest current minimum; a minimum only
+    falls, so each bounds its tile's final minima from above."""
+    return _tile_max(d_a, H2_ROWS), _tile_max(d_b, H2_COLS)
+
+
+def h2_round_pairs(lb, ub_a, ub_b, frac, done):
+    """A later round: the pairs of no earlier round whose bound is below
+    frac times the row's or the column's upper bound.  After the round with
+    frac = 1 every pair left out has lb >= both bounds, so none of its
+    distances is below a final minimum: the result is exact."""
+    return (((lb < frac * ub_a[:, None]) | (lb < frac * ub_b[None, :]))
+            & ~done)
+
+
 def min_sq_dists_h2_plain(a, b, chunk: int = 1024):
     """Plain version of K5: both directions by brute force.  Unlike the
     JAX kernel, which pads a ragged ``a`` with sentinels that then appear in
@@ -235,26 +337,72 @@ def min_sq_dists_h2_plain(a, b, chunk: int = 1024):
     return min_sq_dists_plain(a, b, chunk), _min_sq_dists(b, a, chunk)
 
 
+def _h2_buffers(N, M, device):
+    """K5's scratch, carved from one fp32 and one int32 allocation, and its
+    per-round counts."""
+    Ti, Tj, W = h2_sizes(N, M)
+    T = Ti + Tj
+    f = torch.empty(6 * _H2_BOX_BLOCKS + 7 * T + W + Ti * W + 4 * (N + M),
+                    device=device)
+    i = torch.empty(N + M + Ti * W + Ti * Tj, device=device,
+                    dtype=torch.int32)
+    fs = f.split([6 * _H2_BOX_BLOCKS, 6 * T, T, W, Ti * W, 3 * N, 3 * M, N,
+                  M])
+    is_ = i.split([N + M, Ti * W, Ti * Tj])
+    names = ("partial", "boxes", "thr", "wmax", "smin", "a_s", "b_s", "sa",
+             "sb")
+    # the counts on their own: the wrapper keeps them after the call
+    counts = torch.empty(2 * (1 + len(H2_FRACS)), device=device,
+                         dtype=torch.int32)
+    return dict(zip(names, fs), codes=is_[0], done=is_[1], list=is_[2],
+                counts=counts)
+
+
+def _h2_device_plan(a, b, buf):
+    """K5's plan on the card: Morton codes (nn2_box_kernel,
+    nn2_morton_kernel), one stable argsort of both clouds' codes (b's
+    tagged with bit 30), then the sorted clouds and tile boxes
+    (nn2_gather_kernel) into buf.  Returns perm: pa = perm[:N], pb =
+    perm[N:] - N, the orders of :func:`h2_plan`."""
+    N, M = a.shape[0], b.shape[0]
+    _launch("tulip_nn_h2_codes", a, b, buf["partial"], buf["codes"], N, M)
+    perm = torch.argsort(buf["codes"], stable=True)
+    _launch("tulip_nn_h2_gather", a, b, perm, buf["a_s"], buf["b_s"],
+            buf["boxes"], N, M)
+    return perm
+
+
 def min_sq_dists_h2(a, b, chunk: int = 1024):
-    """K5: (min_j |a_i - b_j|^2 over i, min_i |a_i - b_j|^2 over j) from one
-    sweep with exact bidirectional skipping."""
+    """K5: (min_j |a_i - b_j|^2 over i, min_i |a_i - b_j|^2 over j), exact,
+    over the tile pairs the rounds of :func:`h2_round_pairs` list.  Three C
+    calls and one argsort: the plan (:func:`_h2_device_plan`), then the
+    bound, list and sweep kernels, which keep the pair counts on the device
+    (no host synchronisation).  ``chunk`` is the callers' padding granule:
+    M must be a multiple of it; the kernel's own tiles are H2_ROWS x
+    H2_COLS."""
     if a.device.type == "cpu":
         return min_sq_dists_h2_plain(a, b, chunk)
     if a.device.type != "cuda":
         raise build.not_cuda(a)
     a, b = a.float().contiguous(), b.float().contiguous()
     _check(a, b, chunk)
-    pa, pb, a_s, b_s, lb_sorted, order = plan(a, b, chunk, bounds="box")
-    out_a = torch.empty(a.shape[0], device=a.device, dtype=torch.float32)
-    out_b = torch.full((b.shape[0],), 1e30, device=a.device,
-                       dtype=torch.float32)
-    _launch("tulip_nn_h2", a_s, b_s, lb_sorted, order, out_a, out_b,
-            a.shape[0], b.shape[0], chunk, QUERY_TILE)
+    N, M = a.shape[0], b.shape[0]
+    buf = _h2_buffers(N, M, a.device)
+    perm = _h2_device_plan(a, b, buf)
+    out_a = torch.empty(N, device=a.device, dtype=torch.float32)
+    out_b = torch.empty(M, device=a.device, dtype=torch.float32)
+    _launch("tulip_nn_h2", buf["a_s"], buf["b_s"], buf["boxes"], perm,
+            buf["thr"], buf["wmax"], buf["smin"], buf["sa"], buf["sb"],
+            buf["counts"], buf["done"], buf["list"], out_a, out_b, N, M)
     min_sq_dists_h2.launches += 1
-    return _unsort(out_a, pa), _unsort(out_b, pb)
+    # (pairs listed, items taken) per round; a diagnostic that only a
+    # caller reads, after its own synchronisation
+    min_sq_dists_h2.last_counts = buf["counts"]
+    return out_a, out_b
 
 
 min_sq_dists_h2.launches = 0
+min_sq_dists_h2.last_counts = None
 
 min_sq_dists_h.preferred_chunk = 1024
 min_sq_dists_h.pair = min_sq_dists_h2

@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (tulip_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile    (profile_paths: where the time goes)
+    python3 chip_smoke.py --profile [--tree DIR]    (profile_paths: where
+        the time goes, in this checkout or in the one at DIR)
     python3 chip_smoke.py --paths [--tree DIR]    (time_paths: the forward's
         and the train step's wall ms, of this checkout or of the one at DIR)
 
@@ -12,7 +13,7 @@ Phases, one line or more each; any failure raises and exits non-zero:
 2. build: nvcc compiles tulip_tpu_torch/csrc/*.cu for sm_90a; the bf16
    tensor-core kernels (K3, K4, K10, K11, tn_gemm and the attention
    half-block of K1, K2, K12, K13) must hold HGMMA instructions in their
-   SASS.
+   SASS, the bf16 training attention core (K8, K9) HMMA (mma.sync).
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
@@ -74,8 +75,8 @@ grouped window-major entry, four stages, shifted and not) and K13 (the
 natural row-strip entry, the stages with more than 8 heads) at batch 2 and,
 in bf16, batch 8; K4 at batch 1 and 8 (the bf16 kernel splits K over CTAs
 at batch 1-4), at a ragged token count and at TULIP-large's deepest merge
-(K 3,072); every bf16 case of K1, K2, K3, K4, K10, K11, K12, K13 twice for
-the same bits; and K14 / K15 (LayerNorm forward and backward: y,
+(K 3,072); every bf16 case of K1, K2, K3, K4, K8, K9, K10, K11, K12, K13
+twice for the same bits; and K14 / K15 (LayerNorm forward and backward: y,
 dx, dw, db) at the four norm1 shapes of the batch-8 train step, against
 their plain versions; beside K14 / K15 it times F.layer_norm and its
 backward, beside K8 / K9 F.scaled_dot_product_attention and its backward,
@@ -93,8 +94,12 @@ backward: dqkv, dbias) at the four stages, shifted and unshifted; K10 (the
 two-matmul backward: dx, dlnw, dlnb, dW1, db1, dW2, db2) at the four MLP
 widths and the head; K11 (LN + matmul backward: dx, dlnw, dlnb, dW) at the
 three merges, at a ragged token count and at the batch-1 deepest merge
-(dy split over CTAs); every output within the bf16 / fp32 limits of its
-own max|ref|.
+(dy split over CTAs); in bf16 also K8 / K9 at the batch-1 step's shapes,
+on a 2 x 40 grid (5 windows: a short last tile), at C 768 on 15 windows
+and at TULIP-large's deepest stage (C 1,536, 48 heads); every output
+within the bf16 / fp32 limits of its own max|ref|.  For K8-K11, K14 and
+K15 the kernels line also gives the sums per train step (each batch-8
+shape's time x its launches in a step).
 
 Then one JSON line with the per-kernel results of all fifteen kernels
 (launches on the main paths, error, kernel / plain / library ms, bound) and,
@@ -170,11 +175,14 @@ CLI_BATCH, CLI_TRAIN, CLI_VAL = 8, 16, 4
 # the bf16 kernels of K3, K4, K10 and K11 (token passes), the
 # weight-gradient product and the attention half-block (K1, K2, K12, K13),
 # whose products must be tensor-core instructions (HGMMA in the SASS; the
-# attention core's 16 x 16 products are warp-level HMMA, counted beside them)
+# half-block's 16 x 16 products are warp-level HMMA, counted beside them)
 TENSOR_CORE_KERNELS = ("two_matmul_tc_kernel", "ln_linear_tc_kernel",
                        "mlp_bwd_hidden_kernel", "mlp_bwd_dy_kernel",
                        "ln_linear_bwd_dy_kernel", "tn_gemm_tc_kernel",
                        "window_msa_tc_kernel")
+# the bf16 training attention core (K8, K9), whose products must be
+# warp-level tensor-core instructions (HMMA: mma.sync)
+MMA_SYNC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_tc_kernel")
 PAIR_OPS = 8   # operations per point pair of a nearest-neighbour sweep
 # chamfer kernels against their plain versions: the kernel fuses two FMAs
 # where the plain version rounds each product and sum, <= 2 ulp (1.2e-7
@@ -521,14 +529,16 @@ def more_two_matmul_cases(torch, device):
 def check_deterministic(torch, device, cases):
     """K3, K4, K10 and K11 (their token passes, weight-gradient products
     and column sums), the attention half-block through its three entries
-    (K1, K2, K12, K13) and tn_gemm on their own: two runs on the same inputs
-    must give the same bits (no atomics, every cross-block sum in a fixed
-    order)."""
+    (K1, K2, K12, K13), the training attention core (K8, K9 with its
+    d(bias) column sum) and tn_gemm on their own: two runs on the same
+    inputs must give the same bits (no atomics, every cross-block sum in a
+    fixed order)."""
     from tulip_tpu_torch.ops import reduce as R
     runs = [(label, kfn) for kernel, _, label, kfn, *_ in cases
             if kernel in ("two_matmul", "two_matmul_bwd", "ln_linear",
                           "ln_linear_bwd", "window_msa",
-                          "window_msa_grouped", "window_msa_nat")
+                          "window_msa_grouped", "window_msa_nat",
+                          "attn_core_fwd", "attn_core_bwd")
             and "bfloat16" in label]
     g = torch.Generator().manual_seed(4)
     for T, M, N in ((131072, 384, 96), (2048, 3072, 768), (1000, 16, 1536)):
@@ -546,9 +556,8 @@ def check_deterministic(torch, device, cases):
                    if p is not None):
             differ.append(label)
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
-          f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / tn_gemm cases "
-          f"bit-identical "
-          f"over two runs", flush=True)
+          f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / K8 / K9 / tn_gemm "
+          f"cases bit-identical over two runs", flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
 
@@ -556,13 +565,14 @@ def check_deterministic(torch, device, cases):
 def tensor_core_instructions(build):
     """({kernel: count of HGMMA instructions}, {kernel: count of HMMA}) that
     cuobjdump -sass finds in the bf16 tensor-core kernels of the built
-    library, every instantiation of a template counted together."""
+    library (TENSOR_CORE_KERNELS and MMA_SYNC_KERNELS), every instantiation
+    of a template counted together."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts = dict.fromkeys(TENSOR_CORE_KERNELS, 0)
-    warp_level = dict.fromkeys(TENSOR_CORE_KERNELS, 0)
+    counts = dict.fromkeys(TENSOR_CORE_KERNELS + MMA_SYNC_KERNELS, 0)
+    warp_level = dict.fromkeys(counts, 0)
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -597,17 +607,90 @@ def kink_guard(torch, x, args, gr, to, rn):
     return f" (g zeroed on {int(near.sum())} tokens near the kink)"
 
 
-def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
-    """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path, extra)
-    for K8-K11 at the train step's shapes; the backward cases return every
-    gradient output.  The library call beside K8 / K9 is
-    F.scaled_dot_product_attention on the same windows, already split into
-    q, k, v of (windows, heads, 16, 32), with bias + mask as its additive
-    mask, and its backward to q, k, v (not to the bias, which it cannot
-    give): timed here, used nowhere in the port."""
+def attn_core_cases(torch, device, rn, dtype, batch, H, W, C, nh, shifted,
+                    on_path, per_step=None, library=True, what=""):
+    """K8 and K9 on one (batch, H, W, 3C) grid of 2 x 8 windows, with the
+    (1, 4)-shift mask or none, inputs drawn from rn.  The library call beside
+    them is F.scaled_dot_product_attention on the same windows, already split
+    into q, k, v of (windows, heads, 16, 32), with bias + mask as its
+    additive mask, and its backward to q, k, v (not to the bias, which it
+    cannot give): timed here, used nowhere in the port.  per_step: launches
+    per train step of this shape (the per-step sums of the kernels line)."""
     import torch.nn.functional as F
     from tulip_tpu_torch.models import layers as L
-    from tulip_tpu_torch.ops import attn_core as A, mlp
+    from tulip_tpu_torch.ops import attn_core as A
+    dn = str(dtype).replace("torch.", "")
+    to = lambda t: t.to(device=device, dtype=dtype)
+    e = 2 if dtype == torch.bfloat16 else 4
+    idx = torch.as_tensor(L.relative_position_index((2, 8))).reshape(-1)
+    shift = (1, 4) if shifted else (0, 0)
+    qkv = to(rn(batch, H, W, 3 * C))
+    dout = to(rn(batch, H, W, C))
+    bias = rn(45, nh, scale=0.5)[idx].reshape(16, 16, nh)
+    bias = bias.permute(2, 0, 1).contiguous().to(device)
+    mask = (torch.as_tensor(L.shift_attention_mask(
+        (H, W), (2, 8), (1, 4))).to(device) if shifted else None)
+    kw = dict(window=(2, 8), shift=shift)
+    what = f"{dn} {what}B={batch} grid={H}x{W} C={C} nh={nh} shift={shift}"
+    a = (qkv, bias, mask)
+    T, n_mask = batch * H * W, 0 if mask is None else mask.shape[0]
+    fwd = dict(work=work_attn(T, C, nh, n_mask, e, False), per_step=per_step)
+    bwd = dict(work=work_attn(T, C, nh, n_mask, e, True), per_step=per_step)
+    if library:
+        # the library call's operands: windows split out beforehand
+        win = (qkv.reshape(batch, H // 2, 2, W // 8, 8, 3, nh, 32)
+               .permute(5, 0, 1, 3, 6, 2, 4, 7)
+               .reshape(3, T // 16, nh, 16, 32))
+        q, k, v = (t.contiguous().requires_grad_() for t in win)
+        add = bias[None]
+        if mask is not None:
+            add = (add + mask[:, None]).repeat(T // 16 // n_mask, 1, 1, 1)
+        add = add.to(dtype).contiguous()
+        fwd["library"] = sdpa = lambda q=q, k=k, v=v, add=add: \
+            F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+        o = sdpa()
+        do = torch.randn(o.shape, device=device, dtype=dtype)
+        bwd["library"] = lambda o=o, q=q, k=k, v=v, do=do: \
+            torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+    return [("attn_core_fwd", "K8", f"attn_core_fwd K8 {what}",
+             lambda: A.attn_core_fwd(*a, **kw),
+             lambda: A.attn_core_ref(*a, **kw), on_path, fwd),
+            ("attn_core_bwd", "K9", f"attn_core_bwd K9 {what}",
+             lambda: A.attn_core_bwd(*a, dout, **kw),
+             lambda: A.attn_core_bwd_ref(*a, dout, **kw), on_path, bwd)]
+
+
+def more_attn_core_cases(torch, device):
+    """K8 / K9 in bf16 beyond the batch-8 step: every stage of the step at
+    batch 1 (fewer tiles than CTAs the card holds), then shapes the flagship
+    never gives: a 2 x 40 grid (5 windows: a last tile of one window), 15
+    windows at C 768 (a last tile of three, eight head groups) and
+    TULIP-large's deepest stage (C 1,536, 48 heads, a 2 x 32 grid)."""
+    g = torch.Generator().manual_seed(7)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    cases = []
+    for (H, W), C, nh in STAGES:
+        for shifted in (False, True):
+            cases += attn_core_cases(torch, device, rn, torch.bfloat16, 1, H,
+                                     W, C, nh, shifted, False)
+    for batch, H, W, C, nh, shifted in (
+            (1, 2, 40, 96, 3, False), (1, 2, 40, 96, 3, True),
+            (3, 2, 40, 768, 24, True), (8, 2, 32, 1536, 48, True)):
+        cases += attn_core_cases(torch, device, rn, torch.bfloat16, batch, H,
+                                 W, C, nh, shifted, False, library=False,
+                                 what="off-path ")
+    return cases
+
+
+def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
+    """(kernel, TPU kernel id, label, kernel_fn, plain_fn, on_path, extra)
+    for K8-K11 at the train step's shapes (attn_core_cases for K8 / K9);
+    the backward cases return every gradient output.  extra's per_step:
+    the launches per train step of the case's shape."""
+    from tulip_tpu_torch.ops import mlp
 
     g = torch.Generator().manual_seed(1)
 
@@ -615,55 +698,17 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
         return torch.randn(*shape, generator=g) * scale + shift
 
     cases = []
-    idx = torch.as_tensor(L.relative_position_index((2, 8))).reshape(-1)
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).replace("torch.", "")
         to = lambda t: t.to(device=device, dtype=dtype)
         e = 2 if dtype == torch.bfloat16 else 4
         for (H, W), C, nh in stages:
             for shifted in (False, True):
-                shift = (1, 4) if shifted else (0, 0)
-                qkv = to(rn(batch, H, W, 3 * C))
-                dout = to(rn(batch, H, W, C))
-                bias = rn(45, nh, scale=0.5)[idx].reshape(16, 16, nh)
-                bias = bias.permute(2, 0, 1).contiguous().to(device)
-                mask = (torch.as_tensor(L.shift_attention_mask(
-                    (H, W), (2, 8), (1, 4))).to(device) if shifted else None)
-                kw = dict(window=(2, 8), shift=shift)
-                what = (f"{dn} B={batch} grid={H}x{W} C={C} nh={nh} "
-                        f"shift={shift}")
-                a = (qkv, bias, mask)
-                T, n_mask = batch * H * W, 0 if mask is None else mask.shape[0]
-                # the library call's operands: windows split out beforehand
-                win = (qkv.reshape(batch, H // 2, 2, W // 8, 8, 3, nh, 32)
-                       .permute(5, 0, 1, 3, 6, 2, 4, 7)
-                       .reshape(3, T // 16, nh, 16, 32))
-                q, k, v = (t.contiguous().requires_grad_() for t in win)
-                add = bias[None]
-                if mask is not None:
-                    add = (add + mask[:, None]).repeat(T // 16 // n_mask, 1,
-                                                       1, 1)
-                add = add.to(dtype).contiguous()
-                sdpa = lambda q=q, k=k, v=v, add=add: \
-                    F.scaled_dot_product_attention(q, k, v, attn_mask=add)
-                o = sdpa()
-                do = torch.randn(o.shape, device=device, dtype=dtype)
-                sdpa_bwd = lambda o=o, q=q, k=k, v=v, do=do: \
-                    torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
-                cases.append((
-                    "attn_core_fwd", "K8", f"attn_core_fwd K8 {what}",
-                    lambda a=a, kw=kw: A.attn_core_fwd(*a, **kw),
-                    lambda a=a, kw=kw: A.attn_core_ref(*a, **kw), True,
-                    dict(work=work_attn(T, C, nh, n_mask, e, False),
-                         library=sdpa)))
-                cases.append((
-                    "attn_core_bwd", "K9", f"attn_core_bwd K9 {what}",
-                    lambda a=a, d=dout, kw=kw: A.attn_core_bwd(*a, d, **kw),
-                    lambda a=a, d=dout, kw=kw: A.attn_core_bwd_ref(*a, d,
-                                                                   **kw),
-                    True,
-                    dict(work=work_attn(T, C, nh, n_mask, e, True),
-                         library=sdpa_bwd)))
+                # C < 768: two encoder and two decoder blocks a step, one
+                # of each shifted; C 768: the two encoder blocks
+                cases += attn_core_cases(torch, device, rn, dtype, batch, H,
+                                         W, C, nh, shifted, True,
+                                         per_step=1 if C == 768 else 2)
         mlps = [(batch * H * W, C, 4 * C, C, "gelu", f"mlp C={C}")
                 for (H, W), C, nh in stages]
         mlps.append((batch * 32 * 512, 96, 1536, 16, "leaky", "head C=96"))
@@ -683,7 +728,8 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                     x, *a, gr, **kw),
                 lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd_ref(
                     x, *a, gr, **kw), True,
-                dict(work=work_two_matmul_bwd(N, C, Hd, O, e))))
+                dict(work=work_two_matmul_bwd(N, C, Hd, O, e),
+                     per_step=1 if act == "leaky" else 2 if C == 768 else 4)))
         # the step's three merges, then off the path a ragged token count
         # and the deepest merge at batch 1 (dy split over CTAs in bf16)
         merges = [(batch * (H // 2) * (W // 2), 4 * C, "merge", True)
@@ -699,7 +745,8 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                 f"ln_linear_bwd K11 {dn} {what} N={N} K={K} O={K // 2}",
                 lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd(x, *a, gr),
                 lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd_ref(x, *a, gr),
-                on_path, dict(work=work_ln_linear_bwd(N, K, K // 2, e))))
+                on_path, dict(work=work_ln_linear_bwd(N, K, K // 2, e),
+                              per_step=1)))
     return cases
 
 
@@ -775,12 +822,14 @@ def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
                 "ln_fwd", "K14", f"ln_fwd K14 {dn} N={N} C={C}",
                 lambda x=x, w=w, b=b: ln.ln_fwd(x, w, b, 1e-6),
                 lambda x=x, w=w, b=b: ln.layer_norm_ref(x, w, b, 1e-6),
-                True, dict(work=work_ln(N, C, e, False), library=lib_fwd)))
+                True, dict(work=work_ln(N, C, e, False), library=lib_fwd,
+                           per_step=2 if C == 768 else 4)))
             cases.append((
                 "ln_bwd", "K15", f"ln_bwd K15 {dn} N={N} C={C}",
                 lambda x=x, w=w, gr=gr: ln.ln_bwd(x, w, gr, 1e-6),
                 lambda x=x, w=w, gr=gr: ln.layer_norm_bwd_ref(x, w, gr, 1e-6),
-                True, dict(work=work_ln(N, C, e, True), library=lib_bwd)))
+                True, dict(work=work_ln(N, C, e, True), library=lib_bwd,
+                           per_step=2 if C == 768 else 4)))
     return cases
 
 
@@ -806,7 +855,8 @@ def check_kernel_cases(torch, cases):
         b_ms, b_by = bound_ms(nbytes, flops, dn)
         ok = err <= TOL[dn]
         table.append(dict(kernel=kernel, knum=knum, label=label, dtype=dn,
-                          on_path=on_path, errs=errs,
+                          on_path=on_path, per_step=extra.get("per_step"),
+                          errs=errs,
                           max_abs_err_rel=err, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, bytes=nbytes, flops=flops,
                           bound_ms=b_ms, bound_by=b_by,
@@ -1735,12 +1785,14 @@ PROFILE_CLASSES = {
     "window_msa": "K1/K2 attention half-block (its sum pass included)",
     "two_matmul": "K3", "ln_linear_bwd": "K11 token pass (LN, dy, finish)",
     "ln_linear": "K4 (LN pass, product, sum pass)",
-    "attn_": "K8/K9", "mlp_bwd": "K10 token pass",
+    "attn_fwd_tc": "K8 attention core forward (mma.sync)",
+    "attn_bwd_tc": "K9 attention core backward (mma.sync)",
+    "attn_": "K8/K9 FMA kernels", "mlp_bwd": "K10 token pass",
     "tn_gemm": "weight gradients", "colsum": "weight gradients",
     "ln_rows": "LN passes of K3 / K10", "tulip": "other kernels of the port"}
 
 
-def profile_paths(torch, dev):
+def profile_paths(torch, dev, tree):
     """``python3 chip_smoke.py --profile``: torch.profiler over the bf16
     inference forward (batch 1 and 8, 5 forwards each) and 3 bf16 train
     steps of batch 8, all at the flagship size after a warm-up: per path
@@ -1748,9 +1800,10 @@ def profile_paths(torch, dev):
     per iteration of every kernel name above 0.5 % (the port's kernels by
     their C++ names, the rest by PyTorch's; the attention half-block's
     kernels whatever their share) and the sums by PROFILE_CLASSES, then
-    k3_plan_ab and profile_k5.  Also
-    written to chiprun_out/profile.json.  No check, no kernel table: the default run
-    does those."""
+    profile_attn, k3_plan_ab and profile_k5.  Also written to
+    chiprun_out/profile.json, or with --tree DIR (the package at DIR) to
+    chiprun_out/profile_<DIR's name>.json.  No check, no kernel table: the
+    default run does those."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from tulip_tpu_torch.models.tulip import apply_model, init_params, tulip_base
@@ -1825,11 +1878,14 @@ def profile_paths(torch, dev):
     run(f"train step batch {TRAIN_BATCH}", lambda: step(x, t, 5e-4, gen), 3)
     del tm, step
     torch.cuda.empty_cache()
+    report["attn"] = profile_attn(torch, dev)
     report["k3_plan"] = k3_plan_ab(torch, dev)
     report["k5"] = profile_k5(torch, dev)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile.json"), "w") as f:
+    name = ("profile.json" if tree == "this checkout" else
+            f"profile_{os.path.basename(os.path.normpath(tree))}.json")
+    with open(os.path.join(out_dir, name), "w") as f:
         json.dump(report, f, indent=1)
     return 0
 
@@ -1841,6 +1897,66 @@ K5_CLASSES = {"nn2_box": "plan glue", "nn2_morton": "plan glue",
               "nn2_first_pass": "first pass", "nn2_ub": "first pass",
               "nn2_list": "compaction", "nn2_sweep": "sweep",
               "nn2_unsort": "unsort"}
+
+
+def profile_attn(torch, dev):
+    """K8 and K9 in bf16 at every shape of the batch-8 and batch-1 train
+    steps, by torch.profiler: device us per call (mean of 10; K9 with its
+    d(bias) column sum) beside the bound and F.scaled_dot_product_attention's
+    device time, and the sums per train step (each shape's launches in a
+    step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(1)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    def device_us(fn, n=10):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(3):   # a window whose events the tracer lost is rerun
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            us = {e.key: e.self_device_time_total / n
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation
+                  and e.self_device_time_total > 0}
+            if us:
+                return us
+        raise SystemExit("the profiler recorded no device time")
+
+    rows, step = [], {}
+    for batch in (TRAIN_BATCH, 1):
+        for (H, W), C, nh in STAGES:
+            for shifted in (False, True):
+                for _, knum, label, kfn, _, _, extra in attn_core_cases(
+                        torch, dev, rn, torch.bfloat16, batch, H, W, C, nh,
+                        shifted, True, per_step=1 if C == 768 else 2):
+                    kern = device_us(kfn)
+                    lib = sum(device_us(extra["library"]).values())
+                    bound = bound_ms(*extra["work"], "bfloat16")[0] * 1e3
+                    total = sum(kern.values())
+                    for key, v in ((knum, total), (knum + " bound", bound),
+                                   (knum + " sdpa", lib)):
+                        key = f"{key} batch {batch}"
+                        step[key] = step.get(key, 0.0) + v * extra["per_step"]
+                    rows.append(dict(label=label, device_us=total,
+                                     kernels=kern, sdpa_us=lib,
+                                     bound_us=bound))
+                    print(f"profile {label}: device {total:.2f} us "
+                          f"({100 * bound / total:.0f} % of the bound "
+                          f"{bound:.2f}), sdpa {lib:.2f} us; "
+                          + ", ".join(f"{k.split('(')[0][-28:]} {v:.2f}"
+                                      for k, v in kern.items()), flush=True)
+    print("profile K8 / K9 per train step, device us: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in step.items()), flush=True)
+    return dict(rows=rows, per_step_us=step)
 
 
 def profile_k5(torch, dev):
@@ -2021,7 +2137,7 @@ def main() -> int:
           f"name {kind!r} count {torch.cuda.device_count()}", flush=True)
     if "--profile" in sys.argv[1:]:
         build.load()
-        return profile_paths(torch, dev)
+        return profile_paths(torch, dev, tree)
     if "--paths" in sys.argv[1:]:
         build.load()
         return time_paths(torch, dev, tree)
@@ -2040,8 +2156,10 @@ def main() -> int:
     hgmma, hmma = tensor_core_instructions(build)
     print(f"build: tensor-core instructions in the bf16 kernels: HGMMA "
           f"{hgmma}, HMMA (mma.sync) {hmma}", flush=True)
-    if not all(hgmma.values()):
+    if not all(hgmma[k] for k in TENSOR_CORE_KERNELS):
         raise SystemExit(f"a bf16 tensor-core kernel holds no HGMMA: {hgmma}")
+    if not all(hmma[k] for k in MMA_SYNC_KERNELS):
+        raise SystemExit(f"a bf16 mma.sync kernel holds no HMMA: {hmma}")
 
     # -- 3. kernels vs plain ----------------------------------------------
     cases = kernel_cases(torch, dev)
@@ -2051,6 +2169,7 @@ def main() -> int:
     more += more_ln_linear_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (10,) for c in more])
     train_cases = train_kernel_cases(torch, dev)
+    train_cases += more_attn_core_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (5,) for c in train_cases])
     layouts = layout_and_ln_cases(torch, dev)
     layouts += layout_and_ln_cases(torch, dev, batch=8, layouts_only=True)
@@ -2175,6 +2294,19 @@ def main() -> int:
                 bound_by=max(by, key=by.get),
                 library_ms=None if None in libs else sum(libs),
                 cases=len(rows)))
+            if all(r.get("per_step") for r in rows):
+                # a train step's launches: each shape's time x its launches
+                step = {k: sum(r[k] * r["per_step"] for r in rows)
+                        for k in ("ms", "plain_ms", "bound_ms")}
+                step["library_ms"] = (None if None in libs else sum(
+                    r["library_ms"] * r["per_step"] for r in rows))
+                kernels[-1].update({f"{k}_per_step": v
+                                    for k, v in step.items()})
+                print(f"per train step: {kernel} ({knum}) "
+                      f"{sum(r['per_step'] for r in rows)} launches, kernel "
+                      f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f}, "
+                      f"library {step['library_ms']}, bound "
+                      f"{step['bound_ms']:.4f} ms", flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise SystemExit(f"kernels the main paths never launched: {idle}")

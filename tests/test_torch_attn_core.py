@@ -13,7 +13,15 @@ against the JAX package on the CPU.
   to bf16 before QK^T, the port scales the fp32 logits; bf16 linears).
 - The written-out plain backward against torch.autograd of the plain
   forward in float64, to 1e-10 (the same math in another order).
+- The launch plan of the bf16 kernels (attn_core_plan) at every stage of
+  TULIP-base and TULIP-large at batch 1 and 8, on a grid whose window count
+  the tile does not divide, and at every head count up to 48: the grid's
+  walk (as csrc/attn_core.cu's kernels take it) covers every (window, head)
+  once, the head groups cover every head once, shared memory fits a block
+  and the d(bias) partials are the rows colsum adds.
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -23,6 +31,7 @@ import torch
 
 from tulip_tpu.config import StageConfig
 from tulip_tpu.models import swin as JS
+from tulip_tpu_torch.config import model_config
 from tulip_tpu_torch.models import layers as L
 from tulip_tpu_torch.ops import attn_core as TA
 
@@ -160,3 +169,71 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="cuda"):
         TA.attn_core_bwd(m(1, 2, 8, 288), m(3, 16, 16), None,
                          m(1, 2, 8, 96), **kw)
+
+
+SMEM_MAX = 232448   # shared bytes one block can use on sm_90
+
+
+def _check_plan(T, C, nh, backward):
+    """Walk the plan's grid as the kernels do: CTA (x, y) takes head group y
+    (heads y hg .. y hg + hg - 1) and tiles x, x + ctas, ... of four windows;
+    the backward CTA writes its heads' row x of the d(bias) partials."""
+    plan = TA.attn_core_plan(T, C, nh, backward)
+    hg, ctas = plan["hg"], plan["ctas"]
+    assert plan["windows"] == T // 16 and plan["groups"] * hg == nh
+    assert 1 <= ctas <= plan["tiles"] and plan["groups"] <= 65535
+    assert plan["threads"] == 128 * hg <= 384
+    parts = 4 if backward else 3
+    assert plan["smem"] == 2 * 64 * (64 * hg * parts + 16) <= SMEM_MAX
+    pairs, rows, heads = Counter(), Counter(), Counter()
+    for y in range(plan["groups"]):
+        group = range(y * hg, (y + 1) * hg)
+        heads.update(group)
+        for x in range(ctas):
+            rows.update((x, h) for h in group)
+            for tile in range(x, plan["tiles"], ctas):
+                for w in range(4 * tile, min(4 * tile + 4, plan["windows"])):
+                    pairs.update((w, h) for h in group)
+    assert heads == Counter(range(nh))
+    assert pairs == Counter((w, h) for w in range(plan["windows"])
+                            for h in range(nh))
+    # colsum adds the (ctas, nh * 256) partials over their rows into the
+    # (nh, 16, 16) gradient: every (row, head) written once
+    assert plan["part"] == (ctas, nh * 256)
+    assert rows == Counter((x, h) for x in range(ctas) for h in range(nh))
+    return plan
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("model", ["tulip_base", "tulip_large"])
+def test_attn_core_plan_covers_every_stage(model, batch, backward):
+    """Every stage a training step of TULIP-base / TULIP-large at DurLAR
+    32x2048 -> 128x2048 runs: every window and head once, two CTAs per SM
+    where the tiles are enough to fill the card."""
+    cfg = model_config(model, (32, 2048), (128, 2048))
+    stages = cfg.encoder_stages + cfg.decoder_stages
+    assert {s.num_heads for s in stages} >= {3, 24}
+    for st in stages:
+        T = batch * st.grid[0] * st.grid[1]
+        plan = _check_plan(T, st.dim, st.num_heads, backward)
+        assert plan["ctas"] * plan["groups"] >= min(
+            264, plan["tiles"] * plan["groups"])
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("batch,C,nh", [(1, 96, 3), (3, 768, 24)])
+def test_attn_core_plan_ragged_tile(batch, C, nh, backward):
+    """A 2 x 40 grid holds 5 windows of 2 x 8 an image: the last tile of
+    four windows is short."""
+    plan = _check_plan(batch * 2 * 40, C, nh, backward)
+    assert plan["windows"] % 4 != 0
+
+
+@pytest.mark.parametrize("nh", range(1, 49))
+def test_attn_core_plan_head_counts(nh):
+    """Every head count a model may be given (num_heads overrides): the
+    largest group of at most 3 heads that divides it."""
+    for backward in (False, True):
+        plan = _check_plan(8 * 4 * 64, 32 * nh, nh, backward)
+        assert plan["hg"] == max(d for d in (1, 2, 3) if nh % d == 0)

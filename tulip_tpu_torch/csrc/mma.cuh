@@ -1,7 +1,9 @@
 // Tensor-core building blocks of the bf16 MLP kernels (mlp.cu, mlp_bwd.cu,
 // reduce.cu) and of the bf16 attention half-block (window_msa.cu): Hopper's
 // warpgroup product (wgmma) fed from a ring of shared-memory tiles that
-// cp.async fills ahead of the product.
+// cp.async fills ahead of the product.  At the end, the warp-level mma.sync
+// products of one 16-token window and head, which the half-block and the
+// training attention core (attn_core.cu) share.
 //
 // One warpgroup (128 threads) owns a 64-row output tile; its fp32 sums stay
 // in registers (N / 2 per thread for a 64 x N tile).  Both operands are read
@@ -419,6 +421,128 @@ static inline cudaError_t launch_ln_rows(
   kernel<<<(N + kLnRows - 1) / kLnRows, kThreads, 0, stream>>>(
       x, lnw, lnb, y, stat, N, C, eps);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level products of one 16-token window and one head (head dim 32),
+// shared by the attention half-block (window_msa.cu) and the training
+// attention core (attn_core.cu): mma.sync m16n8k16, bf16 in, fp32 sums.
+// Fragments (g = lane / 4, qd = lane % 4):
+//   A (16 x 16): a[0] rows g, columns 2 qd + {0, 1}; a[1] rows g + 8; a[2],
+//                a[3] the same eight columns on;
+//   B (16 x 8):  b0 rows (k) 2 qd + {0, 1} of column (n) g; b1 rows + 8;
+//   D (16 x 8):  d[e] row g + 8 (e / 2), column 2 qd + e % 2.
+// The window's 16 x 16 logits are two D tiles, s[nt][e]: row g + 8 (e / 2),
+// column 8 nt + 2 qd + e % 2.
+// ---------------------------------------------------------------------------
+
+// d (16 x 8, fp32) += A (16 x 16) B (16 x 8), bf16 fragments in registers.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Transpose of an 8 x 8 bf16 matrix held as an mma fragment (lane l: row
+// l / 4, columns 2 (l % 4) + {0, 1}).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lanes 8 i .. 8 i + 7 give
+// the row addresses of matrix i, whose fragment lands in d[i] (trans: the
+// fragment of its transpose).  The "memory" clobber keeps them ordered with
+// the warp's own stores to the same rows.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// A (16, 16) fp32 table (a head's bias, a window's shift mask) in the
+// logits' fragment order: v[4 nt + 2 half + e] is row g + 8 half, column
+// 8 nt + 2 qd + e.
+__device__ __forceinline__ void load_frag16(const float* __restrict__ t,
+                                            float (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 x = *reinterpret_cast<const float2*>(
+          t + ((lane >> 2) + 8 * half) * 16 + 8 * nt + 2 * (lane & 3));
+      v[4 * nt + 2 * half] = x.x;
+      v[4 * nt + 2 * half + 1] = x.y;
+    }
+}
+
+// s = softmax(s * scale + bias + mask) over each row, in place, fp32: the
+// max subtracted per row, a row's max and sum over the 4 lanes that share
+// it.  bias, mk: load_frag16 order (mk zeros without a mask).
+__device__ __forceinline__ void window_softmax(float (&s)[2][4],
+                                               const float (&bias)[8],
+                                               const float (&mk)[8],
+                                               float scale) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s[nt][i] = s[nt][i] * scale + bias[4 * nt + i] + mk[4 * nt + i];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int e = 2 * half;
+    float m = fmaxf(fmaxf(s[0][e], s[0][e + 1]), fmaxf(s[1][e], s[1][e + 1]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float e00 = expf(s[0][e] - m), e01 = expf(s[0][e + 1] - m);
+    const float e10 = expf(s[1][e] - m), e11 = expf(s[1][e + 1] - m);
+    float sum = (e00 + e01) + (e10 + e11);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    // one division a row: a masked entry's exp is denormal, and dividing
+    // it takes the slow path
+    const float inv = 1.f / sum;
+    s[0][e] = e00 * inv;
+    s[0][e + 1] = e01 * inv;
+    s[1][e] = e10 * inv;
+    s[1][e + 1] = e11 * inv;
+  }
+}
+
+// A 16 x 16 matrix held as two D tiles, rounded to bf16 as the A operand of
+// a product over its columns; and the A operand of its transpose.
+__device__ __forceinline__ void pack_a(const float (&p)[2][4],
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(p[0][0], p[0][1]);
+  a[1] = pack_bf16(p[0][2], p[0][3]);
+  a[2] = pack_bf16(p[1][0], p[1][1]);
+  a[3] = pack_bf16(p[1][2], p[1][3]);
+}
+__device__ __forceinline__ void transpose_a(const uint32_t (&a)[4],
+                                            uint32_t (&t)[4]) {
+  t[0] = movmatrix_trans(a[0]);
+  t[1] = movmatrix_trans(a[2]);
+  t[2] = movmatrix_trans(a[1]);
+  t[3] = movmatrix_trans(a[3]);
 }
 
 }  // namespace tc

@@ -47,7 +47,9 @@
 //      window's q, k and v.  That fragment is mma.sync's operand layout, so
 //      after + bias and rounding the 16 x 16 logits are 4 mma.sync
 //      (m16n8k16) straight from registers; scale, + bias, + mask, the exact
-//      max-subtracted softmax over the 4 lanes that share a row; P packed as
+//      max-subtracted softmax over the 4 lanes that share a row (mma.cuh:
+//      window_softmax, which the training attention core of attn_core.cu
+//      shares); P packed as
 //      the A operand of P V; v transposed in registers (movmatrix) into the
 //      B operand; 4 more mma.sync.  The head's 16 x 32 output is rounded
 //      into the swizzled ao tile.  No barrier inside a head beyond the
@@ -216,27 +218,6 @@ __device__ __forceinline__ long long msa_token_offset(long long rg,
   return ((b * g.H + row) * g.W + col) * g.C;
 }
 
-// d (16 x 8, fp32) += A (16 x 16) B (16 x 8), bf16 fragments in registers.
-__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Transpose of an 8 x 8 bf16 matrix held as an mma fragment (lane l: row
-// l / 4, columns 2 (l % 4) + {0, 1}).
-__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
-  uint32_t d;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
-               : "=r"(d)
-               : "r"(a));
-  return d;
-}
-
 // Start the copy of a 96 x 64 weight tile: tile row 16 k + a (k < 6, a =
 // thread / 8) is row row0 + (k / 2) slab + 16 (k % 2) + a of the row-major
 // matrix w (ld elements a row), columns [c0, c0 + 64); rows >= rmax and
@@ -403,35 +384,11 @@ __device__ __forceinline__ void attend_head(const float (&acc)[kMsaBN / 2],
     for (int nt = 0; nt < 2; ++nt)
       mma_m16n8k16(s[nt], a, f[4 + 2 * ks][nt], f[5 + 2 * ks][nt]);
   }
-  // s[nt][e]: row g + 8 (e / 2), column 8 nt + 2 qd + e % 2
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float2 bb = *reinterpret_cast<const float2*>(
-          bias_h + (g + 8 * half) * kRows + 8 * nt + 2 * qd);
-      s[nt][2 * half] = s[nt][2 * half] * scale + bb.x + mk[4 * nt + 2 * half];
-      s[nt][2 * half + 1] =
-          s[nt][2 * half + 1] * scale + bb.y + mk[4 * nt + 2 * half + 1];
-    }
+  float bh[8];
+  load_frag16(bias_h, bh);
+  window_softmax(s, bh, mk, scale);
   uint32_t p[4];   // P as the A operand of P V
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int e = 2 * half;
-    float m = fmaxf(fmaxf(s[0][e], s[0][e + 1]), fmaxf(s[1][e], s[1][e + 1]));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    const float e00 = expf(s[0][e] - m), e01 = expf(s[0][e + 1] - m);
-    const float e10 = expf(s[1][e] - m), e11 = expf(s[1][e + 1] - m);
-    float sum = (e00 + e01) + (e10 + e11);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    // one division a row: a masked entry's exp is denormal, and dividing
-    // it takes the slow path
-    const float inv = 1.f / sum;
-    p[half] = pack_bf16(e00 * inv, e01 * inv);
-    p[2 + half] = pack_bf16(e10 * inv, e11 * inv);
-  }
+  pack_a(s, p);
   // O = P V: v's 8 x 8 blocks transposed in registers give the B operand
   const int row = (threadIdx.x >> 5) * 16 + g;
 #pragma unroll
@@ -494,21 +451,11 @@ window_msa_tc_kernel(
 
   // the warp's window's mask, in the logits' fragment order (its loads
   // run under the gather)
-  const int lane = threadIdx.x & 31, qd = lane & 3;
   float mk[8] = {};
   if (mask) {
     const long long wg = (long long)blockIdx.x * (kBM / kRows) +
                          (threadIdx.x >> 5);
-    const float* mp = mask + (size_t)(wg % g.nW) * kRows * kRows;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float2 m2 = *reinterpret_cast<const float2*>(
-            mp + ((lane >> 2) + 8 * half) * kRows + 8 * nt + 2 * qd);
-        mk[4 * nt + 2 * half] = m2.x;
-        mk[4 * nt + 2 * half + 1] = m2.y;
-      }
+    load_frag16(mask + (size_t)(wg % g.nW) * kRows * kRows, mk);
   }
 
   if (resident) {

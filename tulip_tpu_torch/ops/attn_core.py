@@ -15,7 +15,12 @@ constant 0/-100 shift mask.  The LN, the qkv and output projections stay
 plain ``F.linear`` around it, as they were XLA GEMMs around the TPU core.
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
-its kernel for a CUDA tensor; any other device raises.
+a kernel for a CUDA tensor; any other device raises.  The dtype decides
+the kernel: bf16 runs ``attn_fwd_tc_kernel`` / ``attn_bwd_tc_kernel``
+(tiles of four windows and a group of heads, one warp per window and head
+on ``mma.sync``) under the launch plan :func:`attn_core_plan`; fp32 runs
+``attn_fwd_kernel`` / ``attn_bwd_kernel``, the FMA kernels of the parity
+path.
 """
 
 from __future__ import annotations
@@ -23,11 +28,52 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .mlp import NUM_SMS
 from .reduce import colsum
+from .window_msa import SM_SMEM
 from ..models.layers import wide
 from ..parallel.halo import roll_hw
 
-_BWD_BLOCKS = 2048   # CTAs of the backward: heads x window splits
+_BWD_BLOCKS = 2048   # CTAs of the fp32 backward: heads x window splits
+_TILE_WINDOWS = 4    # windows of 16 tokens per tile (csrc kAttnWin)
+_MAX_GROUP = 3       # heads per group, at most (kAttnMaxGroup)
+# registers a thread may take: the kernels are built for two CTAs of 384
+# threads per SM (__launch_bounds__(384, 2)) out of the SM's 65,536
+_REG_CAP = 65536 // (2 * 32 * _TILE_WINDOWS * _MAX_GROUP)
+
+
+def attn_core_plan(T: int, C: int, nh: int, backward: bool) -> dict:
+    """Launch plan of the bf16 kernels (``csrc/attn_core.cu``
+    attn_fwd_tc_kernel, attn_bwd_tc_kernel), grid (ctas, groups), from the
+    shape alone (T tokens of C = 32 nh channels):
+
+    windows  T / 16 windows of 16 tokens over the batch;
+    tiles    ceil(windows / 4): 64 token rows each, the last one short
+             where 4 does not divide the windows;
+    hg       heads per group: the largest of 3, 2, 1 that divides nh; a
+             CTA has 128 hg threads, one warp per window and head of a
+             tile, and keeps its group for its whole walk;
+    groups   nh / hg, along grid.y;
+    ctas     CTAs along the tiles (grid.x): as many as the SMs hold at
+             once (shared memory, registers) over the groups, at most the
+             tiles; CTA x walks tiles x, x + ctas, x + 2 ctas, ...;
+    smem     two tiles of 64 rows of 64 hg parts + 16 bytes (parts q, k, v
+             and, backward, dO); the C entry point recomputes it and
+             refuses a plan that differs;
+    part     the backward's fp32 d(bias) partials, one row of nh 16 x 16
+             per CTA along the tiles: what ``colsum`` adds in CTA order."""
+    windows = T // 16
+    tiles = -(-windows // _TILE_WINDOWS)
+    hg = next(d for d in range(_MAX_GROUP, 0, -1) if nh % d == 0)
+    threads = 32 * _TILE_WINDOWS * hg
+    parts = 4 if backward else 3
+    smem = 2 * 16 * _TILE_WINDOWS * (64 * hg * parts + 16)
+    per_sm = min(SM_SMEM // (smem + 1024), 65536 // (threads * _REG_CAP))
+    groups = nh // hg
+    ctas = min(tiles, -(-(per_sm * NUM_SMS) // groups))
+    return dict(windows=windows, tiles=tiles, hg=hg, groups=groups,
+                threads=threads, ctas=ctas, smem=smem,
+                part=(ctas, nh * 256))
 
 
 def _windows(t, window, shift):
@@ -129,13 +175,18 @@ def attn_core_fwd(qkv, bias, mask, *, window, shift):
         raise build.not_cuda(qkv)
     B, H, W, C, nh = _check(qkv, bias, mask, window, "attn_core")
     out = torch.empty((B, H, W, C), device=qkv.device, dtype=qkv.dtype)
+    plan = (0, 0, 0)   # the fp32 kernel takes none
+    if qkv.dtype == torch.bfloat16:
+        build.require_aligned("qkv", qkv)
+        p = attn_core_plan(B * H * W, C, nh, backward=False)
+        plan = (p["ctas"], p["hg"], p["smem"])
     lib = build.load()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.tulip_attn_fwd(
             build.dtype_code(qkv), qkv.data_ptr(), out.data_ptr(),
             bias.data_ptr(), build.ptr(mask), B, H, W, C, nh, *window,
-            *shift, float((C // nh) ** -0.5), stream)
+            *shift, *plan, float((C // nh) ** -0.5), stream)
     build.check(lib, err, "attn_core")
     attn_core_fwd.launches += 1
     return out
@@ -145,8 +196,9 @@ attn_core_fwd.launches = 0
 
 
 def attn_core_bwd(qkv, bias, mask, dout, *, window, shift):
-    """Backward (K9): per-split d(bias) partials from the kernel, summed
-    by ``tulip_colsum``.  Arguments as in :func:`attn_core_bwd_ref`."""
+    """Backward (K9): d(bias) partials from the kernel (one row per window
+    split in fp32, per CTA along the tiles in bf16), summed by
+    ``tulip_colsum``.  Arguments as in :func:`attn_core_bwd_ref`."""
     if qkv.device.type == "cpu":
         return attn_core_bwd_ref(qkv, bias, mask, dout, window=window,
                                  shift=shift)
@@ -154,8 +206,14 @@ def attn_core_bwd(qkv, bias, mask, dout, *, window, shift):
         raise build.not_cuda(qkv)
     B, H, W, C, nh = _check(qkv, bias, mask, window, "attn_core backward")
     build.require(dout, "dout", qkv.device, qkv.dtype, (B, H, W, C))
-    windows = B * (H // window[0]) * (W // window[1])
-    nsplit = max(1, min(windows, _BWD_BLOCKS // nh, 65535))
+    if qkv.dtype == torch.bfloat16:
+        build.require_aligned("qkv", qkv)
+        build.require_aligned("dout", dout)
+        p = attn_core_plan(B * H * W, C, nh, backward=True)
+        nsplit, hg, smem = p["ctas"], p["hg"], p["smem"]
+    else:
+        windows = B * (H // window[0]) * (W // window[1])
+        nsplit, hg, smem = max(1, min(windows, _BWD_BLOCKS // nh, 65535)), 0, 0
     dqkv = torch.empty_like(qkv)
     part = torch.empty((nsplit, nh * 256), device=qkv.device,
                        dtype=torch.float32)
@@ -165,8 +223,8 @@ def attn_core_bwd(qkv, bias, mask, dout, *, window, shift):
         err = lib.tulip_attn_bwd(
             build.dtype_code(qkv), qkv.data_ptr(), dout.data_ptr(),
             dqkv.data_ptr(), bias.data_ptr(), build.ptr(mask),
-            part.data_ptr(), B, H, W, C, nh, *window, *shift, nsplit,
-            float((C // nh) ** -0.5), stream)
+            part.data_ptr(), B, H, W, C, nh, *window, *shift, nsplit, hg,
+            smem, float((C // nh) ** -0.5), stream)
     build.check(lib, err, "attn_core backward")
     dbias = colsum(part).view(nh, 16, 16)
     attn_core_bwd.launches += 1

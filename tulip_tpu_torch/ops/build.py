@@ -61,12 +61,12 @@ SIGNATURES = {
     # a_s, b_s, boxes, perm, thr, wmax, smin, sa, sb, counts, done, list,
     # out_a, out_b, N, M, stream
     "tulip_nn_h2": [_P] * 14 + [_I] * 2 + [_P],
-    # dtype, qkv, out, bias, mask, B, H, W, C, nh, wh, ww, sh, sw, scale,
-    # stream
-    "tulip_attn_fwd": [_I] + [_P] * 4 + [_I] * 9 + [_F, _P],
+    # dtype, qkv, out, bias, mask, B, H, W, C, nh, wh, ww, sh, sw, ctas, hg,
+    # smem, scale, stream
+    "tulip_attn_fwd": [_I] + [_P] * 4 + [_I] * 12 + [_F, _P],
     # dtype, qkv, dout, dqkv, bias, mask, part, B, H, W, C, nh, wh, ww, sh,
-    # sw, nsplit, scale, stream
-    "tulip_attn_bwd": [_I] + [_P] * 6 + [_I] * 10 + [_F, _P],
+    # sw, nsplit (bf16: ctas), hg, smem, scale, stream
+    "tulip_attn_bwd": [_I] + [_P] * 6 + [_I] * 12 + [_F, _P],
     # dtype, act, x, g, lnw, lnb, w1, b1, w2, dx, y, a, dh, part, stat, dyp,
     # N, C, Hd, O, residual, eps, dy_splits, stream
     "tulip_two_matmul_bwd": [_I, _I] + [_P] * 14 + [_I] * 5 + [_F, _I, _P],

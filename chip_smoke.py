@@ -13,7 +13,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
 2. build: nvcc compiles tulip_tpu_torch/csrc/*.cu for sm_90a; the bf16
    tensor-core kernels (K3, K4, K10, K11, tn_gemm and the attention
    half-block of K1, K2, K12, K13) must hold HGMMA instructions in their
-   SASS, the bf16 training attention core (K8, K9) HMMA (mma.sync).
+   SASS, the bf16 training attention core (K8, K9) HMMA (mma.sync), the
+   bf16 LayerNorm kernels (K14, K15) 128-bit global loads and stores
+   (LDG.E.128 / STG.E.128).
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
@@ -66,7 +68,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    TULIP_TPU_MSA_NAT=1 (6 launches of K13), each pred within 2e-2 of the
    default path's max; the module in a process of its own (python3 -m ...
    --epochs 1, exit code 0); and the train step's median ms with and
-   without TULIP_TPU_LN_PALLAS=1.
+   without TULIP_TPU_LN_PALLAS=1, and colsum's launches per step in
+   both (K15 adds none).
 
 Phase 3 also holds K1 / K2 in bf16 at batch 1 and 8 (the tensor-core
 kernel's head splits differ by batch) and at token counts that leave a last
@@ -77,8 +80,12 @@ in bf16, batch 8; K4 at batch 1 and 8 (the bf16 kernel splits K over CTAs
 at batch 1-4), at a ragged token count and at TULIP-large's deepest merge
 (K 3,072); every bf16 case of K1, K2, K3, K4, K8, K9, K10, K11, K12, K13
 twice for the same bits; and K14 / K15 (LayerNorm forward and backward: y,
-dx, dw, db) at the four norm1 shapes of the batch-8 train step, against
-their plain versions; beside K14 / K15 it times F.layer_norm and its
+dx, dw, db) at the four norm1 shapes of the batch-8 train step, at the
+batch-1 step's, at a ragged token count, at TULIP-large's C 1,536 and at
+widths whose chunks do not split evenly over a row's lanes, in bf16 and
+fp32, against their plain versions (the bf16 cases also twice for the same
+bits; K15 one launch and no colsum in bf16; bf16 widths off the plan
+refused); beside K14 / K15 it times F.layer_norm and its
 backward, beside K8 / K9 F.scaled_dot_product_attention and its backward,
 on the same tensors (the library call: a yardstick, used nowhere in the
 port).  Every case also gets its bound: the larger of its bytes over 3.35
@@ -183,6 +190,9 @@ TENSOR_CORE_KERNELS = ("two_matmul_tc_kernel", "ln_linear_tc_kernel",
 # the bf16 training attention core (K8, K9), whose products must be
 # warp-level tensor-core instructions (HMMA: mma.sync)
 MMA_SYNC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_tc_kernel")
+# the bf16 LayerNorm kernels (K14, K15), whose rows must move in 16-byte
+# global loads and stores (LDG.E.128 / STG.E.128 in the SASS)
+WIDE_ACCESS_KERNELS = ("ln_fwd_reg_kernel", "ln_bwd_reg_kernel")
 PAIR_OPS = 8   # operations per point pair of a nearest-neighbour sweep
 # chamfer kernels against their plain versions: the kernel fuses two FMAs
 # where the plain version rounds each product and sum, <= 2 ulp (1.2e-7
@@ -530,15 +540,17 @@ def check_deterministic(torch, device, cases):
     """K3, K4, K10 and K11 (their token passes, weight-gradient products
     and column sums), the attention half-block through its three entries
     (K1, K2, K12, K13), the training attention core (K8, K9 with its
-    d(bias) column sum) and tn_gemm on their own: two runs on the same
-    inputs must give the same bits (no atomics, every cross-block sum in a
-    fixed order)."""
+    d(bias) column sum), the LayerNorm kernels (K14, K15 with dw / db
+    summed inside its launch) and tn_gemm on their own: two runs on the
+    same inputs must give the same bits (no atomic sums, every cross-block
+    sum in a fixed order)."""
     from tulip_tpu_torch.ops import reduce as R
     runs = [(label, kfn) for kernel, _, label, kfn, *_ in cases
             if kernel in ("two_matmul", "two_matmul_bwd", "ln_linear",
                           "ln_linear_bwd", "window_msa",
                           "window_msa_grouped", "window_msa_nat",
-                          "attn_core_fwd", "attn_core_bwd")
+                          "attn_core_fwd", "attn_core_bwd", "ln_fwd",
+                          "ln_bwd")
             and "bfloat16" in label]
     g = torch.Generator().manual_seed(4)
     for T, M, N in ((131072, 384, 96), (2048, 3072, 768), (1000, 16, 1536)):
@@ -556,32 +568,43 @@ def check_deterministic(torch, device, cases):
                    if p is not None):
             differ.append(label)
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
-          f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / K8 / K9 / tn_gemm "
-          f"cases bit-identical over two runs", flush=True)
+          f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / K8 / K9 / K14 / K15 "
+          f"/ tn_gemm cases bit-identical over two runs", flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
 
 
-def tensor_core_instructions(build):
-    """({kernel: count of HGMMA instructions}, {kernel: count of HMMA}) that
-    cuobjdump -sass finds in the bf16 tensor-core kernels of the built
-    library (TENSOR_CORE_KERNELS and MMA_SYNC_KERNELS), every instantiation
-    of a template counted together."""
+def sass_counts(build):
+    """({kernel: HGMMA instructions}, {kernel: HMMA}, {kernel: (128-bit
+    global loads, 128-bit global stores)}) that cuobjdump -sass finds in
+    the bf16 tensor-core kernels (TENSOR_CORE_KERNELS, MMA_SYNC_KERNELS)
+    and the LayerNorm kernels (WIDE_ACCESS_KERNELS) of the built library,
+    every instantiation of a template counted together."""
+    import re
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts = dict.fromkeys(TENSOR_CORE_KERNELS + MMA_SYNC_KERNELS, 0)
-    warp_level = dict.fromkeys(counts, 0)
+    names = TENSOR_CORE_KERNELS + MMA_SYNC_KERNELS + WIDE_ACCESS_KERNELS
+    counts = dict.fromkeys(names, 0)
+    warp_level = dict.fromkeys(names, 0)
+    wide = {k: [0, 0] for k in names}
+    ldg = re.compile(r"\bLDG\.E[\w.]*\.128\b")
+    stg = re.compile(r"\bSTG\.E[\w.]*\.128\b")
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in counts if k in line), None)
+            current = next((k for k in names if k in line), None)
         elif current and "HGMMA" in line:
             counts[current] += 1
         elif current and "HMMA" in line:
             warp_level[current] += 1
-    return counts, warp_level
+        elif current and ldg.search(line):
+            wide[current][0] += 1
+        elif current and stg.search(line):
+            wide[current][1] += 1
+    return (counts, warp_level,
+            {k: tuple(wide[k]) for k in WIDE_ACCESS_KERNELS})
 
 
 def kink_guard(torch, x, args, gr, to, rn):
@@ -761,8 +784,7 @@ def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
     F.layer_norm and its backward on the same tensors.  layouts_only: the
     bf16 K12 / K13 cases alone, off the path (the layout switches are
     driven at batch 2)."""
-    import torch.nn.functional as F
-    from tulip_tpu_torch.ops import ln, window_msa as wm
+    from tulip_tpu_torch.ops import window_msa as wm
 
     g = torch.Generator().manual_seed(2)
 
@@ -806,31 +828,95 @@ def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
         if layouts_only:
             continue
         for (H, W), C, nh in stages:
-            N = train_batch * H * W
-            x = to(rn(N, C, scale=2.0, shift=0.5))
-            gr = to(rn(N, C))
-            w = rn(C, scale=0.1, shift=1.0).to(device)
-            b = rn(C, scale=0.1).to(device)
-            xl = x.clone().requires_grad_()
-            wl, bl = to(w).requires_grad_(), to(b).requires_grad_()
-            lib_fwd = lambda xl=xl, wl=wl, bl=bl, C=C: F.layer_norm(
-                xl, (C,), wl, bl, 1e-6)
-            yl = lib_fwd()
-            lib_bwd = lambda yl=yl, xl=xl, wl=wl, bl=bl, gr=gr: \
-                torch.autograd.grad(yl, (xl, wl, bl), gr, retain_graph=True)
-            cases.append((
-                "ln_fwd", "K14", f"ln_fwd K14 {dn} N={N} C={C}",
-                lambda x=x, w=w, b=b: ln.ln_fwd(x, w, b, 1e-6),
-                lambda x=x, w=w, b=b: ln.layer_norm_ref(x, w, b, 1e-6),
-                True, dict(work=work_ln(N, C, e, False), library=lib_fwd,
-                           per_step=2 if C == 768 else 4)))
-            cases.append((
-                "ln_bwd", "K15", f"ln_bwd K15 {dn} N={N} C={C}",
-                lambda x=x, w=w, gr=gr: ln.ln_bwd(x, w, gr, 1e-6),
-                lambda x=x, w=w, gr=gr: ln.layer_norm_bwd_ref(x, w, gr, 1e-6),
-                True, dict(work=work_ln(N, C, e, True), library=lib_bwd,
-                           per_step=2 if C == 768 else 4)))
+            cases += ln_cases(torch, device, rn, dtype, train_batch * H * W,
+                              C, "", True, per_step=2 if C == 768 else 4)
     return cases
+
+
+def ln_cases(torch, device, rn, dtype, N, C, what, on_path, per_step=None):
+    """The K14 and K15 cases (LayerNorm forward: y; backward: dx, dw, db)
+    of one (N, C) token matrix in dtype, with fp32 w and b as the train
+    step holds them; the library call beside each is F.layer_norm and its
+    backward on the same tensors (weights in dtype)."""
+    import torch.nn.functional as F
+    from tulip_tpu_torch.ops import ln
+    dn = str(dtype).replace("torch.", "")
+    to = lambda t: t.to(device=device, dtype=dtype)
+    e = 2 if dtype == torch.bfloat16 else 4
+    x = to(rn(N, C, scale=2.0, shift=0.5))
+    gr = to(rn(N, C))
+    w = rn(C, scale=0.1, shift=1.0).to(device)
+    b = rn(C, scale=0.1).to(device)
+    xl, wl, bl = (to(t).clone().requires_grad_() for t in (x, w, b))
+    lib_fwd = lambda: F.layer_norm(xl, (C,), wl, bl, 1e-6)
+    yl = lib_fwd()
+    lib_bwd = lambda: torch.autograd.grad(yl, (xl, wl, bl), gr,
+                                          retain_graph=True)
+    label = f"{dn}{what} N={N} C={C}"
+    return [
+        ("ln_fwd", "K14", f"ln_fwd K14 {label}",
+         lambda: ln.ln_fwd(x, w, b, 1e-6),
+         lambda: ln.layer_norm_ref(x, w, b, 1e-6), on_path,
+         dict(work=work_ln(N, C, e, False), library=lib_fwd,
+              per_step=per_step)),
+        ("ln_bwd", "K15", f"ln_bwd K15 {label}",
+         lambda: ln.ln_bwd(x, w, gr, 1e-6),
+         lambda: ln.layer_norm_bwd_ref(x, w, gr, 1e-6), on_path,
+         dict(work=work_ln(N, C, e, True), library=lib_bwd,
+              per_step=per_step))]
+
+
+def more_ln_cases(torch, device):
+    """K14 / K15 off the batch-8 shapes: the batch-1 step's norm1 shapes,
+    a ragged token count (131,067 x 96: the last row group and the last
+    CTA's range short), TULIP-large's deepest stage (C 1,536: six 16-byte
+    chunks a lane) and widths whose chunks do not split evenly over the
+    lanes of a row (C 72, 40), in bf16 and fp32."""
+    g = torch.Generator().manual_seed(5)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for (H, W), C, _ in STAGES:
+            cases += ln_cases(torch, device, rn, dtype, H * W, C, " batch 1",
+                              False)
+        for N, C, what in ((131067, 96, " ragged"),
+                           (TRAIN_BATCH * 2 * 32, 1536, " large"),
+                           (1001, 72, " uneven"), (333, 40, " uneven")):
+            cases += ln_cases(torch, device, rn, dtype, N, C, what, False)
+    return cases
+
+
+def check_ln_launches(torch, device):
+    """K15 is one launch in bf16 (no colsum) and K14 / K15 refuse bf16
+    widths their plan does not take; fp32 keeps the parity kernels and
+    their colsum."""
+    from tulip_tpu_torch.ops import ln, reduce as R
+    g = torch.Generator().manual_seed(8)
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, gr = (torch.randn(4096, 192, generator=g).to(device, dtype)
+                 for _ in range(2))
+        w = torch.randn(192, generator=g).to(device)
+        R.colsum.launches = ln.ln_bwd.launches = 0
+        ln.ln_bwd(x, w, gr)
+        torch.cuda.synchronize()
+        got[str(dtype)] = (ln.ln_bwd.launches, R.colsum.launches)
+    refused = []
+    for fn in (lambda x, w: ln.ln_fwd(x, w, w),
+               lambda x, w: ln.ln_bwd(x, w, x)):
+        x = torch.randn(64, 100, generator=g).to(device, torch.bfloat16)
+        try:
+            fn(x, torch.ones(100, device=device))
+        except NotImplementedError:
+            refused.append(True)
+    print(f"ln launches: (K15 calls, colsum launches) of one ln_bwd call "
+          f"{got}; bf16 C=100 refused by K14 / K15: {refused}", flush=True)
+    if (got["torch.bfloat16"] != (1, 0) or got["torch.float32"][1] < 1
+            or refused != [True, True]):
+        raise SystemExit("K14 / K15 launch or refusal check failed")
 
 
 def check_kernel_cases(torch, cases):
@@ -1144,9 +1230,10 @@ def load_batches(root, batch, width, split="val"):
 
 
 def counted():
-    """{name: wrapper} of every kernel wrapper with a launch count."""
+    """{name: wrapper} of every kernel wrapper with a launch count (and
+    colsum, the column sum that backward kernels launch after them)."""
     from tulip_tpu_torch.ops import (attn_core, chamfer, ln, mlp,
-                                     window_msa as wm)
+                                     reduce as R, window_msa as wm)
     return {"window_msa": wm.window_msa,
             "window_msa_grouped": wm.window_msa_grouped,
             "window_msa_nat": wm.window_msa_nat,
@@ -1160,7 +1247,8 @@ def counted():
             "attn_core_fwd": attn_core.attn_core_fwd,
             "attn_core_bwd": attn_core.attn_core_bwd,
             "two_matmul_bwd": mlp.two_matmul_bwd,
-            "ln_linear_bwd": mlp.ln_linear_bwd}
+            "ln_linear_bwd": mlp.ln_linear_bwd,
+            "colsum": R.colsum}
 
 
 def counts():
@@ -1769,13 +1857,22 @@ def run_cli_phase(torch, dev, weights):
     # -- the step with and without the LayerNorm kernels --------------------
     batches = load_batches(data_root, TRAIN_BATCH, 2048, split="train")
     ms = {False: [], True: []}
+    colsums = {}
     for on in (False, True, True, False):
+        reset_counts()
         ms[on].append(timed_steps(torch, dev, weights, batches, 10, on))
+        colsums[on] = counts()["colsum"] / 10
     report["step_ms"] = dict(default=ms[False], ln_kernels=ms[True])
+    report["colsum_per_step"] = dict(default=colsums[False],
+                                     ln_kernels=colsums[True])
     print(f"train step, batch {TRAIN_BATCH}, bf16, median ms of 8 timed "
           f"steps, runs in the order off, on, on, off: default "
           f"{ms[False][0]:.2f} / {ms[False][1]:.2f}, TULIP_TPU_LN_PALLAS=1 "
-          f"{ms[True][0]:.2f} / {ms[True][1]:.2f}", flush=True)
+          f"{ms[True][0]:.2f} / {ms[True][1]:.2f}; colsum launches per step "
+          f"{colsums[False]:g} / {colsums[True]:g} (K15 adds "
+          f"{colsums[True] - colsums[False]:g})", flush=True)
+    if colsums[True] != colsums[False]:
+        raise SystemExit(f"K15 launches colsum: {colsums}")
     return report
 
 
@@ -1789,18 +1886,21 @@ PROFILE_CLASSES = {
     "attn_bwd_tc": "K9 attention core backward (mma.sync)",
     "attn_": "K8/K9 FMA kernels", "mlp_bwd": "K10 token pass",
     "tn_gemm": "weight gradients", "colsum": "weight gradients",
-    "ln_rows": "LN passes of K3 / K10", "tulip": "other kernels of the port"}
+    "ln_rows": "LN passes of K3 / K10", "ln_fwd": "K14 LayerNorm forward",
+    "ln_bwd": "K15 LayerNorm backward",
+    "tulip": "other kernels of the port"}
 
 
 def profile_paths(torch, dev, tree):
     """``python3 chip_smoke.py --profile``: torch.profiler over the bf16
     inference forward (batch 1 and 8, 5 forwards each) and 3 bf16 train
-    steps of batch 8, all at the flagship size after a warm-up: per path
+    steps of batch 8, without and with TULIP_TPU_LN_PALLAS=1, all at the
+    flagship size after a warm-up: per path
     the wall ms per iteration, the device's busy share and the device ms
     per iteration of every kernel name above 0.5 % (the port's kernels by
     their C++ names, the rest by PyTorch's; the attention half-block's
     kernels whatever their share) and the sums by PROFILE_CLASSES, then
-    profile_attn, k3_plan_ab and profile_k5.  Also written to
+    profile_attn, k3_plan_ab, profile_k5 and profile_ln.  Also written to
     chiprun_out/profile.json, or with --tree DIR (the package at DIR) to
     chiprun_out/profile_<DIR's name>.json.  No check, no kernel table: the
     default run does those."""
@@ -1876,11 +1976,19 @@ def profile_paths(torch, dev, tree):
                            compute_dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(0)
     run(f"train step batch {TRAIN_BATCH}", lambda: step(x, t, 5e-4, gen), 3)
+    # the same step with norm1 through the LayerNorm kernels (K14, K15)
+    os.environ["TULIP_TPU_LN_PALLAS"] = "1"
+    try:
+        run(f"train step batch {TRAIN_BATCH} TULIP_TPU_LN_PALLAS=1",
+            lambda: step(x, t, 5e-4, gen), 3)
+    finally:
+        os.environ.pop("TULIP_TPU_LN_PALLAS")
     del tm, step
     torch.cuda.empty_cache()
     report["attn"] = profile_attn(torch, dev)
     report["k3_plan"] = k3_plan_ab(torch, dev)
     report["k5"] = profile_k5(torch, dev)
+    report["ln"] = profile_ln(torch, dev)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     name = ("profile.json" if tree == "this checkout" else
@@ -1899,37 +2007,40 @@ K5_CLASSES = {"nn2_box": "plan glue", "nn2_morton": "plan glue",
               "nn2_unsort": "unsort"}
 
 
+def device_us(torch, fn, n=10):
+    """{kernel name: device us per call of fn} by torch.profiler, the mean
+    of n calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a window whose events the tracer lost is rerun
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = {e.key: e.self_device_time_total / n
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation
+              and e.self_device_time_total > 0}
+        if us:
+            return us
+    raise SystemExit("the profiler recorded no device time")
+
+
 def profile_attn(torch, dev):
     """K8 and K9 in bf16 at every shape of the batch-8 and batch-1 train
     steps, by torch.profiler: device us per call (mean of 10; K9 with its
     d(bias) column sum) beside the bound and F.scaled_dot_product_attention's
     device time, and the sums per train step (each shape's launches in a
     step)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     g = torch.Generator().manual_seed(1)
 
     def rn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=g) * scale + shift
-
-    def device_us(fn, n=10):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        for _ in range(3):   # a window whose events the tracer lost is rerun
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-            us = {e.key: e.self_device_time_total / n
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation
-                  and e.self_device_time_total > 0}
-            if us:
-                return us
-        raise SystemExit("the profiler recorded no device time")
 
     rows, step = [], {}
     for batch in (TRAIN_BATCH, 1):
@@ -1938,8 +2049,8 @@ def profile_attn(torch, dev):
                 for _, knum, label, kfn, _, _, extra in attn_core_cases(
                         torch, dev, rn, torch.bfloat16, batch, H, W, C, nh,
                         shifted, True, per_step=1 if C == 768 else 2):
-                    kern = device_us(kfn)
-                    lib = sum(device_us(extra["library"]).values())
+                    kern = device_us(torch, kfn)
+                    lib = sum(device_us(torch, extra["library"]).values())
                     bound = bound_ms(*extra["work"], "bfloat16")[0] * 1e3
                     total = sum(kern.values())
                     for key, v in ((knum, total), (knum + " bound", bound),
@@ -1955,6 +2066,45 @@ def profile_attn(torch, dev):
                           + ", ".join(f"{k.split('(')[0][-28:]} {v:.2f}"
                                       for k, v in kern.items()), flush=True)
     print("profile K8 / K9 per train step, device us: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in step.items()), flush=True)
+    return dict(rows=rows, per_step_us=step)
+
+
+def profile_ln(torch, dev):
+    """K14 and K15 in bf16 at the norm1 shapes of the batch-8 and batch-1
+    train steps, by torch.profiler: device us per call (mean of 10; K15
+    with every kernel it launches) beside F.layer_norm's and its
+    backward's device time on the same tensors and the bound (work_ln),
+    and the sums per train step (each shape's launches in a step: four at
+    C 96, 192 and 384, two at C 768)."""
+    g = torch.Generator().manual_seed(6)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    rows, step = [], {}
+    for batch in (TRAIN_BATCH, 1):
+        for (H, W), C, _ in STAGES:
+            per_step = 2 if C == 768 else 4
+            for _, knum, label, kfn, _, _, extra in ln_cases(
+                    torch, dev, rn, torch.bfloat16, batch * H * W, C,
+                    f" batch {batch}", True, per_step):
+                kern = device_us(torch, kfn)
+                lib = sum(device_us(torch, extra["library"]).values())
+                bound = bound_ms(*extra["work"], "bfloat16")[0] * 1e3
+                total = sum(kern.values())
+                for key, v in ((knum, total), (knum + " bound", bound),
+                               (knum + " library", lib)):
+                    key = f"{key} batch {batch}"
+                    step[key] = step.get(key, 0.0) + v * per_step
+                rows.append(dict(label=label, device_us=total, kernels=kern,
+                                 library_us=lib, bound_us=bound))
+                print(f"profile {label}: device {total:.2f} us "
+                      f"({100 * bound / total:.0f} % of the bound "
+                      f"{bound:.2f}), library {lib:.2f} us; "
+                      + ", ".join(f"{k.split('(')[0][-28:]} {v:.2f}"
+                                  for k, v in kern.items()), flush=True)
+    print("profile K14 / K15 per train step, device us: "
           + ", ".join(f"{k} {v:.1f}" for k, v in step.items()), flush=True)
     return dict(rows=rows, per_step_us=step)
 
@@ -2153,13 +2303,20 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    hgmma, hmma = tensor_core_instructions(build)
+    hgmma, hmma, wide = sass_counts(build)
+    hgmma = {k: hgmma[k] for k in TENSOR_CORE_KERNELS}
+    hmma = {k: hmma[k] for k in MMA_SYNC_KERNELS}
     print(f"build: tensor-core instructions in the bf16 kernels: HGMMA "
-          f"{hgmma}, HMMA (mma.sync) {hmma}", flush=True)
-    if not all(hgmma[k] for k in TENSOR_CORE_KERNELS):
+          f"{hgmma}, HMMA (mma.sync) {hmma}; 128-bit global loads / stores "
+          f"(LDG.E.128 / STG.E.128) of the bf16 LayerNorm kernels {wide}",
+          flush=True)
+    if not all(hgmma.values()):
         raise SystemExit(f"a bf16 tensor-core kernel holds no HGMMA: {hgmma}")
-    if not all(hmma[k] for k in MMA_SYNC_KERNELS):
+    if not all(hmma.values()):
         raise SystemExit(f"a bf16 mma.sync kernel holds no HMMA: {hmma}")
+    if not all(n > 0 for pair in wide.values() for n in pair):
+        raise SystemExit(f"a bf16 LayerNorm kernel lacks 128-bit global "
+                         f"loads or stores: {wide}")
 
     # -- 3. kernels vs plain ----------------------------------------------
     cases = kernel_cases(torch, dev)
@@ -2173,7 +2330,9 @@ def main() -> int:
     table += check_kernel_cases(torch, [c + (5,) for c in train_cases])
     layouts = layout_and_ln_cases(torch, dev)
     layouts += layout_and_ln_cases(torch, dev, batch=8, layouts_only=True)
+    layouts += more_ln_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (10,) for c in layouts])
+    check_ln_launches(torch, dev)
     check_deterministic(torch, dev, cases + more + train_cases + layouts)
     del cases, more, train_cases, layouts
     table += chamfer_checks(torch, dev)

@@ -17,6 +17,7 @@ from tulip_tpu.config import model_config
 from tulip_tpu.models import tulip as JT
 from tulip_tpu.ops.pallas.ln import layer_norm_vjp
 from tulip_tpu_torch.models import tulip as TT
+from tulip_tpu_torch.models.layers import wide
 from tulip_tpu_torch.ops import ln as TL
 from tulip_tpu_torch.utils.checkpoint import (jax_params_from_state_dict,
                                               load_jax_params)
@@ -164,3 +165,161 @@ def test_train_block_with_ln_flag_matches_jax(monkeypatch, flag):
                         for k in sorted(grads)]).astype(np.float64)
     cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
     assert cos >= 0.99, cos
+
+
+# -- the launch plan of the kernels (ops/ln.py:ln_plan), walked on the CPU --
+
+def _norm1_shapes(model, batch):
+    """(N, C) of norm1 at each stage of the 32x2048 step: the patch grid
+    (32, 512) halved per stage, C = embed_dim doubled."""
+    cfg = model_config(model, (32, 2048), (128, 2048))
+    return [(batch * (32 >> s) * (512 >> s), cfg.embed_dim << s)
+            for s in range(len(cfg.depths))]
+
+
+PLAN_SHAPES = sorted(
+    {nc for model in ("tulip_base", "tulip_large") for batch in (8, 1)
+     for nc in _norm1_shapes(model, batch)}
+    | {(131067, 96), (4099, 96), (1001, 72), (333, 40), (7, 1536),
+       (1, 8), (513, 768), (2047, 192)})
+
+
+def _walk(plan, N):
+    """Rows in the order the kernels visit them: CTA i's range, its warp w
+    taking the row groups w, w + 8, ... of it (fp32: one row a warp)."""
+    rows, rpc = plan["rows"], plan["rows_per_cta"]
+    order = []
+    for c in range(plan["ctas"]):
+        r0, r1 = c * rpc, min(N, (c + 1) * rpc)
+        assert r0 < r1
+        for w in range(8):
+            base = np.arange(r0 + w * rows, r1, 8 * rows)
+            r = (base[:, None] + np.arange(rows)[None, :]).ravel()
+            order.append(r[r < r1])
+    return np.concatenate(order)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("N,C", PLAN_SHAPES)
+def test_ln_plan_covers_every_row_once(N, C, dtype, backward):
+    """Every row once, CTA ranges contiguous, disjoint and in order; every
+    16-byte chunk of a row held by one lane of its group; the grid and the
+    partials within what the kernels were built for."""
+    p = TL.ln_plan(N, C, getattr(torch, dtype), backward=backward)
+    assert p == TL.ln_plan(N, C, getattr(torch, dtype), backward=backward)
+    seen = np.bincount(_walk(p, N), minlength=N)
+    assert seen.shape == (N,) and (seen == 1).all()
+    rpc, ctas = p["rows_per_cta"], p["ctas"]
+    assert (ctas - 1) * rpc < N <= ctas * rpc and rpc % p["rows"] == 0
+    assert p["part"] == ((ctas, 2 * C) if backward else None)
+    if dtype == "float32":
+        assert p["lanes"] == 32 and p["rows"] == 1
+        return
+    L, cpl, chunks = p["lanes"], p["cpl"], C // 8
+    assert L & (L - 1) == 0 and L * p["rows"] == 32 and cpl <= TL._MAX_CPL
+    held = sorted(s + k * L for s in range(L) for k in range(cpl)
+                  if s + k * L < chunks)
+    assert held == list(range(chunks))
+    assert ctas <= TL._blocks_per_sm(cpl) * TL.NUM_SMS
+    if backward:
+        # every CTA in one group of the ordered sum, every group in the
+        # final one, and the counters within the workspace's
+        group = p["group"]
+        n_groups = -(-ctas // group)
+        assert p["gpart"] == (n_groups, 2 * C)
+        assert (n_groups - 1) * group < ctas <= n_groups * group
+        assert 1 + n_groups <= TL._TICKETS
+
+
+def test_ln_plan_step_shapes():
+    """At the flagship's widths each lane holds three chunks, L = C / 24,
+    and TULIP-large's C 1,536 six; widths the bf16 kernels do not take
+    raise, fp32 takes any."""
+    for C, L in ((96, 4), (192, 8), (384, 16), (768, 32)):
+        p = TL.ln_plan(8 * 4096, C, torch.bfloat16)
+        assert (p["lanes"], p["cpl"], p["rows"]) == (L, 3, 32 // L)
+    assert TL.ln_plan(512, 1536, torch.bfloat16)["cpl"] == 6
+    for C in (100, 1544, 2048):
+        with pytest.raises(NotImplementedError):
+            TL.ln_plan(64, C, torch.bfloat16)
+        assert TL.ln_plan(64, C, torch.float32)["kernel"] == "warp"
+
+
+def _replay_bwd(x, w, g, eps, plan):
+    """ln_bwd_reg_kernel's arithmetic in torch, fp32: dx by the closed
+    form, and dw / db summed in the kernel's order: each lane over the rows
+    it visits in order, the warp's row groups by the xor butterfly, the
+    CTA's warps in warp order into one (2, C) partial, the partials of each
+    group of plan["group"] CTAs in CTA order, then the group sums in group
+    order."""
+    N, C = x.shape
+    x32, g32, w32 = wide(x), wide(g), w.float()
+    mean = x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x32 - mean).square().mean(-1, keepdim=True) + eps)
+    xh = (x32 - mean) * rstd
+    t = g32 * w32
+    m1, m2 = t.mean(-1, keepdim=True), (t * xh).mean(-1, keepdim=True)
+    dx = (rstd * (t - m1 - xh * m2)).to(x.dtype)
+    terms = torch.cat([g32 * xh, g32], 1)             # (N, 2C)
+    R, rpc = plan["rows"], plan["rows_per_cta"]
+    parts = []
+    for c in range(plan["ctas"]):
+        r0, r1 = c * rpc, min(N, (c + 1) * rpc)
+        cta = None
+        for wp in range(8):
+            lanes = torch.zeros(R, 2 * C)                 # one per row group
+            for base in range(r0 + wp * R, r1, 8 * R):
+                rows = torch.arange(base, base + R)
+                lanes = lanes + torch.where((rows < r1)[:, None],
+                                            terms[rows.clamp(max=N - 1)], 0.)
+            o = 1
+            while o < R:                                  # xor offsets >= L
+                lanes = lanes + lanes[torch.arange(R) ^ o]
+                o *= 2
+            cta = lanes[0] if cta is None else cta + lanes[0]
+        parts.append(cta)
+    group = plan["group"]
+    sums = []
+    for g0 in range(0, len(parts), group):
+        acc = torch.zeros(2 * C)
+        for part in parts[g0:g0 + group]:
+            acc = acc + part
+        sums.append(acc)
+    acc = torch.zeros(2 * C)
+    for part in sums:
+        acc = acc + part
+    return dx, acc[:C], acc[C:]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,C", [(4099, 96), (2047, 192), (513, 768),
+                                 (1001, 72)])
+def test_bwd_summation_order_matches_plain_and_jax(N, C, dtype):
+    """The replay of the kernel's summation order against
+    layer_norm_bwd_ref (fp32, 1e-5 of max) and the JAX layer_norm_vjp in
+    interpret mode (1e-5 fp32, 2e-2 bf16); two replays give the same
+    bits."""
+    x, w, b, g = _case(N, C, seed=N)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    xt, gt, wt = (torch.from_numpy(x).to(td), torch.from_numpy(g).to(td),
+                  torch.from_numpy(w))
+    plan = TL.ln_plan(N, C, torch.bfloat16, backward=True)
+    assert plan["ctas"] > plan["group"] > 1
+    got = _replay_bwd(xt, wt, gt, EPS, plan)
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip(got, _replay_bwd(xt, wt, gt, EPS, plan)))
+    if dtype == "float32":
+        ref = TL.layer_norm_bwd_ref(xt, wt, gt, EPS)
+        for a, r in zip(got, ref):
+            assert _rel(a.numpy(), r.numpy()) <= 1e-5
+    _, vjp = jax.vjp(lambda x_, w_, b_: layer_norm_vjp(x_, w_, b_, EPS),
+                     jnp.asarray(x).astype(jd), jnp.asarray(w).reshape(1, -1),
+                     jnp.asarray(b).reshape(1, -1))
+    jdx, jdw, jdb = vjp(jnp.asarray(g).astype(jd))
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    tol = TOL[dtype]
+    assert _rel(got[0].float().numpy(), f32(jdx)) <= tol
+    assert _rel(got[1].numpy(), f32(jdw)[0]) <= tol
+    assert _rel(got[2].numpy(), f32(jdb)[0]) <= tol

@@ -73,10 +73,11 @@ SIGNATURES = {
     # dtype, x, g, lnw, lnb, w, dx, y, part, stat, dyp, N, K, O, eps,
     # dy_splits, stream
     "tulip_ln_linear_bwd": [_I] + [_P] * 10 + [_I] * 3 + [_F, _I, _P],
-    # dtype, x, w, b, y, N, C, eps, stream
-    "tulip_ln_fwd": [_I] + [_P] * 4 + [_L, _I, _F, _P],
-    # dtype, x, w, g, dx, part, N, C, rows per block, eps, stream
-    "tulip_ln_bwd": [_I] + [_P] * 5 + [_L, _I, _I, _F, _P],
+    # dtype, x, w, b, y, N, C, lanes, rows per CTA, ctas, eps, stream
+    "tulip_ln_fwd": [_I] + [_P] * 4 + [_L, _I, _I, _L, _I, _F, _P],
+    # dtype, x, w, g, dx, part, gpart, tickets, dwdb, N, C, lanes, rows per
+    # CTA, ctas, CTAs per group, eps, stream
+    "tulip_ln_bwd": [_I] + [_P] * 8 + [_L, _I, _I, _L, _I, _I, _F, _P],
     # dtype, in, out, scratch, R, M, stream
     "tulip_colsum": [_I] + [_P] * 3 + [_L, _I, _P],
     # dtype, A, B, part, T, M, N, tokens per split, stream

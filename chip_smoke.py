@@ -21,10 +21,14 @@ Phases, one line or more each; any failure raises and exits non-zero:
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
    median kernel and plain times from CUDA events.  Then the three chamfer
    kernels (K5, K6, K7; fp32) on 262,144-point clouds of a synthetic DurLAR
-   scan and a perturbed copy, and on a ragged, a uniform and a degenerate
-   cloud: each against its plain version, K5 and K6 against K7 bit for bit
-   (K5 in both directions and over two runs), K5's plan kernels against
-   h2_plan, and the pair shares K5 evaluated and an exact sweep needs.
+   scan and a perturbed copy, and on a ragged, a uniform, a degenerate and
+   two sentinel-padded clouds (sentinels in a and in b): each against its
+   plain version, K5 and K6 against K7 bit for bit (K5 in both directions;
+   both over two runs), K5's plan kernels against h2_plan, K6 under
+   torch.cuda.set_sync_debug_mode("error") (no host synchronisation, no
+   device-to-host copy), and the pair shares K5 and K6 evaluated and an
+   exact sweep needs; then K6 and K5 against K7 bit for bit at small and
+   ragged shapes (chamfer_edge_cases).
 4. main path: a synthetic DurLAR folder read by tulip_tpu_torch.data, TULIP-base
    32x2048 -> 128x2048 with random weights from a seeded generator, bf16
    forwards through apply_model at batches 1, 4 and 8; launches per forward,
@@ -37,9 +41,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
    launch per sample, the results files' schema and finite values; the
    same engine with the plain chamfer (chamfer_impl "xla") and with K7
    ("pallas") must agree; the MC full loop must equal its shortcut; K6
-   through the metric API (chamfer_distance without pad_to); forward and
-   metric ms per sample; K5 checked and timed as in phase 3 on the clouds
-   the metric step gives it (sample 0's gt against the random-weight pred).
+   through the metric API (chamfer_distance without pad_to: two K6
+   launches, ms per call); forward and metric ms per sample; K5 and K6
+   checked and timed as in phase 3 on the clouds the metric step gives K5
+   (sample 0's gt against the random-weight pred).
 7. training: a synthetic DurLAR train split, TULIP-base 32x2048 ->
    128x2048, bf16 over fp32 master weights, batch 8, drop_path_rate 0.1
    drawn from a device generator, AdamW (lr 5e-4, wd 0.01, warmup-cosine
@@ -91,9 +96,11 @@ on the same tensors (the library call: a yardstick, used nowhere in the
 port).  Every case also gets its bound: the larger of its bytes over 3.35
 TB/s and its operations over the H100's peak for the type.  The two
 skipping nearest-neighbour searches (K5, K6) are bound by their bytes; the
-brute-force one (K7) by its N x M pairs.  How many pairs an exact tiled
+brute-force one (K7) by the fp32 issue slots of its N x M pairs (7
+instructions a pair at 33.5e12 a second).  How many pairs an exact tiled
 sweep of the run's clouds cannot skip is printed apart, as the
-"nn_needed_pair_share" line: a diagnostic, no part of a bound.
+"nn_needed_pair_share" line, with K5's and K6's work floors (the needed
+pairs' instructions at that rate): diagnostics, no part of a bound.
 
 Phase 3 also holds the training kernels against their plain versions at
 the train step's shapes (batch 8): K8 (attention core forward) and K9 (its
@@ -193,7 +200,9 @@ MMA_SYNC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_tc_kernel")
 # the bf16 LayerNorm kernels (K14, K15), whose rows must move in 16-byte
 # global loads and stores (LDG.E.128 / STG.E.128 in the SASS)
 WIDE_ACCESS_KERNELS = ("ln_fwd_reg_kernel", "ln_bwd_reg_kernel")
-PAIR_OPS = 8   # operations per point pair of a nearest-neighbour sweep
+# fp32 instructions per point pair of a nearest-neighbour sweep: both
+# directions (K5: 3 sub, mul, 2 fma, 2 min), one direction (K6, K7: one min)
+PAIR_OPS, PAIR_OPS_ONE = 8, 7
 # chamfer kernels against their plain versions: the kernel fuses two FMAs
 # where the plain version rounds each product and sum, <= 2 ulp (1.2e-7
 # relative) of each squared distance; the limit leaves room for that
@@ -233,6 +242,14 @@ def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def issue_bound_ms(nbytes, instructions):
+    """bound_ms for fp32 CUDA-core work counted in instructions (an FMA is
+    one): the larger of bytes over the memory rate and instructions over
+    the fp32 issue rate."""
+    return bound_ms(nbytes, instructions * PEAK_FLOPS["float32"] / FP32_ISSUE,
+                    "float32")
 
 
 def work_msa(T, C, nh, n_mask, e):
@@ -972,7 +989,12 @@ def chamfer_clouds(torch, device):
     """(label, a, b, real rows of b, on_path): a synthetic DurLAR scan and a
     perturbed copy, projected by the port (262,144 points each, the eval
     path's clouds), then clouds the path never gives: a ragged a against a
-    sentinel-padded b, uniform clouds and a degenerate all-equal cloud."""
+    sentinel-padded b, uniform clouds, a degenerate all-equal cloud, and
+    sentinels in a (ragged N) and in b, as the callers' P % chunk branch
+    pads both: on the scan, and on a grid whose tiles that mix real points
+    with sentinels have edges that fp32 rounds by metres at 5e7 m (the
+    plan's infinite extent bounds them by 0; tests/test_torch_chamfer.py:
+    _sentinel_grid)."""
     from tulip_tpu_torch.eval.geometry import img_to_pcd_durlar_torch
     rng = np.random.default_rng(1)
     scan = durlar_scan(rng, 2048)
@@ -989,11 +1011,24 @@ def chamfer_clouds(torch, device):
     uni = torch.from_numpy(rng.uniform(-60, 60, (2, 65536, 3))
                            .astype(np.float32)).to(device)
     same = torch.full((8192, 3), 7.0, device=device)
+    g = (10 + 0.2 * np.arange(15)).astype(np.float32)
+    grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    grid_a = np.concatenate([grid + rng.normal(0, 0.002, grid.shape),
+                             np.full((141, 3), 1e8)]).astype(np.float32)
+    grid_b = np.concatenate([grid, np.full((4096 - grid.shape[0], 3), 1e8,
+                                           np.float32)])
+    pad = lambda x, k: torch.cat([x, torch.full((k, 3), 1e8, device=device)])
     return [(f"scan vs perturbed copy N=M={P}", gt, pred, P, True),
             (f"ragged N={n}, b sentinel-padded to {P}", gt[:n].contiguous(),
              torch.cat([pred[:n], sentinels]), n, False),
             ("uniform N=M=65536", uni[0], uni[1], 65536, False),
-            ("degenerate all-equal N=M=8192", same, same, 8192, False)]
+            ("degenerate all-equal N=M=8192", same, same, 8192, False),
+            (f"sentinels in a (N={P - 337}) and b (M={P})",
+             pad(gt[:P - 1037], 700), pad(pred[:P - 2000], 2000), P - 2000,
+             False),
+            (f"grid with sentinels in a (N={grid_a.shape[0]}) and b (M=4096)",
+             torch.from_numpy(grid_a).to(device),
+             torch.from_numpy(grid_b).to(device), grid.shape[0], False)]
 
 
 def morton_order(torch, p, lo, hi):
@@ -1044,20 +1079,25 @@ def needed_pair_share(torch, a, b, d_a, d_b=None, tile=256, chunk=1024):
     return float(need.float().mean())
 
 
-def k5_pair_shares(torch, label, a, b, ref_a, ref_b):
+def pair_shares(torch, label, a, b, ref_a, ref_b):
     """The "nn_needed_pair_share" line of one cloud pair: the share of all
     point pairs an exact sweep needs over Morton tiles of 256 x 1024 points
-    (the tiling of the earlier K5) and of K5's own 128 x 32, beside the
-    share K5 evaluated in this call (its listed tile pairs per round x 128
-    x 32), and the work floor: the needed pairs at K5's tiling x PAIR_OPS
-    instructions at the fp32 issue rate.  Diagnostics, no part of a
-    bound."""
+    (the tiling of the earlier K5 / K6) and of K5's and K6's own 128 x 32,
+    in both directions (K5) and in one (K6), beside the shares K5 and K6
+    evaluated in this call (their listed tile pairs per round x 128 x 32),
+    and the work floors: the needed pairs at 128 x 32 x PAIR_OPS (K5) or
+    PAIR_OPS_ONE (K6) instructions at the fp32 issue rate.  Diagnostics, no
+    part of a bound."""
     from tulip_tpu_torch.ops import chamfer as C
     C.min_sq_dists_h2(a, b, 1024)
     listed = C.min_sq_dists_h2.last_counts.tolist()[0::2]
+    C.min_sq_dists_h(a, b, 1024)
+    listed6 = C.min_sq_dists_h.last_counts.tolist()[0::2]
     N, M = a.shape[0], b.shape[0]
-    tile_pairs = C.H2_ROWS * C.H2_COLS
+    share = C.H2_ROWS * C.H2_COLS / (N * M)
     need_k5 = needed_pair_share(torch, a, b, ref_a, ref_b, C.H2_ROWS,
+                                C.H2_COLS)
+    need_k6 = needed_pair_share(torch, a, b, ref_a, None, C.H2_ROWS,
                                 C.H2_COLS)
     out = {"clouds": label,
            "one direction (K6), 256 x 1024": needed_pair_share(
@@ -1065,11 +1105,16 @@ def k5_pair_shares(torch, label, a, b, ref_a, ref_b):
            "both directions, 256 x 1024": needed_pair_share(
                torch, a, b, ref_a, ref_b),
            "both directions, K5's 128 x 32": need_k5,
-           "evaluated by K5 (128 x 32)": sum(listed) * tile_pairs / (N * M),
-           "evaluated by K5 per round": [n * tile_pairs / (N * M)
-                                         for n in listed],
+           "evaluated by K5 (128 x 32)": sum(listed) * share,
+           "evaluated by K5 per round": [n * share for n in listed],
            "work floor ms (needed at 128 x 32)": (
                need_k5 * N * M * PAIR_OPS / FP32_ISSUE * 1e3),
+           "one direction, K6's 128 x 32": need_k6,
+           "evaluated by K6 (128 x 32)": sum(listed6) * share,
+           "evaluated by K6 per round": [n * share for n in listed6],
+           "K6 evaluated / needed": sum(listed6) * share / need_k6,
+           "K6 work floor ms (needed at 128 x 32)": (
+               need_k6 * N * M * PAIR_OPS_ONE / FP32_ISSUE * 1e3),
            "tiling": "Morton order, query x target points per tile"}
     print(json.dumps({"nn_needed_pair_share": out}), flush=True)
     return out
@@ -1099,10 +1144,12 @@ def chamfer_rows(torch, device, label, a, b, m_real, on_path, timed=("K7",
     """Table rows of K7, K6, K5 on one cloud pair against their plain
     versions (per element CHAMFER_RTOL |ref| + CHAMFER_ATOL) and K5 / K6
     against K7 bit for bit (torch.equal; K5 in both directions, over the
-    real rows of b); K5 twice for the same bits, and its plan kernels
-    against h2_plan (k5_plan_equal).  On the path, the kernels
-    in `timed` get kernel and plain ms (CUDA events) and their rows; the
-    others are checked and left out of the table."""
+    real rows of b); K5 and K6 twice for the same bits, K5's plan kernels
+    against h2_plan (k5_plan_equal), and one K6 call under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any
+    synchronising call (a device-to-host copy among them).  On the path,
+    the kernels in `timed` get kernel and plain ms (CUDA events) and their
+    rows; the others are checked and left out of the table."""
     from tulip_tpu_torch.ops import chamfer as C
 
     def excess(out, ref):
@@ -1121,7 +1168,13 @@ def chamfer_rows(torch, device, label, a, b, m_real, on_path, timed=("K7",
         torch, lambda: C._min_sq_dists(b, a, 1024))
     k7 = C.min_sq_dists_brute(a, b, c7)
     k7b = C.min_sq_dists_brute(b, a_pad, c7)[:m_real]
-    k6 = C.min_sq_dists_h(a, b, 1024)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k6 = C.min_sq_dists_h(a, b, 1024)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    k6_again = C.min_sq_dists_h(a, b, 1024)
     k5a, k5b = C.min_sq_dists_h2(a, b, 1024)
     again = C.min_sq_dists_h2(a, b, 1024)
     torch.cuda.synchronize()
@@ -1135,8 +1188,10 @@ def chamfer_rows(torch, device, label, a, b, m_real, on_path, timed=("K7",
         "K6": {"plain": excess(k6, ref_a), "K7": excess(k6, k7)},
         "K5": {"plain a->b": excess(k5a, ref_a),
                "plain b->a": excess(k5b, ref_b)}}
-    equal = {"K7": True, "K6": bool(torch.equal(k6, k7)),
-             "K5": all(same.values())}
+    same6 = {"K7": bool(torch.equal(k6, k7)),
+             "run twice": bool(torch.equal(k6_again, k7)),
+             "no host synchronisation": True}
+    equal = {"K7": True, "K6": all(same6.values()), "K5": all(same.values())}
     abs_err = {"K7": float((k7 - ref_a).abs().max()),
                "K6": float((k6 - ref_a).abs().max()),
                "K5": max(float((k5a - ref_a).abs().max()),
@@ -1145,14 +1200,14 @@ def chamfer_rows(torch, device, label, a, b, m_real, on_path, timed=("K7",
     work = {}
     if on_path:
         N, M = a.shape[0], b.shape[0]
-        # bytes: both clouds in, the minima out.  Operations: brute
-        # force is all N x M pairs by definition; the two skipping
-        # searches need at least one pair per minimum they return, so
-        # their bound is the bytes'
-        work = {"K7": ((N + M) * 12 + N * 4, N * M * PAIR_OPS),
-                "K6": ((N + M) * 12 + N * 4, N * PAIR_OPS),
+        # bytes: both clouds in, the minima out.  Instructions: brute
+        # force is all N x M pairs by definition, 7 fp32 instructions
+        # each; the two skipping searches need at least one pair per
+        # minimum they return, so their bound is the bytes'
+        work = {"K7": ((N + M) * 12 + N * 4, N * M * PAIR_OPS_ONE),
+                "K6": ((N + M) * 12 + N * 4, N * PAIR_OPS_ONE),
                 "K5": ((N + M) * 16, (N + M) * PAIR_OPS)}
-        k5_pair_shares(torch, label, a, b, ref_a, ref_b)
+        pair_shares(torch, label, a, b, ref_a, ref_b)
         if "K7" in timed:
             _, plain7 = timed_once(
                 torch, lambda: C.min_sq_dists_plain(a, b, c7))
@@ -1171,15 +1226,17 @@ def chamfer_rows(torch, device, label, a, b, m_real, on_path, timed=("K7",
         r = dict(kernel=kernel, knum=knum, dtype="float32",
                  label=f"{kernel} {knum} fp32 {label}",
                  on_path=on_path and knum in timed, checks=checks[knum],
-                 equal_to_k7=(same if knum == "K5" else equal[knum]),
+                 equal_to_k7={"K5": same, "K6": same6}.get(knum, True),
                  max_abs_err=abs_err[knum], ms=ms, plain_ms=plain_ms,
                  library_ms=None, ok=worst <= 1.0 and equal[knum])
         t = ""
         if ms is not None:
-            r["bytes"], r["flops"] = work[knum]
-            r["bound_ms"], r["bound_by"] = bound_ms(*work[knum], "float32")
+            r["bytes"], r["instructions"] = work[knum]
+            r["bound_ms"], r["bound_by"] = issue_bound_ms(*work[knum])
+            by = ("fp32 issue slots" if r["bound_by"] == "operations"
+                  else r["bound_by"])
             t = (f" kernel {ms:.3f} ms plain {plain_ms:.1f} ms bound "
-                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                 f"{r['bound_ms']:.4f} ms ({by})")
         print(f"kernel {'ok ' if r['ok'] else 'BAD'} {r['label']}: "
               f"excess over {CHAMFER_RTOL:.0e}|ref|+{CHAMFER_ATOL:.0e} "
               f"(limit 1) {checks[knum]}, bit-equal {r['equal_to_k7']}, "
@@ -1189,11 +1246,57 @@ def chamfer_rows(torch, device, label, a, b, m_real, on_path, timed=("K7",
     return rows
 
 
+def chamfer_edge_cases(torch, device):
+    """K6 and K5 (a -> b) against K7 bit for bit at the shapes where tiles
+    are ragged or few: N of 1, 127, 129 and 3,001 query points (one tile,
+    a short last tile), M of 32, 512 and 4,096 targets in chunks of 32 or
+    512 (the callers' chunk when P < 1,024), uniform, clustered and
+    all-equal clouds, with no sentinels, 1e8 sentinels in b's last third,
+    or in a's and b's.  Raises on any difference."""
+    import itertools
+    from tulip_tpu_torch.ops import chamfer as C
+    rng = np.random.default_rng(11)
+    centers = rng.uniform(-50, 50, (4, 3))
+
+    def cloud(k, kind):
+        if kind == "uniform":
+            return rng.uniform(-60, 60, (k, 3)).astype(np.float32)
+        if kind == "clustered":
+            return (centers[rng.integers(0, 4, k)]
+                    + rng.normal(0, 1.5, (k, 3))).astype(np.float32)
+        return np.full((k, 3), 7.0, np.float32)
+
+    bad, n = [], 0
+    for N, M, chunk, kind, sent in itertools.product(
+            (1, 127, 129, 3001), (32, 512, 4096), (32, 512),
+            ("uniform", "clustered", "equal"), ("none", "b", "a and b")):
+        if M % chunk:
+            continue
+        a, b = cloud(N, kind), cloud(M, kind)
+        if sent != "none":
+            b[M - M // 3:] = 1e8
+        if sent == "a and b":
+            a[N - N // 3:] = 1e8
+        ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+        k7 = C.min_sq_dists_brute(ta, tb, chunk)
+        if not (torch.equal(C.min_sq_dists_h(ta, tb, chunk), k7)
+                and torch.equal(C.min_sq_dists_h2(ta, tb, chunk)[0], k7)):
+            bad.append((N, M, chunk, kind, sent))
+        n += 1
+    print(f"chamfer edge cases: K6 and K5 equal to K7 bit for bit in "
+          f"{n - len(bad)} of {n} (N 1-3,001, M 32-4,096, chunk 32 / 512, "
+          f"sentinels in none, b, a and b)", flush=True)
+    if bad:
+        raise SystemExit(f"K5 / K6 differ from K7 at {bad}")
+
+
 def chamfer_checks(torch, device):
-    """Table rows of K5, K6, K7 on chamfer_clouds (chamfer_rows)."""
+    """Table rows of K5, K6, K7 on chamfer_clouds (chamfer_rows), then
+    chamfer_edge_cases."""
     rows = []
     for label, a, b, m_real, on_path in chamfer_clouds(torch, device):
         rows += chamfer_rows(torch, device, label, a, b, m_real, on_path)
+    chamfer_edge_cases(torch, device)
     return rows
 
 
@@ -1406,27 +1509,32 @@ def run_eval_phase(torch, dev, data_root, model16, model32):
         cd5 = float(dm["stats"][1])
         if abs(cd - cd5) > 1e-5 * abs(cd5):
             raise SystemExit(f"chamfer_distance {cd} (K6) vs {cd5} (K5)")
+        cd_ms = cuda_ms(torch, lambda: chamfer_distance(pcd_gt, pcd_pred),
+                        iters=10, warmup=2)
         print(f"eval chamfer_distance (K6 x2) {cd:.6f} vs the K5 stats "
-              f"{cd5:.6f}", flush=True)
-        ms = dict(forward_fp32=cuda_ms(torch, lambda: fwd32(low, high),
+              f"{cd5:.6f}; {cd_ms:.4f} ms per call (CUDA events, median of "
+              f"10: two K6 launches, the padding, the means and the read)",
+              flush=True)
+        ms = dict(chamfer_distance=cd_ms,
+                  forward_fp32=cuda_ms(torch, lambda: fwd32(low, high),
                                        iters=5, warmup=1),
                   forward_bf16=cuda_ms(torch, lambda: fwd16(low, high),
                                        iters=5, warmup=1),
                   metrics_k5=cuda_ms(torch, lambda: metrics_fn(*outs[:3]),
                                      iters=5, warmup=1))
-        # K5 on the clouds the metric step hands it (sample 0): a timed case
-        # of the path beside phase 3's perturbed copy
+        # K5 and K6 on the clouds the metric step hands K5 (sample 0):
+        # timed cases of the path beside phase 3's perturbed copy
         rows = chamfer_rows(
             torch, dev, f"eval path: sample 0 gt vs random-weight pred "
             f"N=M={pcd_gt.shape[0]}", pcd_gt, pcd_pred, pcd_gt.shape[0],
-            True, timed=("K5",))
+            True, timed=("K5", "K6"))
     print(f"eval ms per sample (CUDA events, median of 5): forward fp32 "
           f"{ms['forward_fp32']:.2f}, forward bf16 {ms['forward_bf16']:.2f},"
           f" metrics with K5 {ms['metrics_k5']:.2f}", flush=True)
     bad = [r["label"] for r in rows if not r["ok"]]
     if bad:
-        raise SystemExit(f"K5 on the eval clouds: {bad}")
-    report.update(launches=total, ms_per_sample=ms, k5_rows=rows)
+        raise SystemExit(f"K5 / K6 on the eval clouds: {bad}")
+    report.update(launches=total, ms_per_sample=ms, nn_rows=rows)
     return report
 
 
@@ -1900,7 +2008,7 @@ def profile_paths(torch, dev, tree):
     per iteration of every kernel name above 0.5 % (the port's kernels by
     their C++ names, the rest by PyTorch's; the attention half-block's
     kernels whatever their share) and the sums by PROFILE_CLASSES, then
-    profile_attn, k3_plan_ab, profile_k5 and profile_ln.  Also written to
+    profile_attn, k3_plan_ab, profile_nn and profile_ln.  Also written to
     chiprun_out/profile.json, or with --tree DIR (the package at DIR) to
     chiprun_out/profile_<DIR's name>.json.  No check, no kernel table: the
     default run does those."""
@@ -1987,7 +2095,7 @@ def profile_paths(torch, dev, tree):
     torch.cuda.empty_cache()
     report["attn"] = profile_attn(torch, dev)
     report["k3_plan"] = k3_plan_ab(torch, dev)
-    report["k5"] = profile_k5(torch, dev)
+    report["nn"] = profile_nn(torch, dev, data_root, weights)
     report["ln"] = profile_ln(torch, dev)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2004,6 +2112,12 @@ K5_CLASSES = {"nn2_box": "plan glue", "nn2_morton": "plan glue",
               "nn2_gather": "plan glue", "nn2_bound": "plan glue",
               "nn2_first_pass": "first pass", "nn2_ub": "first pass",
               "nn2_list": "compaction", "nn2_sweep": "sweep",
+              "nn2_unsort": "unsort"}
+# K6's (the same kernels in one direction; the first cut's h_kernel is its
+# sweep, its torch glue its plan); PyTorch's kernels are plan
+K6_CLASSES = {"nn2_bound": "bound", "nn2_list": "lists",
+              "nn2_first_pass": "first pass", "nn2_ub": "first pass",
+              "nn2_sweep": "sweep", "h_kernel": "sweep",
               "nn2_unsort": "unsort"}
 
 
@@ -2109,44 +2223,87 @@ def profile_ln(torch, dev):
     return dict(rows=rows, per_step_us=step)
 
 
-def profile_k5(torch, dev):
-    """K5 on phase 3's scan and perturbed copy and on a cloud pair far
+def eval_clouds(torch, dev, data_root, weights):
+    """Phase 6's clouds: sample 0's gated gt against the fp32 random-weight
+    pred, projected as the metric step projects them; also the metric step
+    and the forward's outputs it takes."""
+    from tulip_tpu_torch.eval import engine as E
+    from tulip_tpu_torch.eval.geometry import img_to_pcd_durlar_torch
+    from tulip_tpu_torch.models.tulip import tulip_base
+    model32 = tulip_base(**FLAGSHIP)
+    model32.load_state_dict(weights, strict=True)
+    model32 = model32.to(dev)
+    low, high = load_batches(data_root, 1, 2048)[0]
+    fwd = E._make_eval_forward(model32, "durlar", True, E._GATES,
+                               torch.float32)
+    metrics_fn = E._make_device_metrics("durlar", eval_args(os.path.join(
+        REPO, "build", "chip_smoke_eval")), mc=False)
+    with torch.no_grad():
+        outs = fwd(torch.from_numpy(low["sample"]).to(dev),
+                   torch.from_numpy(high["sample"]).to(dev))
+        dm = metrics_fn(*outs[:3])
+        gt = img_to_pcd_durlar_torch(dm["high_gated"])
+        pred = img_to_pcd_durlar_torch(dm["pred_inj"])
+    return gt, pred, metrics_fn, outs
+
+
+def profile_nn(torch, dev, data_root, weights):
+    """K5 and K6 on phase 3's scan and perturbed copy, on a cloud pair far
     apart (the scan against the scan scaled by 0.7, as a poor prediction
-    is), by torch.profiler: device ms per call (mean of 5) by kernel name
-    and by class: plan glue (codes, the argsort, sorted clouds and boxes,
-    the bound kernel), first pass (round 0's sweep and the upper-bound
-    kernels), compaction (the list kernels), sweep (rounds 1-3), unsort."""
+    is) and on phase 6's eval clouds, by torch.profiler: device ms per call
+    (mean of 5) by kernel name and by class.  K5: plan glue (codes, the
+    argsort, sorted clouds and boxes, the bound kernel), first pass (round
+    0's sweep and the upper-bound kernels), compaction (the list kernels),
+    sweep (rounds 1-3), unsort.  K6: plan (codes, the argsort, sorted
+    clouds and boxes), bound, lists, first pass, sweep, unsort.  Also the
+    per-round pair counts (where the wrapper keeps them) and the
+    device-to-host copies a call makes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from tulip_tpu_torch.ops import chamfer as C
     label, a, b, _, _ = chamfer_clouds(torch, dev)[0]
+    gt, pred, _, _ = eval_clouds(torch, dev, data_root, weights)
     out = {}
-    for name, x, y in ((label, a, b), ("scan vs the scan x 0.7", a, a * 0.7)):
-        for _ in range(2):
-            C.min_sq_dists_h2(x, y, 1024)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                C.min_sq_dists_h2(x, y, 1024)
+    for name, x, y in ((label, a, b), ("scan vs the scan x 0.7", a, a * 0.7),
+                       (f"eval clouds N=M={gt.shape[0]}", gt, pred)):
+        for knum, fn, table, names in (
+                ("K5", C.min_sq_dists_h2, K5_CLASSES,
+                 ["plan glue", "first pass", "compaction", "sweep",
+                  "unsort"]),
+                ("K6", C.min_sq_dists_h, K6_CLASSES,
+                 ["plan", "bound", "lists", "first pass", "sweep",
+                  "unsort"])):
+            for _ in range(2):
+                fn(x, y, 1024)
             torch.cuda.synchronize()
-        kernels = {e.key: e.self_device_time_total / 5 / 1e3
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.is_user_annotation
-                   and e.self_device_time_total > 0}
-        classes = dict.fromkeys(["plan glue", "first pass", "compaction",
-                                 "sweep", "unsort"], 0.0)
-        for key, ms in kernels.items():
-            classes[next((c for sub, c in K5_CLASSES.items() if sub in key),
-                         "plan glue")] += ms
-        total = sum(kernels.values())
-        print(f"profile K5 {name}: device {total:.4f} ms per call; by class "
-              f"{ {c: round(ms, 4) for c, ms in classes.items()} }",
-              flush=True)
-        for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1]):
-            print(f"  {ms:8.4f} ms {key[:100]}", flush=True)
-        out[name] = dict(device_ms=total, classes=classes, kernels=kernels)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn(x, y, 1024)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation
+                      and e.self_device_time_total > 0]
+            kernels = {e.key: e.self_device_time_total / 5 / 1e3
+                       for e in events}
+            dtoh = sum(e.count for e in events if "DtoH" in e.key) / 5
+            classes = dict.fromkeys(names, 0.0)
+            for key, ms in kernels.items():
+                classes[next((c for sub, c in table.items() if sub in key),
+                             names[0])] += ms
+            total = sum(kernels.values())
+            counts = getattr(fn, "last_counts", None)
+            counts = None if counts is None else counts.tolist()[0::2]
+            print(f"profile {knum} {name}: device {total:.4f} ms per call; "
+                  f"by class { {c: round(ms, 4) for c, ms in classes.items()} }"
+                  f"; pairs listed per round {counts}; device-to-host "
+                  f"copies per call {dtoh:g}", flush=True)
+            for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1]):
+                print(f"  {ms:8.4f} ms {key[:100]}", flush=True)
+            out[f"{knum} {name}"] = dict(device_ms=total, classes=classes,
+                                         kernels=kernels, listed=counts,
+                                         dtoh_per_call=dtoh)
     return out
 
 
@@ -2180,8 +2337,8 @@ def k3_plan_ab(torch, dev):
 def time_paths(torch, dev, tree):
     """``python3 chip_smoke.py --paths [--tree DIR]``: the wall ms of the
     bf16 inference forward at batch 1, 4 and 8 (median and least of 40
-    synchronised forwards, twice over), K5 and the eval metric step
-    (time_paths_k5) and the bf16 batch-8 train step (timed_steps, twice),
+    synchronised forwards, twice over), K5, K6 and the eval metric step
+    (time_paths_nn) and the bf16 batch-8 train step (timed_steps, twice),
     at the flagship size, for the package of this
     checkout or of the checkout at DIR.  Two commits are compared inside
     one call, on one card and one host, in the order parent, change,
@@ -2215,7 +2372,7 @@ def time_paths(torch, dev, tree):
                   f"ms = {bs / med:.2f} img/s (min {min(times) * 1e3:.3f} "
                   f"ms)", flush=True)
     del model
-    time_paths_k5(torch, dev, tree, data_root, weights)
+    time_paths_nn(torch, dev, tree, data_root, weights)
     batches = load_batches(data_root, TRAIN_BATCH, 2048, split="train")
     for _ in range(2):
         ms = timed_steps(torch, dev, weights, batches, 14, False)
@@ -2224,38 +2381,28 @@ def time_paths(torch, dev, tree):
     return 0
 
 
-def time_paths_k5(torch, dev, tree, data_root, weights):
-    """Part of --paths: K5 (min_sq_dists_h2) on phase 3's scan and
-    perturbed copy and on phase 6's clouds (sample 0's gt against the fp32
-    random-weight pred), and phase 6's metric step on the same sample
-    (median of 10 by CUDA events, twice over)."""
-    from tulip_tpu_torch.eval import engine as E
-    from tulip_tpu_torch.eval.geometry import img_to_pcd_durlar_torch
-    from tulip_tpu_torch.models.tulip import tulip_base
+def time_paths_nn(torch, dev, tree, data_root, weights):
+    """Part of --paths: K5 (min_sq_dists_h2) and K6 (min_sq_dists_h) on
+    phase 3's scan and perturbed copy and on phase 6's clouds (sample 0's
+    gt against the fp32 random-weight pred), and phase 6's metric step on
+    the same sample (median of 10 by CUDA events, twice over)."""
     from tulip_tpu_torch.ops import chamfer as C
     _, a, b, _, _ = chamfer_clouds(torch, dev)[0]
-    model32 = tulip_base(**FLAGSHIP)
-    model32.load_state_dict(weights, strict=True)
-    model32 = model32.to(dev)
-    low, high = load_batches(data_root, 1, 2048)[0]
-    fwd = E._make_eval_forward(model32, "durlar", True, E._GATES,
-                               torch.float32)
-    metrics_fn = E._make_device_metrics("durlar", eval_args(os.path.join(
-        REPO, "build", "chip_smoke_eval")), mc=False)
+    gt, pred, metrics_fn, outs = eval_clouds(torch, dev, data_root, weights)
     with torch.no_grad():
-        outs = fwd(torch.from_numpy(low["sample"]).to(dev),
-                   torch.from_numpy(high["sample"]).to(dev))
-        dm = metrics_fn(*outs[:3])
-        gt = img_to_pcd_durlar_torch(dm["high_gated"])
-        pred = img_to_pcd_durlar_torch(dm["pred_inj"])
         for _ in range(2):
-            ms = [cuda_ms(torch, lambda: C.min_sq_dists_h2(x, y, 1024),
-                          iters=10, warmup=2) for x, y in ((a, b), (gt, pred))]
+            ms = {(k, c): cuda_ms(torch, lambda: fn(x, y, 1024), iters=10,
+                                  warmup=2)
+                  for k, fn in (("K5", C.min_sq_dists_h2),
+                                ("K6", C.min_sq_dists_h))
+                  for c, x, y in (("scan vs perturbed copy", a, b),
+                                  ("eval clouds", gt, pred))}
             step = cuda_ms(torch, lambda: metrics_fn(*outs[:3]), iters=10,
                            warmup=2)
-            print(f"paths {tree}: K5 scan vs perturbed copy {ms[0]:.4f} ms, "
-                  f"K5 eval clouds {ms[1]:.4f} ms, eval metric step "
-                  f"{step:.4f} ms", flush=True)
+            print(f"paths {tree}: "
+                  + ", ".join(f"{k} {c} {v:.4f} ms" for (k, c), v in
+                              ms.items())
+                  + f", eval metric step {step:.4f} ms", flush=True)
 
 
 def main() -> int:
@@ -2414,7 +2561,7 @@ def main() -> int:
 
     # -- 6. eval -----------------------------------------------------------
     eval_report = run_eval_phase(torch, dev, data_root, model, model32)
-    table += eval_report.pop("k5_rows")
+    table += eval_report.pop("nn_rows")
 
     # -- 7. training -------------------------------------------------------
     del model, model32, cpu_model

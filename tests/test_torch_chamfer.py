@@ -1,8 +1,9 @@
 """The port's nearest-neighbour sweeps (tulip_tpu_torch.ops.chamfer) against
 the JAX package's K7 / K6 / K5 (Pallas, interpret mode on the CPU) and a
-numpy brute force, the K5 / K6 tables against JAX's, K6's skip rule and
-K5's rounds of tile pairs replayed in torch (bit for bit against the plain
-minima: the same direct-form distances and an exact minimum).
+numpy brute force, the plan's tables against JAX's, and the rounds of tile
+pairs of K5 (both directions) and K6 (one) replayed in torch (bit for bit
+against the plain minima: the same direct-form distances and an exact
+minimum).
 
 Tolerances: against numpy (the same direct-form fp32 distances) 1e-6
 relative + 1e-6 m^2 (summation order of three terms); against JAX rtol 1e-4
@@ -63,6 +64,21 @@ def _cases():
 CASES = _cases()
 
 
+def _sentinel_grid():
+    """Sentinels in a (ragged N) and in b around a grid near the joint box's
+    last Morton corner: the tiles that mix real points with sentinels have
+    edges that fp32 rounds by metres at 5e7 m (without h2_boxes' infinite
+    extent K5's rounds miss 32 minima in each direction here)."""
+    rng = np.random.default_rng(3)
+    g = (10 + 0.2 * np.arange(15)).astype(np.float32)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    a = np.concatenate([pts + rng.normal(0, 0.002, pts.shape)
+                        .astype(np.float32),
+                        np.full((141, 3), 1e8, np.float32)])
+    b = np.concatenate([pts, np.full((17, 3), 1e8, np.float32)])
+    return a, b, pts.shape[0]
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_matches_numpy_and_jax_brute(name):
     a, b, m_real = CASES[name]
@@ -117,12 +133,6 @@ def test_tables_match_jax():
         jc, jh = JH._tile_boxes(jnp.asarray(sorted_pts), tile)
         np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
         np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
-        s, r = C._tile_bounds(torch.from_numpy(sorted_pts), tile)
-        js, jr = JH._tile_bounds(jnp.asarray(sorted_pts), tile)
-        # a mean in two libraries: summation order only
-        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6,
-                                   atol=1e-5)
-        np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=1e-5)
     _, _, a_s, b_s, lb_sorted, order = C.plan(ta, tb, 512, tile=1024)
     ca, ha = JH._tile_boxes(jnp.asarray(a_s.numpy()), 1024)
     cb, hb = JH._tile_boxes(jnp.asarray(b_s.numpy()), 512)
@@ -136,50 +146,37 @@ def test_tables_match_jax():
     np.testing.assert_array_equal(order.numpy(), jorder)
 
 
-def _replay(a, b, chunk, tile):
-    """K6's walk over its plan, in order on the CPU: stop at the first chunk
-    whose bound reaches the tile's worst minimum.  Returns (d_a, chunks
-    visited, chunks in all)."""
-    pa, _, a_s, b_s, lb_sorted, order = C.plan(a, b, chunk, tile=tile,
-                                               bounds="sphere")
-    N = a.shape[0]
-    da = torch.full((N,), 1e30)
-    visits = 0
-    for i in range(lb_sorted.shape[0]):
-        rows = slice(i * tile, min((i + 1) * tile, N))
-        for k in range(lb_sorted.shape[1]):
-            cols = slice(int(order[i, k]) * chunk, (int(order[i, k]) + 1)
-                         * chunk)
-            if k > 0 and lb_sorted[i, k] >= da[rows].max():
-                break
-            d = C.min_sq_dists_plain(a_s[rows], b_s[cols], chunk)
-            da[rows] = torch.minimum(da[rows], d)
-            visits += 1
-    return C._unsort(da, pa), visits, lb_sorted.numel()
+def _unsort(d_sorted, perm):
+    """Scatter sorted-order values back to the caller's point order."""
+    out = torch.empty_like(d_sorted)
+    out[perm] = d_sorted
+    return out
 
 
 def _sweep_pairs(sel, a_s, b_s, da, db):
-    """The plain minima of every listed tile pair, folded into da / db."""
+    """The plain minima of every listed tile pair, folded into da and, in
+    both directions (db not None), db."""
     N, R, K = a_s.shape[0], C.H2_ROWS, C.H2_COLS
     for i, j in sel.nonzero().tolist():
         rows = slice(i * R, min((i + 1) * R, N))
         cols = slice(j * K, (j + 1) * K)
         da[rows] = torch.minimum(da[rows],
                                  C._min_sq_dists(a_s[rows], b_s[cols], K))
-        db[cols] = torch.minimum(db[cols],
-                                 C._min_sq_dists(b_s[cols], a_s[rows], R))
+        if db is not None:
+            db[cols] = torch.minimum(db[cols],
+                                     C._min_sq_dists(b_s[cols], a_s[rows], R))
 
 
-def _replay_h2(a, b):
-    """K5's rounds on the CPU: the first pairs, then for each fraction the
-    upper bounds from the minima so far and the pairs they list.  Returns
-    (d_a, d_b, pairs per round, the union of the rounds, the bound table,
-    the Morton orders)."""
+def _replay_h2(a, b, both=True):
+    """The rounds of K5 (``both``) or K6 on the CPU: the first pairs, then
+    for each fraction the upper bounds from the minima so far and the pairs
+    they list.  Returns (d_a, d_b (None for K6), pairs per round, the union
+    of the rounds, the bound table, the Morton orders)."""
     pa, pb, a_s, b_s, (ca, ha), (cb, hb) = C.h2_plan(a, b)
     lb = C.box_lb_table(ca, ha, cb, hb)
     da = torch.full((a.shape[0],), 1e30)
-    db = torch.full((b.shape[0],), 1e30)
-    done = C.h2_first_pairs(lb)
+    db = torch.full((b.shape[0],), 1e30) if both else None
+    done = C.h2_first_pairs(lb, both)
     counts = [int(done.sum())]
     _sweep_pairs(done, a_s, b_s, da, db)
     for frac in C.H2_FRACS:
@@ -187,7 +184,8 @@ def _replay_h2(a, b):
         _sweep_pairs(sel, a_s, b_s, da, db)
         done |= sel
         counts.append(int(sel.sum()))
-    return C._unsort(da, pa), C._unsort(db, pb), counts, done, lb, (pa, pb)
+    return (_unsort(da, pa), None if db is None else _unsort(db, pb),
+            counts, done, lb, (pa, pb))
 
 
 def _skip_cloud():
@@ -201,19 +199,17 @@ def _skip_cloud():
 
 @pytest.mark.parametrize("pair", [False, True])
 def test_skip_rule_is_exact(pair):
-    """K6 (pair False): replaying its tables with its early stop gives the
-    brute minima and skips work (small tiles, so that this size has tile
-    pairs to skip; the rule does not depend on them).  K5 (pair True): the
-    rounds of first pairs and upper bounds give the plain minima exactly in
-    both directions (ragged N = 3000 against a b padded with sentinels) and
-    leave pairs out."""
+    """The rounds of first pairs and upper bounds (ragged N = 3000 against a
+    b padded with sentinels) give the plain minima exactly and leave pairs
+    out: K6 (pair False) in one direction, K5 (pair True) in both."""
     a, b, m_real = _skip_cloud()
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     ref_a, ref_b = _brute(a, b[:m_real])
     if not pair:
-        d_a, visits, total = _replay(ta, tb, 256, 128)
+        d_a, _, counts, done, _, _ = _replay_h2(ta, tb, both=False)
+        assert torch.equal(d_a, C.min_sq_dists_plain(ta, tb, 32))
         np.testing.assert_allclose(d_a.numpy(), ref_a, rtol=1e-6, atol=1e-6)
-        assert visits < total
+        assert sum(counts) == int(done.sum()) < done.numel()
         return
     d_a, d_b, counts, done, _, _ = _replay_h2(ta, tb)
     assert torch.equal(d_a, C.min_sq_dists_plain(ta, tb, 32))
@@ -253,6 +249,49 @@ def test_h2_lists_less_than_all_pairs_on_a_scan():
     assert int(need.sum()) <= int(done.sum()) < done.numel() // 2
 
 
+ONE_WAY_CASES = dict(CASES, **{"skip-cloud": _skip_cloud(),
+                                "sentinels-both-ragged": _sentinel_grid()})
+
+
+@pytest.mark.parametrize("name", sorted(ONE_WAY_CASES))
+def test_h1_rounds_are_exact_and_cover_the_needed_pairs(name):
+    """K6's rounds on every cloud (and on sentinels in a and in b with a
+    ragged N): the plain minima bit for bit, no pair listed twice, every
+    tile pair that the true minima need (its bound at or below the worst
+    true minimum of its query tile) listed, and no more pairs than K5's
+    rounds list for both directions."""
+    a, b, _ = ONE_WAY_CASES[name]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    d_a, d_b, counts, done, lb, (pa, _) = _replay_h2(ta, tb, both=False)
+    ref_a = C.min_sq_dists_plain(ta, tb, 32)
+    assert d_b is None and torch.equal(d_a, ref_a)
+    assert sum(counts) == int(done.sum())
+    ub_a, _ = C.h2_upper_bounds(ref_a[pa])
+    assert not ((lb <= ub_a[:, None]) & ~done).any()
+    assert sum(counts) <= sum(_replay_h2(ta, tb)[2])
+
+
+def test_mixed_sentinel_tiles_get_a_zero_bound():
+    """The tiles that mix real points with sentinels get an infinite
+    half-extent, and with it K5's rounds give the plain minima in both
+    directions where the plain boxes' rounded edges hid 32 minima a side."""
+    a, b, _ = _sentinel_grid()
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    _, _, a_s, b_s, (ca, ha), (cb, hb) = C.h2_plan(ta, tb)
+    for pts, c, h, tile in ((a_s, ca, ha, C.H2_ROWS),
+                            (b_s, cb, hb, C.H2_COLS)):
+        real = (pts.abs() < 1e7).all(1)
+        real = torch.cat([real, real[-1:].expand((-pts.shape[0]) % tile)])
+        n_real = real.reshape(-1, tile).sum(1)
+        mixed = (n_real > 0) & (n_real < tile)
+        assert int(mixed.sum()) == 1
+        assert torch.isinf(h[mixed]).all() and torch.isfinite(h[~mixed]).all()
+        assert torch.equal(c, C._tile_boxes(pts, tile)[0])
+    d_a, d_b, _, _, _, _ = _replay_h2(ta, tb)
+    assert torch.equal(d_a, C.min_sq_dists_plain(ta, tb, 32))
+    assert torch.equal(d_b, C._min_sq_dists(tb, ta, 100))
+
+
 def test_h2_tables_match_jax():
     """K5's tile boxes at its own sizes (128 queries, 32 targets) equal
     JH._tile_boxes, and its bound table the JAX formula of
@@ -286,6 +325,8 @@ def test_h2_sizes():
         2 ** 14, 2 ** 17 - 1, 2 ** 12)
     with pytest.raises(ValueError, match="K5 takes"):
         C.h2_sizes(2 ** 22, 2 ** 21)
+    with pytest.raises(ValueError, match="K6 takes"):
+        C.h2_sizes(2 ** 22, 2 ** 21, "K6")
 
 
 def test_h2_s_threshold():
@@ -371,6 +412,36 @@ def test_h2_threshold_tests_select_the_rounds_pairs(name):
                     ).any()
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_h1_threshold_tests_select_the_rounds_pairs(name):
+    """K6's kernels' form of its rules: round 0 as squared gap < the
+    threshold of the float above the row's smallest bound, a later round as
+    squared gap < the threshold of frac x ub_a alone; they select exactly
+    the pairs of h2_first_pairs / h2_round_pairs in one direction, and the
+    list kernel's word test (smallest s of 32 target tiles < the row's
+    threshold) passes over none of them."""
+    a, b, _ = CASES[name]
+    _, _, a_s, b_s, (ca, ha), (cb, hb) = C.h2_plan(torch.from_numpy(a),
+                                                  torch.from_numpy(b))
+    s = C.box_gap2_table(ca, ha, cb, hb)
+    lb = C._lb_of(s)
+    inf = torch.tensor(float("inf"))
+    first = s < C.h2_s_threshold(torch.nextafter(lb.amin(1), inf))[:, None]
+    assert torch.equal(first, C.h2_first_pairs(lb, both=False))
+    ub_a, ub_b = C.h2_upper_bounds(C.min_sq_dists_plain(a_s, b_s, 32) * 4)
+    assert ub_b is None
+    pad = (-s.shape[1]) % 32
+    smin = torch.nn.functional.pad(s, (0, pad), value=float("inf")).reshape(
+        s.shape[0], -1, 32).amin(2)
+    for frac in C.H2_FRACS:
+        thr_a = C.h2_s_threshold(frac * ub_a)
+        later = (s < thr_a[:, None]) & ~first
+        assert torch.equal(later, C.h2_round_pairs(lb, ub_a, None, frac,
+                                                   first))
+        keep = (smin < thr_a[:, None]).repeat_interleave(32, 1)
+        assert not (later & ~keep[:, :s.shape[1]]).any()
+
+
 def test_h2_one_argsort_orders_both_clouds():
     """The device plan sorts a's codes and b's codes tagged with bit 30 in
     one stable argsort: its two halves are _morton_order's two orders."""
@@ -402,6 +473,21 @@ def test_h2_buffers():
                          list=Ti * Tj)
     assert buf["list"].dtype == torch.int32
     assert buf["thr"].dtype == torch.float32
+
+
+def test_h1_buffers():
+    """K6's scratch: K5's without the column thresholds, the word maxima
+    and the column minima; the list still one int per tile pair."""
+    N, M = 262144, 262144
+    buf = C._h2_buffers(N, M, "meta", both=False)
+    Ti, Tj, W = C.h2_sizes(N, M)
+    sizes = {k: v.numel() for k, v in buf.items()}
+    assert sizes == dict(partial=6 * 264, boxes=6 * (Ti + Tj), thr=Ti,
+                         smin=Ti * W, a_s=3 * N, b_s=3 * M, sa=N,
+                         codes=N + M, counts=8, done=Ti * W, list=Ti * Tj)
+    assert buf["list"].dtype == torch.int32 and buf["sa"].dtype == torch.float32
+    with pytest.raises(ValueError, match="K6 takes"):
+        C._h2_buffers(2 ** 22, 2 ** 21, "meta", both=False)
 
 
 def test_h2_reduce_scatter_lane_map():

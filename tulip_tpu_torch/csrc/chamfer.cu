@@ -2,36 +2,31 @@
 //
 // tulip_nn_brute replaces tulip_tpu/ops/pallas/chamfer.py:_kernel (K7):
 //   out[i] = min_j |a_i - b_j|^2 over every target point.
-// tulip_nn_h replaces tulip_tpu/ops/pallas/chamfer_h.py:_kernel_h (K6): the
-//   same minimum over Morton-sorted clouds, visiting target chunks in
-//   ascending lower-bound order and stopping at the first chunk whose bound
-//   cannot beat the tile's worst current minimum.
 // tulip_nn_h2 replaces chamfer_h.py:_kernel_h2 (K5): both directions, over
 //   a list of tile pairs built on the device in rounds of tighter bounds,
 //   swept by a persistent grid (section "K5" below).
+// tulip_nn_h1 replaces chamfer_h.py:_kernel_h (K6): K7's minimum, exact, as
+//   the one-direction mode of K5's machinery (the same plan; rows only in
+//   the bounds, the rounds and the sweep).
 //
 // Numerics: the direct form dx*dx + dy*dy + dz*dz in fp32 (sq_dist below).
 // It cannot go negative and does not cancel, unlike the TPU's augmented
 // |b|^2 - 2a.b + |a|^2 contraction, which loses ~1e-3 m^2 per pair at 120 m.
 // All three kernels use the same sq_dist, so K5 and K6 return K7's values.
 //
-// Bound on the H100: compute.  Brute force at 262,144 x 262,144 points is
-// 6.9e10 pairs of 7 fp32 instructions (3 sub, mul, 2 fma, min), ~14 ms of
-// the card's fp32 issue rate; the inputs are 3 MB each and stay in L2.
-// Design: one block of 128 threads per 512-query tile (each thread keeps 4
-// queries and their running minima in registers: 512 blocks at 262k points,
-// ~3.9 per SM); the block stages one target chunk at a time in shared memory
-// as three coordinate arrays that every thread reads by broadcast.  K6
-// adds the TPU kernel's exact tile skipping over the pairs of two scans of
-// one scene; K5 (section below) has a design of its own.  Tensor cores are
-// not used: the fp32 minimum of a 3-term sum is CUDA-core work.  Measured
-// on an H100 80GB HBM3 at 700 W, a synthetic DurLAR scan against a
-// perturbed copy (262,144 points each): K7 20.9 ms per direction, K6 14.4
-// ms per direction.
+// K7's bound on the H100: the fp32 issue rate.  Brute force at 262,144 x
+// 262,144 points is 6.9e10 pairs of 7 fp32 instructions (3 sub, mul, 2 fma,
+// min): 14.36 ms at 33.5e12 instructions/s; the inputs are 3 MB each and
+// stay in L2.  Design: one block of 128 threads per 512-query tile (each
+// thread keeps 4 queries and their running minima in registers: 512 blocks
+// at 262k points, ~3.9 per SM); the block stages one target chunk at a time
+// in shared memory as three coordinate arrays that every thread reads by
+// broadcast.  Tensor cores are not used: the fp32 minimum of a 3-term sum is
+// CUDA-core work.  Measured on an H100 80GB HBM3 at 700 W, a synthetic
+// DurLAR scan against a perturbed copy (262,144 points each): 20.9 ms.
 //
-// Ragged query counts are masked in the kernels: a query row >= N sits at
-// +inf (its distances are +inf and never win a column minimum); in K6 its
-// row minimum starts at 0 (so it never holds the tile's worst minimum up).
+// Ragged query counts are masked in the kernel: a query row >= N sits at
+// +inf, starts at a minimum of 0 and is not stored.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -42,7 +37,6 @@ namespace nn {
 constexpr int kThreads = 128;
 constexpr int kQ = 4;                    // queries per thread
 constexpr int kTile = kThreads * kQ;     // query rows per block
-constexpr int kWarps = kThreads / 32;
 constexpr float kInit = 1e30f;           // "no minimum yet", as on the TPU
 
 __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
@@ -116,26 +110,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block-wide max of v (every thread gets it).  Starts with a barrier, so the
-// previous step's readers of sb and red are done when it returns.
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
-  return m;
-}
-
-__device__ __forceinline__ float worst(const Queries& s) {
-  float m = s.best[0];
-#pragma unroll
-  for (int q = 1; q < kQ; ++q) m = fmaxf(m, s.best[q]);
-  return m;
-}
-
 // K7: every query tile against every target chunk.
 __global__ void __launch_bounds__(kThreads) brute_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
@@ -151,31 +125,6 @@ __global__ void __launch_bounds__(kThreads) brute_kernel(
   store_best(s, out, N);
 }
 
-// K6: a_s, b_s Morton-sorted; row i of order / lb_sorted (Ni x Nj) lists
-// this tile's target chunks by ascending squared lower bound.  cur, the
-// tile's worst current minimum, only falls and the bounds only rise, so the
-// first chunk with lb >= cur ends the walk exactly: no later chunk holds a
-// point nearer than any query's current minimum (the bounds carry 1e-3 m of
-// slack for the fp32 rounding of both the bound and the distances).  On the
-// TPU every later grid step still paid a scalar test.
-__global__ void __launch_bounds__(kThreads) h_kernel(
-    const float* __restrict__ a, const float* __restrict__ b,
-    const float* __restrict__ lb_sorted, const int* __restrict__ order,
-    float* __restrict__ out, int N, int Nj, int TM) {
-  extern __shared__ float sb[];
-  __shared__ float red[kWarps];
-  Queries s = load_queries(a, N);
-  const long long row = (long long)blockIdx.x * Nj;
-  for (int k = 0; k < Nj; ++k) {
-    const float cur = block_max(worst(s), red);
-    if (k > 0 && lb_sorted[row + k] >= cur) break;   // uniform in the block
-    stage_chunk(b, (long long)order[row + k] * TM, TM, sb);
-    __syncthreads();
-    sweep_rows(s, sb, TM);
-  }
-  store_best(s, out, N);
-}
-
 // Shared launch checks: N, M > 0, TM a positive multiple of 32 dividing M,
 // and the staged chunk within the block's shared memory.
 inline bool shapes_ok(int N, int M, int TM) {
@@ -184,7 +133,8 @@ inline bool shapes_ok(int N, int M, int TM) {
 
 
 // ---------------------------------------------------------------------------
-// K5: both directions over a list of tile pairs built on the device.
+// K5: both directions over a list of tile pairs built on the device; K6:
+// the same machinery in one direction (kBoth = false below).
 //
 // Plan (tulip_nn_h2_codes, a stable argsort in the wrapper, then
 // tulip_nn_h2_gather): the joint box of both clouds' real points (not 1e8
@@ -194,7 +144,12 @@ inline bool shapes_ok(int N, int M, int TM) {
 // points of a (4 per lane of a warp), kCols = 32 of b (1 per lane).  The
 // same arithmetic as ops/chamfer.py:h2_plan, which phase 3 of chip_smoke.py
 // holds it to.  box_lb is the squared AABB lower bound of chamfer_h.py
-// (1e-3 m of slack before squaring).
+// (1e-3 m of slack before squaring).  A tile that mixes real points with
+// sentinels spans ~5e7 m, where fp32 rounds its edges by up to 8 m, far
+// beyond the slack, so that its bound could exceed true distances: such a
+// tile (a half-extent above kWide) gets an infinite half-extent, which
+// bounds it by 0 against every tile.  Sentinels sort last, so a cloud has
+// at most one such tile.
 //
 // The TPU kernel walked every target chunk for every query tile and tested
 // its skip rule at each step.  Here the pairs to evaluate are listed first,
@@ -221,30 +176,40 @@ inline bool shapes_ok(int N, int M, int TM) {
 // f = 1) evaluate 3.3-6.9 % of all pairs where 2.0-2.1 % are needed, these
 // four 2.1 %; on a scan and a perturbed copy 0.45 % against 0.44 %.
 //
+// K6 (kBoth = false) keeps the row halves of every step: round 0 lists each
+// pair at its row's smallest bound (all ties), so every query gets a true
+// partial minimum; round r lists each pair of no earlier round with lb <
+// f_r ub_a[i].  Exact: a pair of no round has lb >= ub_a[i] as read before
+// the last round, and ub_a[i] >= every final minimum of row tile i, so none
+// of its distances could lower one; row minima reach sa by atomicMin on the
+// float bits, so the result is K7's in any list order.  Column minima are
+// never needed, so the sweep drops them: 7 instructions a pair.
+//
 // Bound on the H100: the sweep's fp32 issue rate (8 instructions per pair
-// evaluated); the plan is a few passes over (N + M) points and over the
-// Ti x Tj = 16.8M tile pairs of two 262,144-point clouds.  The kernels, in
-// launch order: nn2_box_kernel and nn2_morton_kernel (codes), the argsort,
-// nn2_gather_kernel; nn2_bound_kernel (every pair's squared gap once per
-// direction: round 0's thresholds, and each row's smallest gap per word of
-// 32 target tiles); then per round nn2_ub_kernel (rounds 1-3, a warp per
-// tile), nn2_list_kernel (a warp per row and 32 words, which passes over
-// every word whose smallest gap fails both thresholds and evaluates the rest
-// a lane per target tile, against the bitmap `done` of earlier rounds;
-// one atomicAdd per warp for its place in the list) and the sweep; last
-// nn2_unsort_kernel (sa / sb back to the callers' order).  The pair counts
-// stay on the device: the sweep's grid is fixed (SMs x blocks per SM) and
-// its warps take kItem entries at a time from an atomic counter until the
-// list ends.
+// evaluated in both directions, 7 in one); the plan is a few passes over (N
+// + M) points and over the Ti x Tj = 16.8M tile pairs of two 262,144-point
+// clouds.  The kernels, in launch order: nn2_box_kernel and
+// nn2_morton_kernel (codes), the argsort, nn2_gather_kernel;
+// nn2_bound_kernel (every pair's squared gap once per direction: round 0's
+// thresholds, and each row's smallest gap per word of 32 target tiles); then
+// per round nn2_ub_kernel (rounds 1-3, a warp per tile), nn2_list_kernel (a
+// warp per row and 32 words, which passes over every word whose smallest gap
+// fails both thresholds and evaluates the rest a lane per target tile,
+// against the bitmap `done` of earlier rounds; one atomicAdd per warp for
+// its place in the list) and the sweep; last nn2_unsort_kernel (sa / sb back
+// to the callers' order).  The pair counts stay on the device: the sweep's
+// grid is fixed (SMs x blocks per SM) and its warps take kItem entries at a
+// time from an atomic counter until the list ends.
 // nn2_sweep_kernel: a warp holds its query tile's 128 points (12 registers
 // a lane) and their row minima in registers while it walks consecutive
 // entries of one row; the target tile comes in as one point per lane,
 // prefetched one entry ahead, and is read back by broadcast from shared
-// memory.  A lane's 32 column minima over its 4 queries are reduced across
-// the warp by a reduce-scatter (31 shuffles), after which lane l holds
-// column l and lowers sb with one atomicMin; row minima go to sa when the
-// warp moves to another row.  8 instructions per pair (3 sub, mul, 2 fma,
-// 2 min) and about 1.2 per pair of overhead.
+// memory.  In K5 a lane's 32 column minima over its 4 queries are reduced
+// across the warp by a reduce-scatter (31 shuffles), after which lane l
+// holds column l and lowers sb with one atomicMin; row minima go to sa when
+// the warp moves to another row.  K5: 8 instructions per pair (3 sub, mul,
+// 2 fma, 2 min) and about 1.2 per pair of overhead; K6: 7 and no
+// reduce-scatter.
 namespace h2 {
 
 constexpr int kRows = 128;
@@ -258,6 +223,7 @@ constexpr int kRounds = 4;
 constexpr int kBoxBlocks = 264;          // blocks of the box and code kernels
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = __builtin_huge_valf();
+constexpr float kWide = 1e6f;            // m: a tile this wide holds a sentinel
 
 // The squared lower bound on |p - q| for p in box 1, q in box 2 (centers
 // c, half-extents h) is lb_of(box_gap2(...)), in the order of
@@ -404,7 +370,8 @@ __global__ void __launch_bounds__(kBlock) nn2_morton_kernel(
 // a_s / b_s: a and b in the argsort's order perm (a's N entries, then b's
 // M, offset by N); boxes: ca (Ti x 3), ha, cb (Tj x 3), hb of their tiles,
 // 0.5 (lo + hi) and 0.5 (hi - lo) over each tile's points (a ragged last
-// query tile over its real rows).  A warp per tile.
+// query tile over its real rows; ha / hb infinite where a half-extent
+// exceeds kWide).  A warp per tile.
 __global__ void __launch_bounds__(kBlock) nn2_gather_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
     const long long* __restrict__ perm, float* __restrict__ a_s,
@@ -434,12 +401,20 @@ __global__ void __launch_bounds__(kBlock) nn2_gather_kernel(
   float* c = query ? boxes + 3LL * tile
                    : boxes + 6LL * Ti + 3LL * (tile - Ti);
   float* h = c + 3LL * (query ? Ti : Tj);
+  float bc[3], bh[3];
+  bool wide = false;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float l = warp_min(lo[k]), u = warp_max(hi[k]);
-    if (lane == 0) {
-      c[k] = __fmul_rn(0.5f, __fadd_rn(l, u));
-      h[k] = __fmul_rn(0.5f, __fsub_rn(u, l));
+    bc[k] = __fmul_rn(0.5f, __fadd_rn(l, u));
+    bh[k] = __fmul_rn(0.5f, __fsub_rn(u, l));
+    wide |= bh[k] > kWide;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      c[k] = bc[k];
+      h[k] = wide ? kInf : bh[k];            // a zero bound (see above)
     }
   }
 }
@@ -482,7 +457,9 @@ __device__ __forceinline__ void stage_boxes(const float* __restrict__ c,
 // of the smallest s (lb_of is monotone).  blockIdx.y 0 also writes
 // smin[i][w], the smallest s of row i over word w, which lets the list
 // kernel pass over words that cannot hold a pair of any round.  A lane
-// takes one word of each staged 1,024 columns.
+// takes one word of each staged 1,024 columns.  One direction (K6): sa,
+// the counters, thr_a and smin only, on one grid row.
+template <bool kBoth>
 __global__ void __launch_bounds__(kBlock) nn2_bound_kernel(
     const float* __restrict__ ca, const float* __restrict__ ha,
     const float* __restrict__ cb, const float* __restrict__ hb,
@@ -495,9 +472,10 @@ __global__ void __launch_bounds__(kBlock) nn2_bound_kernel(
       ((long long)blockIdx.y * gridDim.x + blockIdx.x) * kBlock + threadIdx.x;
   const long long gsz = (long long)gridDim.x * gridDim.y * kBlock;
   for (long long r = gid; r < N; r += gsz) sa[r] = kInit;
-  for (long long r = gid; r < M; r += gsz) sb[r] = kInit;
+  if constexpr (kBoth)
+    for (long long r = gid; r < M; r += gsz) sb[r] = kInit;
   if (gid < 2 * kRounds) counters[gid] = 0;
-  const int dir = blockIdx.y;
+  const int dir = kBoth ? blockIdx.y : 0;
   const int R = dir ? Tj : Ti, Cn = dir ? Ti : Tj;
   if (blockIdx.x * kBlockWarps >= R) return;             // the whole block
   const float* rc = dir ? cb : ca;
@@ -555,7 +533,9 @@ __global__ void __launch_bounds__(kBlock) nn2_bound_kernel(
 // < thr_a or smin < wmax: otherwise every s of the word fails both tests);
 // the warp then evaluates such words four at a time, a lane per target
 // tile, and appends the segment's pairs at the place one atomicAdd on
-// *count gives it, so that they are contiguous.
+// *count gives it, so that they are contiguous.  One direction (K6): the
+// row tests alone (s < thr_a); thr_b and wmax are not read.
+template <bool kBoth>
 __global__ void __launch_bounds__(kBlock) nn2_list_kernel(
     const float* __restrict__ ca, const float* __restrict__ ha,
     const float* __restrict__ cb, const float* __restrict__ hb,
@@ -579,7 +559,8 @@ __global__ void __launch_bounds__(kBlock) nn2_list_kernel(
   const bool in = w < W;
   const float sm = in ? smin[rw + w] : kInf;
   const unsigned old = (round && in) ? done[rw + w] : 0u;
-  unsigned todo = __ballot_sync(kFull, in && (sm < rt || sm < wmax[w]));
+  unsigned todo =
+      __ballot_sync(kFull, in && (sm < rt || (kBoth && sm < wmax[w])));
   unsigned mine_sel = 0u;
   int total = 0;
   while (todo) {
@@ -593,7 +574,7 @@ __global__ void __launch_bounds__(kBlock) nn2_list_kernel(
       p[u] = false;
       if (k[u] >= 0 && j < Tj) {
         const float g = box_gap2(mc, mh, cb + 3LL * j, hb + 3LL * j);
-        p[u] = g < rt || g < thr_b[j];
+        p[u] = g < rt || (kBoth && g < thr_b[j]);
       }
     }
 #pragma unroll
@@ -627,16 +608,17 @@ __global__ void __launch_bounds__(kBlock) nn2_list_kernel(
 // lb(i, j) < frac ub exactly when s(i, j) < thr_a[i]; thr_b[j] likewise for
 // target tile j, and wmax[w] the largest thr_b of word w, by atomicMax on
 // the bits (wmax zeroed before it).  A warp per tile: query tiles first,
-// then target tiles.
+// then target tiles (one direction, K6: the query tiles alone).
+template <bool kBoth>
 __global__ void __launch_bounds__(kBlock) nn2_ub_kernel(
     const float* __restrict__ sa, const float* __restrict__ sb,
     float* __restrict__ thr_a, float* __restrict__ thr_b,
     float* __restrict__ wmax, float frac, int N, int Ti, int Tj) {
   const int tile = (blockIdx.x * kBlock + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (tile >= Ti + Tj) return;                           // the whole warp
+  if (tile >= (kBoth ? Ti + Tj : Ti)) return;           // the whole warp
   float m = 0.f;
-  if (tile < Ti) {
+  if (!kBoth || tile < Ti) {
 #pragma unroll
     for (int q = 0; q < kQL; ++q) {
       const long long r = (long long)tile * kRows + q * 32 + lane;
@@ -647,7 +629,7 @@ __global__ void __launch_bounds__(kBlock) nn2_ub_kernel(
   }
   const float t = s_threshold(frac * warp_max(m), lane);
   if (lane == 0) {
-    if (tile < Ti) {
+    if (!kBoth || tile < Ti) {
       thr_a[tile] = t;
     } else {
       thr_b[tile - Ti] = t;
@@ -691,7 +673,9 @@ __device__ __forceinline__ float4 load_target(const float* b, int j,
   return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
 }
 
-// The sweep over one round's list (count = cn[0], next-item counter cn[1]).
+// The sweep over one round's list (count = cn[0], next-item counter cn[1]);
+// row minima to sa and, in both directions (K5), column minima to sb.
+template <bool kBoth>
 __device__ __forceinline__ void sweep_list(
     const float* __restrict__ a, const float* __restrict__ b,
     const int* __restrict__ list, int* cn, float* sa, float* sb, int N,
@@ -712,6 +696,7 @@ __device__ __forceinline__ void sweep_list(
     float4 p = load_target(b, ent % Tj, lane);
     for (int e = e0; e < e1; ++e) {
       const int i = ent / Tj, j = ent - i * Tj;
+      (void)j;                               // one direction: unused
       const float4 t = p;
       if (e + 1 < e1) {                                  // one entry ahead
         ent = __ldcg(list + e + 1);
@@ -736,22 +721,33 @@ __device__ __forceinline__ void sweep_list(
       __syncwarp();                          // the last entry's reads done
       my[lane] = t;
       __syncwarp();
-      float col[kCols];
+      if constexpr (kBoth) {
+        float col[kCols];
 #pragma unroll
-      for (int k = 0; k < kCols; ++k) {
-        const float4 s = my[k];
-        float c = kInf;
+        for (int k = 0; k < kCols; ++k) {
+          const float4 s = my[k];
+          float c = kInf;
 #pragma unroll
-        for (int q = 0; q < kQL; ++q) {
-          const float d = sq_dist(qx[q], qy[q], qz[q], s.x, s.y, s.z);
-          best[q] = fminf(best[q], d);
-          c = fminf(c, d);
+          for (int q = 0; q < kQL; ++q) {
+            const float d = sq_dist(qx[q], qy[q], qz[q], s.x, s.y, s.z);
+            best[q] = fminf(best[q], d);
+            c = fminf(c, d);
+          }
+          col[k] = c;
         }
-        col[k] = c;
+        const float m = reduce_scatter_min(col, lane);
+        atomicMin(reinterpret_cast<int*>(sb) + (long long)j * kCols + lane,
+                  __float_as_int(m));
+      } else {
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+          const float4 s = my[k];
+#pragma unroll
+          for (int q = 0; q < kQL; ++q)
+            best[q] = fminf(best[q],
+                            sq_dist(qx[q], qy[q], qz[q], s.x, s.y, s.z));
+        }
       }
-      const float m = reduce_scatter_min(col, lane);
-      atomicMin(reinterpret_cast<int*>(sb) + (long long)j * kCols + lane,
-                __float_as_int(m));
     }
   }
 #pragma unroll
@@ -764,28 +760,32 @@ __device__ __forceinline__ void sweep_list(
 
 // Round 0's sweep (the upper bounds' pass) and the later rounds': one body,
 // two names, so that a profile tells them apart.
+template <bool kBoth>
 __global__ void __launch_bounds__(kBlock, 2) nn2_first_pass_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
     const int* __restrict__ list, int* cn, float* sa, float* sb, int N,
     int Tj) {
-  sweep_list(a, b, list, cn, sa, sb, N, Tj);
+  sweep_list<kBoth>(a, b, list, cn, sa, sb, N, Tj);
 }
 
+template <bool kBoth>
 __global__ void __launch_bounds__(kBlock, 2) nn2_sweep_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
     const int* __restrict__ list, int* cn, float* sa, float* sb, int N,
     int Tj) {
-  sweep_list(a, b, list, cn, sa, sb, N, Tj);
+  sweep_list<kBoth>(a, b, list, cn, sa, sb, N, Tj);
 }
 
-// out_a[perm[r]] = sa[r], out_b[perm[N + r] - N] = sb[r].
+// out_a[perm[r]] = sa[r], and in both directions out_b[perm[N + r] - N] =
+// sb[r].
+template <bool kBoth>
 __global__ void __launch_bounds__(kBlock) nn2_unsort_kernel(
     const float* __restrict__ sa, const float* __restrict__ sb,
     const long long* __restrict__ perm, float* __restrict__ out_a,
     float* __restrict__ out_b, int N, int M) {
   const long long r = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (r < N) out_a[perm[r]] = sa[r];
-  else if (r < (long long)N + M) out_b[perm[r] - N] = sb[r - N];
+  else if (kBoth && r < (long long)N + M) out_b[perm[r] - N] = sb[r - N];
 }
 
 inline bool sizes(int N, int M, int& Ti, int& Tj, int& W) {
@@ -794,6 +794,84 @@ inline bool sizes(int N, int M, int& Ti, int& Tj, int& W) {
   Tj = M / kCols;
   W = (Tj + 31) / 32;
   return (long long)Ti * Tj <= 0x7fffffffLL;
+}
+
+
+// The sweep over the plan (tulip_nn_h2 / tulip_nn_h1 below); in one
+// direction thr holds Ti floats and wmax, sb, out_b are not used.
+template <bool kBoth>
+int run_pairs(const void* a_s, const void* b_s, const void* boxes,
+              const void* perm, void* thr, void* wmax, void* smin, void* sa,
+              void* sb, void* counts, void* done, void* list, void* out_a,
+              void* out_b, int N, int M, cudaStream_t st) {
+  int Ti, Tj, W;
+  if (!sizes(N, M, Ti, Tj, W)) return cudaErrorInvalidValue;
+  const float* a = static_cast<const float*>(a_s);
+  const float* b = static_cast<const float*>(b_s);
+  const float* ca = static_cast<const float*>(boxes);
+  const float* ha = ca + 3LL * Ti;
+  const float* cb = ha + 3LL * Ti;
+  const float* hb = cb + 3LL * Tj;
+  float* thr_a = static_cast<float*>(thr);
+  float* thr_b = kBoth ? thr_a + Ti : nullptr;
+  float* wm = static_cast<float*>(wmax);
+  float* sm = static_cast<float*>(smin);
+  float* fa = static_cast<float*>(sa);
+  float* fb = static_cast<float*>(sb);
+  int* cnt = static_cast<int*>(counts);
+  unsigned* dn = static_cast<unsigned*>(done);
+  int* ls = static_cast<int*>(list);
+
+  cudaError_t err = cudaSuccess;
+  if (kBoth && (err = cudaMemsetAsync(wm, 0, sizeof(float) * W, st)) !=
+                   cudaSuccess)
+    return err;
+  const int rows = kBoth ? (Ti > Tj ? Ti : Tj) : Ti;
+  nn2_bound_kernel<kBoth>
+      <<<dim3((rows + kBlockWarps - 1) / kBlockWarps, kBoth ? 2 : 1), kBlock,
+         0, st>>>(ca, ha, cb, hb, thr_a, thr_b, wm, sm, fa, fb, cnt, N, M,
+                  Ti, Tj, W);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, nn2_sweep_kernel<kBoth>, kBlock, 0);
+  if (err != cudaSuccess) return err;
+  const int grid = sms * (per_sm > 0 ? per_sm : 1);
+  const int tiles = kBoth ? Ti + Tj : Ti;
+  const float frac[kRounds] = {0.f, 1.f / 64, 1.f / 8, 1.f};
+  for (int r = 0; r < kRounds; ++r) {
+    if (r > 0) {
+      if (kBoth && (err = cudaMemsetAsync(wm, 0, sizeof(float) * W, st)) !=
+                       cudaSuccess)
+        return err;
+      nn2_ub_kernel<kBoth>
+          <<<(tiles + kBlockWarps - 1) / kBlockWarps, kBlock, 0, st>>>(
+              fa, fb, thr_a, thr_b, wm, frac[r], N, Ti, Tj);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    nn2_list_kernel<kBoth>
+        <<<dim3(Ti, (W + 32 * kBlockWarps - 1) / (32 * kBlockWarps)), kBlock,
+           0, st>>>(ca, ha, cb, hb, thr_a, thr_b, wm, sm, dn, ls,
+                    cnt + 2 * r, r, Ti, Tj, W);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (r == 0)
+      nn2_first_pass_kernel<kBoth><<<grid, kBlock, 0, st>>>(a, b, ls, cnt, fa,
+                                                            fb, N, Tj);
+    else
+      nn2_sweep_kernel<kBoth><<<grid, kBlock, 0, st>>>(a, b, ls, cnt + 2 * r,
+                                                       fa, fb, N, Tj);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const long long outs = kBoth ? (long long)N + M : N;
+  nn2_unsort_kernel<kBoth>
+      <<<(int)((outs + kBlock - 1) / kBlock), kBlock, 0, st>>>(
+          fa, fb, static_cast<const long long*>(perm),
+          static_cast<float*>(out_a), static_cast<float*>(out_b), N, M);
+  return cudaGetLastError();
 }
 
 }  // namespace h2
@@ -812,24 +890,6 @@ extern "C" int tulip_nn_brute(const void* a, const void* b, void* out, int N,
   brute_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<float*>(out), N, M, chunk);
-  return cudaGetLastError();
-}
-
-// lb_sorted (fp32) and order (int32) are (ceil(N / tile), M / chunk); tile
-// must be the kernels' query tile (kTile).
-extern "C" int tulip_nn_h(const void* a, const void* b, const void* lb_sorted,
-                          const void* order, void* out, int N, int M,
-                          int chunk, int tile, void* stream) {
-  using namespace tulip::nn;
-  if (!shapes_ok(N, M, chunk) || tile != kTile) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 3 * chunk;
-  cudaError_t err = tulip::prepare_smem(h_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (N + kTile - 1) / kTile;
-  h_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(lb_sorted), static_cast<const int*>(order),
-      static_cast<float*>(out), N, M / chunk, chunk);
   return cudaGetLastError();
 }
 
@@ -868,80 +928,30 @@ extern "C" int tulip_nn_h2_gather(const void* a, const void* b,
   return cudaGetLastError();
 }
 
-// The sweep over the plan: a_s, b_s, boxes, perm as the two calls above
-// left them; scratch thr (Ti + Tj floats), wmax (W), smin (Ti x W), sa (N),
-// sb (M),
-// counts (2 x 4 ints: pairs listed, items taken, per round), done (Ti x W
-// words, W = ceil(Tj / 32)), list (Ti x Tj ints); out_a (N,), out_b (M,)
-// in the callers' order.
+// K5, the sweep over the plan: a_s, b_s, boxes, perm as the two calls
+// above left them; scratch thr (Ti + Tj floats), wmax (W), smin (Ti x W),
+// sa (N), sb (M), counts (2 x 4 ints: pairs listed, items taken, per
+// round), done (Ti x W words, W = ceil(Tj / 32)), list (Ti x Tj ints);
+// out_a (N,), out_b (M,) in the callers' order.
 extern "C" int tulip_nn_h2(const void* a_s, const void* b_s,
                            const void* boxes, const void* perm, void* thr,
                            void* wmax, void* smin, void* sa, void* sb,
                            void* counts,
                            void* done, void* list, void* out_a, void* out_b,
                            int N, int M, void* stream) {
-  using namespace tulip::nn::h2;
-  int Ti, Tj, W;
-  if (!sizes(N, M, Ti, Tj, W)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(a_s);
-  const float* b = static_cast<const float*>(b_s);
-  const float* ca = static_cast<const float*>(boxes);
-  const float* ha = ca + 3LL * Ti;
-  const float* cb = ha + 3LL * Ti;
-  const float* hb = cb + 3LL * Tj;
-  float* thr_a = static_cast<float*>(thr);
-  float* wm = static_cast<float*>(wmax);
-  float* sm = static_cast<float*>(smin);
-  float* fa = static_cast<float*>(sa);
-  float* fb = static_cast<float*>(sb);
-  int* cnt = static_cast<int*>(counts);
-  unsigned* dn = static_cast<unsigned*>(done);
-  int* ls = static_cast<int*>(list);
+  return tulip::nn::h2::run_pairs<true>(
+      a_s, b_s, boxes, perm, thr, wmax, smin, sa, sb, counts, done, list,
+      out_a, out_b, N, M, static_cast<cudaStream_t>(stream));
+}
 
-  const int rows = (Ti > Tj ? Ti : Tj);
-  cudaError_t err = cudaMemsetAsync(wm, 0, sizeof(float) * W, st);
-  if (err != cudaSuccess) return err;
-  nn2_bound_kernel<<<dim3((rows + kBlockWarps - 1) / kBlockWarps, 2), kBlock, 0,
-                     st>>>(ca, ha, cb, hb, thr_a, thr_a + Ti, wm, sm, fa, fb,
-                           cnt, N, M, Ti, Tj, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, nn2_sweep_kernel, kBlock, 0);
-  if (err != cudaSuccess) return err;
-  const int grid = sms * (per_sm > 0 ? per_sm : 1);
-  const float frac[kRounds] = {0.f, 1.f / 64, 1.f / 8, 1.f};
-  for (int r = 0; r < kRounds; ++r) {
-    if (r > 0) {
-      if ((err = cudaMemsetAsync(wm, 0, sizeof(float) * W, st)) !=
-          cudaSuccess)
-        return err;
-      nn2_ub_kernel<<<(Ti + Tj + kBlockWarps - 1) / kBlockWarps, kBlock, 0,
-                      st>>>(
-          fa, fb, thr_a, thr_a + Ti, wm, frac[r], N, Ti, Tj);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
-    nn2_list_kernel<<<dim3(Ti, (W + 32 * kBlockWarps - 1) / (32 * kBlockWarps)),
-                      kBlock, 0, st>>>(
-        ca, ha, cb, hb, thr_a, thr_a + Ti, wm, sm, dn, ls, cnt + 2 * r, r, Ti,
-        Tj, W);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if (r == 0)
-      nn2_first_pass_kernel<<<grid, kBlock, 0, st>>>(a, b, ls, cnt, fa, fb, N,
-                                                     Tj);
-    else
-      nn2_sweep_kernel<<<grid, kBlock, 0, st>>>(a, b, ls, cnt + 2 * r, fa, fb,
-                                                N, Tj);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  nn2_unsort_kernel<<<(int)(((long long)N + M + kBlock - 1) / kBlock), kBlock,
-                      0, st>>>(fa, fb, static_cast<const long long*>(perm),
-                               static_cast<float*>(out_a),
-                               static_cast<float*>(out_b), N, M);
-  return cudaGetLastError();
+// K6, one direction over the same plan: thr (Ti floats), smin, sa, counts,
+// done and list as for K5; out (N,) in the callers' order.
+extern "C" int tulip_nn_h1(const void* a_s, const void* b_s,
+                           const void* boxes, const void* perm, void* thr,
+                           void* smin, void* sa, void* counts, void* done,
+                           void* list, void* out, int N, int M,
+                           void* stream) {
+  return tulip::nn::h2::run_pairs<false>(
+      a_s, b_s, boxes, perm, thr, nullptr, smin, sa, nullptr, counts, done,
+      list, out, nullptr, N, M, static_cast<cudaStream_t>(stream));
 }

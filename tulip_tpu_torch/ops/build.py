@@ -52,8 +52,6 @@ SIGNATURES = {
     "tulip_ln_linear": [_I] + [_P] * 7 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
     # a, b, out, N, M, chunk, stream
     "tulip_nn_brute": [_P] * 3 + [_I] * 3 + [_P],
-    # a_s, b_s, lb_sorted, order, out, N, M, chunk, tile, stream
-    "tulip_nn_h": [_P] * 5 + [_I] * 4 + [_P],
     # a, b, partial, codes, N, M, stream
     "tulip_nn_h2_codes": [_P] * 4 + [_I] * 2 + [_P],
     # a, b, perm, a_s, b_s, boxes, N, M, stream
@@ -61,6 +59,9 @@ SIGNATURES = {
     # a_s, b_s, boxes, perm, thr, wmax, smin, sa, sb, counts, done, list,
     # out_a, out_b, N, M, stream
     "tulip_nn_h2": [_P] * 14 + [_I] * 2 + [_P],
+    # a_s, b_s, boxes, perm, thr, smin, sa, counts, done, list, out, N, M,
+    # stream
+    "tulip_nn_h1": [_P] * 11 + [_I] * 2 + [_P],
     # dtype, qkv, out, bias, mask, B, H, W, C, nh, wh, ww, sh, sw, ctas, hg,
     # smem, scale, stream
     "tulip_attn_fwd": [_I] + [_P] * 4 + [_I] * 12 + [_F, _P],

@@ -3,9 +3,9 @@ chamfer metric, and the chamfer impl registry.
 
 Replaces tulip_tpu/ops/chamfer.py (``min_sq_dists_xla``), the Pallas
 kernels tulip_tpu/ops/pallas/chamfer.py ``_kernel`` (K7, brute force) and
-chamfer_h.py ``_kernel_h`` (K6, one direction with tile skipping) and
-``_kernel_h2`` (K5, both directions over a list of tile pairs built on the
-device), and the registry of
+chamfer_h.py ``_kernel_h2`` (K5, both directions over a list of tile pairs
+built on the device) and ``_kernel_h`` (K6, one direction: K5's machinery
+with the row halves only), and the registry of
 tulip_tpu/ops/__init__.py.  The kernels are in ``csrc/chamfer.cu``.
 
 Every wrapper takes the plain version (:func:`min_sq_dists_plain`, the
@@ -29,7 +29,6 @@ import torch
 
 from . import build
 
-QUERY_TILE = 512        # K6's query rows per CUDA block (chamfer.cu kTile)
 _PLAIN_ROWS = 16384     # query rows per step of the plain version
 _BOUND_SLACK = 1e-3     # m, absorbs fp32 rounding in bounds and distances
 
@@ -100,8 +99,8 @@ min_sq_dists_brute.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Host-side glue of K6 and of K5's plan (chamfer_h.py:39-59, 108-162,
-# 196-202, 264-311), plain torch on the tensors' device.
+# The plain versions of K5's plan (chamfer_h.py:39-59, 108-162, 196-202,
+# 264-311), plain torch on the tensors' device.
 # ---------------------------------------------------------------------------
 
 def _morton10(x, lo, span):
@@ -142,35 +141,20 @@ def _morton_order(a, b):
 
 def _tiles(pts, tile):
     """(T, tile, 3) view of pts; a ragged last tile is filled with copies of
-    the last point, which leave its box and enclosing sphere valid."""
+    the last point, which leave its box valid."""
     pad = (-pts.shape[0]) % tile
     if pad:
         pts = torch.cat([pts, pts[-1:].expand(pad, 3)])
     return pts.reshape(-1, tile, 3)
 
 
-def _tile_bounds(pts, tile):
-    """Centers (T, 3) and radii (T,) of each tile's enclosing sphere."""
-    t = _tiles(pts, tile)
-    c = t.mean(1)
-    r = torch.sqrt(((t - c[:, None, :]) ** 2).sum(-1).amax(1))
-    return c, r
-
-
 def _tile_boxes(pts, tile):
-    """AABB centers (T, 3) and half-extents (T, 3) of each tile: a tighter
-    bound than the spheres for elongated scan tiles."""
+    """AABB centers (T, 3) and half-extents (T, 3) of each tile
+    (chamfer_h.py:_tile_boxes)."""
     t = _tiles(pts, tile)
     lo = t.amin(1)
     hi = t.amax(1)
     return 0.5 * (lo + hi), 0.5 * (hi - lo)
-
-
-def _sphere_lb(a_s, b_s, tile, chunk):
-    ca, ra = _tile_bounds(a_s, tile)
-    cb, rb = _tile_bounds(b_s, chunk)
-    dc = torch.sqrt(((ca[:, None, :] - cb[None, :, :]) ** 2).sum(-1))
-    return torch.clamp(dc - ra[:, None] - rb[None, :] - _BOUND_SLACK, min=0.0)
 
 
 def box_gap2_table(ca, ha, cb, hb):
@@ -217,95 +201,78 @@ def _box_lb(a_s, b_s, tile, chunk):
     return box_lb_table(*_tile_boxes(a_s, tile), *_tile_boxes(b_s, chunk))
 
 
-def plan(a, b, chunk, tile=QUERY_TILE, bounds="box"):
-    """The tables K6 walks (``bounds="sphere"``) and the JAX K5's box
-    tables (``bounds="box"``): (pa, pb, a_s, b_s, lb_sorted, order).
+def plan(a, b, chunk, tile):
+    """The JAX K5's box tables (min_sq_dists_pallas_h2), in plain torch:
+    (pa, pb, a_s, b_s, lb_sorted, order).
 
     pa / pb sort a / b in Morton order; lb (ceil(N / tile), M / chunk) is
     the squared lower bound on the distance between query tile i of a_s and
-    target chunk j of b_s (spheres or boxes: :func:`box_lb_table`), with
-    1e-3 m of slack before squaring; each row of ``order`` lists the chunks
-    by ascending bound (stable, as jnp.argsort) and ``lb_sorted`` the
-    bounds in that order."""
+    target chunk j of b_s (:func:`box_lb_table`), with 1e-3 m of slack
+    before squaring; each row of ``order`` lists the chunks by ascending
+    bound (stable, as jnp.argsort) and ``lb_sorted`` the bounds in that
+    order."""
     pa, pb = _morton_order(a, b)
     a_s = a[pa].contiguous()
     b_s = b[pb].contiguous()
-    if bounds == "sphere":
-        lb_lin = _sphere_lb(a_s, b_s, tile, chunk)
-        lb = lb_lin * lb_lin
-    else:
-        lb = _box_lb(a_s, b_s, tile, chunk)
+    lb = _box_lb(a_s, b_s, tile, chunk)
     order = torch.argsort(lb, dim=1, stable=True)
     lb_sorted = torch.take_along_dim(lb, order, dim=1).contiguous()
     return pa, pb, a_s, b_s, lb_sorted, order.to(torch.int32).contiguous()
 
 
-def _unsort(d_sorted, perm):
-    """Scatter sorted-order values back to the caller's point order."""
-    out = torch.empty_like(d_sorted)
-    out[perm] = d_sorted
-    return out
-
-
-def min_sq_dists_h(a, b, chunk: int = 1024):
-    """K6: min_j |a_i - b_j|^2, exact, skipping target chunks whose lower
-    bound cannot beat the query tile's worst current minimum."""
-    if a.device.type == "cpu":
-        return min_sq_dists_plain(a, b, chunk)
-    if a.device.type != "cuda":
-        raise build.not_cuda(a)
-    a, b = a.float().contiguous(), b.float().contiguous()
-    _check(a, b, chunk)
-    pa, _, a_s, b_s, lb_sorted, order = plan(a, b, chunk, bounds="sphere")
-    out = torch.empty(a.shape[0], device=a.device, dtype=torch.float32)
-    _launch("tulip_nn_h", a_s, b_s, lb_sorted, order, out, a.shape[0],
-            b.shape[0], chunk, QUERY_TILE)
-    min_sq_dists_h.launches += 1
-    return _unsort(out, pa)
-
-
-min_sq_dists_h.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # K5's plan and its pair rounds (csrc/chamfer.cu, section "K5"), plain torch:
-# the kernels' plain versions; the tests replay the rounds on the CPU.
+# the kernels' plain versions; the tests replay the rounds on the CPU, in
+# both directions (K5) and in one (K6).
 # ---------------------------------------------------------------------------
 
 H2_ROWS = 128             # query points per tile (kRows: 4 per lane)
 H2_COLS = 32              # target points per tile (kCols: 1 per lane)
 H2_FRACS = (1 / 64, 1 / 8, 1.0)   # the rounds after the first: lb < f ub
+H2_WIDE = 1e6             # m: a half-extent this wide mixes in sentinels
 _H2_BOX_BLOCKS = 264      # blocks of the box and code kernels (kBoxBlocks)
 
 
-def h2_sizes(N, M):
-    """(query tiles, target tiles, bitmap words per row) of K5; raises
-    where the kernels' int32 pair index cannot hold the tile pairs (beyond
-    about 2.9M points a side)."""
+def h2_sizes(N, M, what="K5"):
+    """(query tiles, target tiles, bitmap words per row) of K5 (and K6);
+    raises where the kernels' int32 pair index cannot hold the tile pairs
+    (beyond about 2.9M points a side)."""
     if M % H2_COLS:
         raise ValueError(f"M={M} is not a multiple of {H2_COLS}")
     Ti, Tj = -(-N // H2_ROWS), M // H2_COLS
     if Ti * Tj >= 2 ** 31:
-        raise ValueError(f"K5 takes fewer than 2^31 tile pairs; got N={N}, "
-                         f"M={M}")
+        raise ValueError(f"{what} takes fewer than 2^31 tile pairs; got "
+                         f"N={N}, M={M}")
     return Ti, Tj, -(-Tj // 32)
+
+
+def h2_boxes(pts, tile):
+    """The kernels' tile boxes: :func:`_tile_boxes`, with an infinite
+    half-extent on every axis of a tile wider than H2_WIDE on one.  Such a
+    tile mixes real points with 1e8 sentinels; at ~5e7 m fp32 rounds its
+    edges by up to 8 m, beyond the bound's 1e-3 m of slack, and the
+    infinite extent bounds it by 0 against every tile instead."""
+    c, h = _tile_boxes(pts, tile)
+    wide = (h > H2_WIDE).any(1, keepdim=True)
+    return c, torch.where(wide, torch.full_like(h, float("inf")), h)
 
 
 def h2_plan(a, b):
     """(pa, pb, a_s, b_s, (ca, ha), (cb, hb)): the Morton orders, the sorted
-    clouds and the AABBs of their H2_ROWS / H2_COLS tiles; the plain version
-    of :func:`_h2_device_plan`."""
+    clouds and the boxes (:func:`h2_boxes`) of their H2_ROWS / H2_COLS
+    tiles; the plain version of :func:`_h2_device_plan`."""
     pa, pb = _morton_order(a, b)
     a_s = a[pa].contiguous()
     b_s = b[pb].contiguous()
-    return (pa, pb, a_s, b_s, _tile_boxes(a_s, H2_ROWS),
-            _tile_boxes(b_s, H2_COLS))
+    return (pa, pb, a_s, b_s, h2_boxes(a_s, H2_ROWS), h2_boxes(b_s, H2_COLS))
 
 
-def h2_first_pairs(lb):
-    """Round 0: every tile pair at its row's or its column's smallest bound
-    (all ties), so every query and target gets a true partial minimum."""
-    return (lb == lb.amin(1, keepdim=True)) | (lb == lb.amin(0, keepdim=True))
+def h2_first_pairs(lb, both=True):
+    """Round 0: every tile pair at its row's smallest bound (all ties), so
+    every query gets a true partial minimum; with ``both`` (K5) also every
+    pair at its column's, so every target does too."""
+    first = lb == lb.amin(1, keepdim=True)
+    return first | (lb == lb.amin(0, keepdim=True)) if both else first
 
 
 def _tile_max(d, tile):
@@ -315,19 +282,24 @@ def _tile_max(d, tile):
     return d.reshape(-1, tile).amax(1)
 
 
-def h2_upper_bounds(d_a, d_b):
-    """(ub_a, ub_b): each tile's largest current minimum; a minimum only
-    falls, so each bounds its tile's final minima from above."""
-    return _tile_max(d_a, H2_ROWS), _tile_max(d_b, H2_COLS)
+def h2_upper_bounds(d_a, d_b=None):
+    """(ub_a, ub_b): each tile's largest current minimum (ub_b None in one
+    direction); a minimum only falls, so each bounds its tile's final
+    minima from above."""
+    return (_tile_max(d_a, H2_ROWS),
+            None if d_b is None else _tile_max(d_b, H2_COLS))
 
 
 def h2_round_pairs(lb, ub_a, ub_b, frac, done):
     """A later round: the pairs of no earlier round whose bound is below
-    frac times the row's or the column's upper bound.  After the round with
-    frac = 1 every pair left out has lb >= both bounds, so none of its
-    distances is below a final minimum: the result is exact."""
-    return (((lb < frac * ub_a[:, None]) | (lb < frac * ub_b[None, :]))
-            & ~done)
+    frac times the row's upper bound or (K5; ub_b None for K6) the
+    column's.  After the round with frac = 1 every pair left out has lb >=
+    the bounds, so none of its distances is below a final minimum of its
+    rows (and columns): the result is exact."""
+    sel = lb < frac * ub_a[:, None]
+    if ub_b is not None:
+        sel = sel | (lb < frac * ub_b[None, :])
+    return sel & ~done
 
 
 def min_sq_dists_h2_plain(a, b, chunk: int = 1024):
@@ -337,25 +309,25 @@ def min_sq_dists_h2_plain(a, b, chunk: int = 1024):
     return min_sq_dists_plain(a, b, chunk), _min_sq_dists(b, a, chunk)
 
 
-def _h2_buffers(N, M, device):
-    """K5's scratch, carved from one fp32 and one int32 allocation, and its
-    per-round counts."""
-    Ti, Tj, W = h2_sizes(N, M)
+def _h2_buffers(N, M, device, both=True):
+    """The scratch of K5 (``both``) or of K6, carved from one fp32 and one
+    int32 allocation, and the per-round counts.  K6 has no column
+    thresholds, word maxima or column minima: thr holds Ti floats, and
+    wmax and sb are left out."""
+    Ti, Tj, W = h2_sizes(N, M, "K5" if both else "K6")
     T = Ti + Tj
-    f = torch.empty(6 * _H2_BOX_BLOCKS + 7 * T + W + Ti * W + 4 * (N + M),
-                    device=device)
-    i = torch.empty(N + M + Ti * W + Ti * Tj, device=device,
-                    dtype=torch.int32)
-    fs = f.split([6 * _H2_BOX_BLOCKS, 6 * T, T, W, Ti * W, 3 * N, 3 * M, N,
-                  M])
-    is_ = i.split([N + M, Ti * W, Ti * Tj])
-    names = ("partial", "boxes", "thr", "wmax", "smin", "a_s", "b_s", "sa",
-             "sb")
+    f = dict(partial=6 * _H2_BOX_BLOCKS, boxes=6 * T, thr=T if both else Ti,
+             wmax=W, smin=Ti * W, a_s=3 * N, b_s=3 * M, sa=N, sb=M)
+    if not both:
+        del f["wmax"], f["sb"]
+    fs = torch.empty(sum(f.values()), device=device).split(list(f.values()))
+    i = dict(codes=N + M, done=Ti * W, list=Ti * Tj)
+    is_ = torch.empty(sum(i.values()), device=device,
+                      dtype=torch.int32).split(list(i.values()))
     # the counts on their own: the wrapper keeps them after the call
     counts = torch.empty(2 * (1 + len(H2_FRACS)), device=device,
                          dtype=torch.int32)
-    return dict(zip(names, fs), codes=is_[0], done=is_[1], list=is_[2],
-                counts=counts)
+    return dict(zip(f, fs), **dict(zip(i, is_)), counts=counts)
 
 
 def _h2_device_plan(a, b, buf):
@@ -404,6 +376,36 @@ def min_sq_dists_h2(a, b, chunk: int = 1024):
 min_sq_dists_h2.launches = 0
 min_sq_dists_h2.last_counts = None
 
+
+def min_sq_dists_h(a, b, chunk: int = 1024):
+    """K6: min_j |a_i - b_j|^2, exact: K5's plan, then the one-direction
+    bound, list and sweep kernels (rows only: :func:`h2_first_pairs` with
+    ``both=False``, :func:`h2_round_pairs` without column bounds), with the
+    pair counts on the device (no host synchronisation).  ``chunk`` is the
+    callers' padding granule: M must be a multiple of it.  Unlike the TPU
+    kernel it takes fewer than 2^31 tile pairs of 128 x 32 points (about
+    2.9M points a side; :func:`h2_sizes` raises beyond)."""
+    if a.device.type == "cpu":
+        return min_sq_dists_plain(a, b, chunk)
+    if a.device.type != "cuda":
+        raise build.not_cuda(a)
+    a, b = a.float().contiguous(), b.float().contiguous()
+    _check(a, b, chunk)
+    N, M = a.shape[0], b.shape[0]
+    buf = _h2_buffers(N, M, a.device, both=False)
+    perm = _h2_device_plan(a, b, buf)
+    out = torch.empty(N, device=a.device, dtype=torch.float32)
+    _launch("tulip_nn_h1", buf["a_s"], buf["b_s"], buf["boxes"], perm,
+            buf["thr"], buf["smin"], buf["sa"], buf["counts"], buf["done"],
+            buf["list"], out, N, M)
+    min_sq_dists_h.launches += 1
+    # (pairs listed, items taken) per round, as K5's
+    min_sq_dists_h.last_counts = buf["counts"]
+    return out
+
+
+min_sq_dists_h.launches = 0
+min_sq_dists_h.last_counts = None
 min_sq_dists_h.preferred_chunk = 1024
 min_sq_dists_h.pair = min_sq_dists_h2
 min_sq_dists_h2.preferred_chunk = 1024

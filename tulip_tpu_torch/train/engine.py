@@ -100,5 +100,6 @@ def train_one_epoch(train_step, data_loader, epoch: int, *, device,
     if pending is not None:
         drain(pending)
 
+    metric_logger.synchronize_between_processes()
     print("Averaged stats:", metric_logger)
     return {k: meter.global_avg for k, meter in metric_logger.meters.items()}

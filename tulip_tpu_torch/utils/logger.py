@@ -3,9 +3,9 @@
 Parity target: tulip/util/misc.py:26-186.  A copy of
 tulip_tpu/utils/logger.py (jax-free, but its package's ``__init__`` imports
 jax), with two changes: the peak device memory line reads
-``torch.cuda.max_memory_allocated``, and there is no
-synchronize_between_processes (one process; data parallel is a later
-slice).
+``torch.cuda.max_memory_allocated``, and synchronize_between_processes sums
+[count, total] over an initialised ``torch.distributed`` group
+(parallel/dist.py:all_reduce_sum); in one process it returns at once.
 """
 
 from __future__ import annotations
@@ -34,6 +34,16 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self):
+        """Sum count and total over the ranks (the window stays local)."""
+        from ..parallel import dist
+        if dist.get_world_size() <= 1:
+            return
+        t = dist.all_reduce_sum(np.array([self.count, self.total],
+                                         np.float64))
+        self.count = int(t[0])
+        self.total = float(t[1])
 
     @property
     def median(self):
@@ -87,6 +97,10 @@ class MetricLogger:
     def __str__(self):
         return self.delimiter.join(
             f"{name}: {meter}" for name, meter in self.meters.items())
+
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
 
     def add_meter(self, name, meter):
         self.meters[name] = meter

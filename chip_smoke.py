@@ -6,6 +6,8 @@
         the time goes, in this checkout or in the one at DIR)
     python3 chip_smoke.py --paths [--tree DIR]    (time_paths: the forward's
         and the train step's wall ms, of this checkout or of the one at DIR)
+    python3 chip_smoke.py --ranks N    (run_ranks_check: data parallel over
+        N GPUs under NCCL, on a machine with N cards)
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
@@ -75,6 +77,21 @@ Phases, one line or more each; any failure raises and exits non-zero:
    --epochs 1, exit code 0); and the train step's median ms with and
    without TULIP_TPU_LN_PALLAS=1, and colsum's launches per step in
    both (K15 adds none).
+
+9. data parallel: (a) phase 8's 2-epoch command line again as rank 0 of
+   a launcher's world of 1 (RANK=0 WORLD_SIZE=1 LOCAL_RANK=0, a file://
+   --dist_url): the group's backend must be nccl, the launches per step
+   those of phase 8, and log.txt and checkpoint-1.pth (weights and AdamW
+   moments) equal to phase 8's run without a group bit for bit; then the
+   step's all_reduce calls (one per gradient bucket), the device ms of the
+   batch-8 step with and without the group and of one gradient average
+   (torch.profiler), and the step's ms with and without the group (off,
+   on, on, off); (b) two gloo ranks, processes of their own on the one
+   card (NCCL refuses two ranks on one GPU), batch 4 each, against one
+   process at batch 8, drop_path_rate 0.1: fp32 reduced gradients within
+   1e-4 of each parameter's max|ref|, the bf16 gradient's cosine >=
+   0.999, the two ranks' gradients and, after 3 bf16 steps, weights equal
+   bit for bit; their step ms measure host copies, not a multi-GPU system.
 
 Phase 3 also holds K1 / K2 in bf16 at batch 1 and 8 (the tensor-core
 kernel's head splits differ by batch) and at token counts that leave a last
@@ -1984,6 +2001,441 @@ def run_cli_phase(torch, dev, weights):
     return report
 
 
+# phase 9(b): the global batch and the steps of the bf16 run
+DP_GLOBAL_BATCH, DP_STEPS = 8, 3
+
+
+def dp_steps(torch, dev, root, rank, world, profile=False):
+    """Phase 9(b)'s training, as rank ``rank`` of ``world`` (1: one process,
+    no group): the flagship with drop_path_rate 0.1 from root/weights.pt,
+    on rows [rank * b, (rank + 1) * b) of the batch in root/batch.npz, the
+    drop-path draws of the whole batch from one generator seeded 0; one
+    fp32 step and DP_STEPS bf16 steps.  Returns, for each type, the first
+    update's gradient (fp32, on the CPU), the losses, the step ms and, for
+    bf16, the weights after the last step; with ``profile``, the device us
+    by kernel name of one more bf16 step and of one average_ of the step's
+    gradients (every rank runs them: they hold collectives)."""
+    from tulip_tpu_torch.models.layers import RankDraws
+    from tulip_tpu_torch.models.tulip import tulip_base
+    from tulip_tpu_torch.parallel import dist
+    from tulip_tpu_torch.parallel.mesh import replicate
+    from tulip_tpu_torch.train.step import make_optimizer, make_train_step
+    weights = torch.load(os.path.join(root, "weights.pt"), weights_only=True)
+    with np.load(os.path.join(root, "batch.npz")) as f:
+        b = f["low"].shape[0] // world
+        low, high = (torch.from_numpy(f[k][rank * b:(rank + 1) * b]).to(dev)
+                     for k in ("low", "high"))
+    out = {}
+    for name, dtype, steps in (("fp32", torch.float32, 1),
+                               ("bf16", torch.bfloat16, DP_STEPS)):
+        model = tulip_base(drop_path_rate=0.1, **FLAGSHIP)
+        model.load_state_dict(weights, strict=True)
+        model = model.to(dev)
+        replicate(model)
+        opt = make_optimizer(model, 0.01)
+        grads, opt_step = [], opt.step
+
+        def recording_step(*a, **k):
+            if not grads:
+                grads.append({n: p.grad.detach().float().cpu()
+                              for n, p in model.named_parameters()})
+            return opt_step(*a, **k)
+
+        opt.step = recording_step
+        step = make_train_step(model, opt, compute_dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        draws = gen if world == 1 else RankDraws(gen, rank, world)
+        losses, ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total, pixel = step(low, high, 5e-4, draws)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append((total.item(), pixel.item()))
+        out[name] = dict(grads=grads[0], losses=losses, ms=ms)
+        if name == "bf16":
+            out[name]["weights"] = {n: p.detach().cpu()
+                                    for n, p in model.named_parameters()}
+            if profile:
+                g = [torch.randn_like(p) for p in model.parameters()]
+                out["profile"] = dict(
+                    step=device_us(torch, lambda: step(low, high, 5e-4,
+                                                       draws), n=3),
+                    average=device_us(torch, lambda: dist.average_(g), n=5))
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank_main(rank, root):
+    """``chip_smoke.py --dp-rank R DIR``: rank R of the group that
+    DIR/spec.json describes ({"backend", "devices": one per rank,
+    "profile"}); the result goes to DIR/rank{R}.pt."""
+    import torch
+    import torch.distributed as td
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["devices"][rank])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(dev)
+    world = len(spec["devices"])
+    td.init_process_group(spec["backend"], store=td.FileStore(
+        os.path.join(root, "store"), world), rank=rank, world_size=world)
+    try:
+        out = dp_steps(torch, dev, root, rank, world, spec["profile"])
+    finally:
+        td.destroy_process_group()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    return 0
+
+
+def run_processes(cmds, timeout, cwd=REPO, env=None):
+    """Run the commands side by side with their output in files beside
+    them; when one fails or the time limit passes, kill the rest (a rank
+    left alone waits in a collective for ever).  Returns the wall s."""
+    logs, procs = [], []
+    t0 = time.perf_counter()
+    try:
+        for i, cmd in enumerate(cmds):
+            logs.append(open(os.path.join(cwd, f"proc{i}.log"), "w+"))
+            procs.append(subprocess.Popen(cmd, cwd=REPO, stdout=logs[-1],
+                                          stderr=subprocess.STDOUT, env=env))
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() - t0 > timeout):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise SystemExit("processes failed: "
+                         + " | ".join(f"exit {p.returncode}: {t[-3000:]}"
+                                      for p, t in zip(procs, texts)))
+    return time.perf_counter() - t0
+
+
+def run_dp_ranks(torch, dev, weights, data_root, root, backend, devices,
+                 label):
+    """Phase 9(b): len(devices) ranks of ``backend``, processes of their own
+    on ``devices``, DP_GLOBAL_BATCH / len(devices) scans each, against one
+    process on ``dev`` on the joined batch of DP_GLOBAL_BATCH (data_root's
+    train split), drop_path_rate 0.1: fp32 reduced gradients within 1e-4
+    of each parameter's max|ref|, bf16 gradient cosine >= 0.999, the ranks'
+    gradients and weights equal bit for bit."""
+    world = len(devices)
+    profile = backend == "nccl"   # gloo on one card times host copies
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(dict(backend=backend, devices=devices, profile=profile), f)
+    torch.save(weights, os.path.join(root, "weights.pt"))
+    width = FLAGSHIP["img_size"][1]
+    low, high = load_batches(data_root, DP_GLOBAL_BATCH, width,
+                             split="train")[0]
+    np.savez(os.path.join(root, "batch.npz"), low=low["sample"],
+             high=high["sample"])
+    wall = run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+          root] for r in range(world)], timeout=600, cwd=root)
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
+             for r in range(world)]
+    ref = dp_steps(torch, dev, root, 0, 1)
+    g32 = ranks[0]["fp32"]["grads"]
+    errs = {k: rel_err(torch, g32[k], v)
+            for k, v in ref["fp32"]["grads"].items()}
+    worst = max(errs, key=errs.get)
+    _, _, cos = grad_check(torch, (0.0, ranks[0]["bf16"]["grads"]),
+                           (1.0, ref["bf16"]["grads"]))
+    same = {name: all(torch.equal(v, r[name]["grads"][k])
+                      for r in ranks[1:]
+                      for k, v in ranks[0][name]["grads"].items())
+            for name in ("fp32", "bf16")}
+    w0 = ranks[0]["bf16"]["weights"]
+    same_w = all(torch.equal(v, r["bf16"]["weights"][k])
+                 for r in ranks[1:] for k, v in w0.items())
+    moved = max(float((w0[k] - weights[k]).abs().max()) for k in w0)
+    rank_ms = [statistics.median(r["bf16"]["ms"][1:]) for r in ranks]
+    print(f"dp {label}: {world} {backend} ranks on {sorted(set(devices))}, "
+          f"batch {DP_GLOBAL_BATCH // world} each, against one process at "
+          f"batch {DP_GLOBAL_BATCH}, drop_path_rate 0.1: fp32 reduced "
+          f"gradient worst {worst} err/max|ref| {errs[worst]:.2e} (limit "
+          f"1e-4), loss {ranks[0]['fp32']['losses']} vs "
+          f"{ref['fp32']['losses']}; bf16 gradient cosine {cos:.6f} (limit "
+          f"0.999); the ranks' reduced gradients bit-equal {same}, weights "
+          f"after {DP_STEPS} bf16 steps bit-equal {same_w} (moved "
+          f"{moved:.2e}); bf16 step ms, the host clock around each step "
+          f"(after the first): ranks {[round(m, 2) for m in rank_ms]}, one "
+          f"process {statistics.median(ref['bf16']['ms'][1:]):.2f}; the "
+          f"ranks' wall {wall:.1f} s", flush=True)
+    if not (errs[worst] <= 1e-4 and cos >= 0.999 and all(same.values())
+            and same_w and moved > 0):
+        raise SystemExit(f"dp {label}: the ranks disagree with one process "
+                         "or with each other")
+    report = dict(
+        backend=backend, devices=devices,
+        fp32_worst_grad=worst, fp32_worst_grad_err=errs[worst],
+        bf16_grad_cos=cos, ranks_bit_equal=same_w,
+        losses=[r["bf16"]["losses"] for r in ranks],
+        one_process_losses=ref["bf16"]["losses"], rank_step_ms=rank_ms,
+        one_process_step_ms=ref["bf16"]["ms"])
+    if profile:
+        prof = ranks[0]["profile"]
+        nccl = {k: v for k, v in prof["step"].items() if "nccl" in k.lower()}
+        report.update(
+            step_device_ms=sum(prof["step"].values()) / 1e3,
+            step_nccl_us=nccl, average_device_us=prof["average"])
+        print(f"dp {label}: rank 0's bf16 step {report['step_device_ms']:.3f}"
+              f" ms of device time, NCCL kernels a step "
+              f"{ {k[:60]: round(v, 1) for k, v in nccl.items()} } us; one "
+              f"average_ of the step's gradients "
+              f"{sum(prof['average'].values()) / 1e3:.4f} ms "
+              f"({ {k[:60]: round(v, 1) for k, v in prof['average'].items()} }"
+              f" us)", flush=True)
+        if not nccl:
+            raise SystemExit(f"dp {label}: the profiler saw no NCCL kernel")
+    return report
+
+
+def run_ranks_check(torch, n):
+    """``chip_smoke.py --ranks N``: data parallel over N GPUs under NCCL,
+    for a machine with N cards.  (i) The command line through
+    ``torchrun --standalone --nproc_per_node=N`` in fp32, batch 1 a rank,
+    2 epochs, against one process at batch N on one device (with batch 1 a
+    rank, step k of the ranks' strides is the one process's step k, rows
+    in the same order, so the drop-path draws fall on the same samples):
+    one log.txt and one TensorBoard file, the losses within 1e-5 relative
+    and the weights of checkpoint-1.pth within the AdamW limits of
+    tests/test_torch_train.py at lr 5e-4 over the run's steps (every
+    element within 2 lr a step, at most 0.5 % of them beyond 1e-2 lr, the
+    mean below 1e-3 lr): AdamW's normalised update turns the rounding noise
+    of a gradient entry near zero into a move of up to lr.
+    (ii) Phase 9(b) over the N ranks, one device each, with rank 0's
+    profile of the step and of one gradient average."""
+    import shutil
+    from tulip_tpu_torch.models.tulip import init_params, tulip_base
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f"--ranks {n}: {torch.cuda.device_count()} GPU(s)")
+    root = os.path.join(REPO, "build", "chip_smoke_ranks")
+    shutil.rmtree(root, ignore_errors=True)
+    data_root = os.path.join(root, "durlar")
+    width = FLAGSHIP["img_size"][1]
+    write_durlar(data_root, CLI_TRAIN, width, split="train")
+    write_durlar(data_root, CLI_VAL, width, split="val")
+    runs = {}
+    for name, batch, launcher in (
+            ("ranks", 1, ["-m", "torch.distributed.run", "--standalone",
+                          f"--nproc_per_node={n}"]),
+            ("one", n, [])):
+        out = os.path.join(root, name)
+        flags = cli_flags(data_root, out, "--epochs", "2", "--warmup_epochs",
+                          "1", "--save_frequency", "1", "--precision", "fp32")
+        flags[flags.index("--batch_size") + 1] = str(batch)
+        os.makedirs(out)
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        t = run_processes([[sys.executable, *launcher, "-m",
+                            "tulip_tpu_torch.main_lidar_upsampling", *flags]],
+                          timeout=900, cwd=out, env=env)
+        ckpt = torch.load(os.path.join(out, "checkpoint-1.pth"),
+                          weights_only=True)
+        runs[name] = dict(log=read_log(out), model=ckpt["model"], s=t,
+                          tb=len([f for f in os.listdir(out)
+                                  if f.startswith("events.out.tfevents")]))
+    ranks, one = runs["ranks"], runs["one"]
+    lr, steps = 5e-4, 2 * (CLI_TRAIN // n)
+    d = torch.cat([(ranks["model"][k] - v).abs().reshape(-1)
+                   for k, v in one["model"].items()])
+    moves = dict(max=float(d.max()), share=float((d > 1e-2 * lr).float()
+                                                 .mean()),
+                 mean=float(d.mean()))
+    losses = [(a["train_loss"], b["train_loss"])
+              for a, b in zip(ranks["log"], one["log"])]
+    ok = (len(ranks["log"]) == len(one["log"]) == 2 and ranks["tb"] == 1
+          and all(abs(a - b) <= 1e-5 * abs(b) for a, b in losses)
+          and moves["max"] <= 2 * lr * steps and moves["share"] <= 5e-3
+          and moves["mean"] <= 1e-3 * lr)
+    print(f"ranks (i) torchrun --nproc_per_node={n} (nccl), fp32, batch "
+          f"1 a rank, against one process at batch {n}, {steps} steps: "
+          f"train_loss {losses}; weights |diff| max {moves['max']:.3e} "
+          f"(limit {2 * lr * steps:.1e}), share beyond 1e-2 lr "
+          f"{moves['share']:.2e} (limit 5e-3), mean {moves['mean']:.3e} "
+          f"(limit {1e-3 * lr:.1e}); TensorBoard files {ranks['tb']}; wall "
+          f"{ranks['s']:.1f} / {one['s']:.1f} s", flush=True)
+    if not ok:
+        raise SystemExit(f"--ranks {n}: the command line under {n} ranks "
+                         "differs from one process")
+    cfg = tulip_base(**FLAGSHIP).cfg
+    weights = init_params(cfg, torch.Generator().manual_seed(0))
+    dp_root = os.path.join(root, "steps")
+    os.makedirs(dp_root)
+    report = run_dp_ranks(torch, torch.device("cuda", 0), weights, data_root,
+                          dp_root, "nccl", [f"cuda:{r}" for r in range(n)],
+                          f"(ii) nccl over {n} GPUs")
+    report["cli"] = dict(losses=losses, weight_diff=moves,
+                         wall_s=[ranks["s"], one["s"]])
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"ranks{n}.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
+def run_dp_phase(torch, dev, weights):
+    """Phase 9: data parallel.  (a) the command line of phase 8 as rank 0
+    of a launcher's world of 1 (a real NCCL group, file:// rendezvous),
+    with the counts set to 0 just before it and read just after; the
+    group's all-reduce per train step by the profiler; the step with and
+    without the group.  (b) two gloo ranks in processes of their own on
+    the card against one process on the joined batch."""
+    import shutil
+    import torch.distributed as td
+    from tulip_tpu_torch.parallel import dist
+    from tulip_tpu_torch.train.step import make_optimizer, make_train_step
+    from tulip_tpu_torch.models.tulip import tulip_base
+
+    cli_root = os.path.join(REPO, "build", "chip_smoke_cli")
+    data_root = os.path.join(cli_root, "durlar")
+    root = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    report = {}
+
+    # -- (a) one rank under nccl, against phase 8's run without a group ---
+    one = os.path.join(root, "one_rank")
+    backends = []
+    init_group = td.init_process_group
+
+    def recording_init(*a, **k):
+        init_group(*a, **k)
+        backends.append(td.get_backend())
+
+    launcher = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(launcher, TULIP_TPU_LN_PALLAS="1")
+    td.init_process_group = recording_init
+    reset_counts()
+    try:
+        run_cli_train(cli_flags(
+            data_root, one, "--epochs", "2", "--warmup_epochs", "1",
+            "--save_frequency", "1", "--dist_url",
+            f"file://{os.path.join(root, 'init_cli')}"))
+    finally:
+        td.init_process_group = init_group
+        for k in launcher:
+            os.environ.pop(k)
+    got = counts()
+    n = 2 * (CLI_TRAIN // CLI_BATCH)
+    want = {k: v * n for k, v in PER_STEP_CLI.items()}
+    if backends != ["nccl"] or dist.in_group():
+        raise SystemExit(f"dp: the command line's group {backends}, still "
+                         f"initialised after main: {dist.in_group()}")
+    if {k: got[k] for k in want} != want:
+        raise SystemExit(f"dp cli: launches {got}, expected {want}")
+    two = os.path.join(cli_root, "two_epochs")
+    log_a, log_b = read_log(one), read_log(two)
+    a = torch.load(os.path.join(one, "checkpoint-1.pth"), weights_only=True)
+    b = torch.load(os.path.join(two, "checkpoint-1.pth"), weights_only=True)
+    same_w = all(torch.equal(v, b["model"][k]) for k, v in a["model"].items())
+    same_m = all(torch.equal(s["exp_avg"], b["optimizer"]["state"][k]
+                             ["exp_avg"])
+                 for k, s in a["optimizer"]["state"].items())
+    print(f"dp (a) cli as rank 0 of 1 (--dist_url file://), backend "
+          f"{backends[0]}: launches/step { {k: got[k] // n for k in want} }, "
+          f"train_loss {[e['train_loss'] for e in log_a]} vs without a "
+          f"group {[e['train_loss'] for e in log_b]}; weights bit-equal "
+          f"{same_w}, exp_avg bit-equal {same_m}", flush=True)
+    if not (log_a == log_b and same_w and same_m):
+        raise SystemExit("dp (a): the one-rank nccl run differs from the run "
+                         "without a group")
+    report["one_rank"] = dict(backend=backends[0], log=log_a,
+                              launches_per_step={k: got[k] // n
+                                                 for k in want})
+
+    # the all-reduce in the step: its calls a step, the device time of the
+    # step with and without the group and of one reduction of the step's
+    # gradients (profiler), and the step's ms with and without the group,
+    # in the order off, on, on, off
+    batches = load_batches(data_root, TRAIN_BATCH, 2048, split="train")
+    low = torch.from_numpy(batches[0][0]["sample"]).to(dev)
+    high = torch.from_numpy(batches[0][1]["sample"]).to(dev)
+
+    def train_step():
+        model = tulip_base(drop_path_rate=0.1, **FLAGSHIP)
+        model.load_state_dict(weights, strict=True)
+        model = model.to(dev)
+        step = make_train_step(model, make_optimizer(model, 0.01),
+                               compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return model, lambda: step(low, high, 5e-4, gen)
+
+    ms = {False: [], True: []}
+    ms[False].append(timed_steps(torch, dev, weights, batches, 10, True))
+    os.environ["TULIP_TPU_LN_PALLAS"] = "1"
+    model, fn = train_step()
+    step_us = {False: device_us(torch, fn, n=5)}
+    del model, fn
+    td.init_process_group("nccl", init_method=f"file://"
+                          f"{os.path.join(root, 'init_step')}",
+                          world_size=1, rank=0)
+    try:
+        ms[True].append(timed_steps(torch, dev, weights, batches, 10, True))
+        ms[True].append(timed_steps(torch, dev, weights, batches, 10, True))
+        os.environ["TULIP_TPU_LN_PALLAS"] = "1"
+        model, fn = train_step()
+        step_us[True] = device_us(torch, fn, n=5)
+        calls, all_reduce = [], td.all_reduce
+        td.all_reduce = lambda t, *a, **k: (calls.append(t.numel()),
+                                            all_reduce(t, *a, **k))[1]
+        try:
+            fn()
+        finally:
+            td.all_reduce = all_reduce
+        grads = [torch.randn_like(p) for p in model.parameters()]
+        grads.append(torch.zeros(2, device=dev))   # the two losses
+        buckets = len(list(dist._buckets(grads, dist.BUCKET_BYTES)))
+        avg_us = device_us(torch, lambda: dist.average_(grads), n=10)
+        del model, fn, grads
+    finally:
+        td.destroy_process_group()
+    ms[False].append(timed_steps(torch, dev, weights, batches, 10, True))
+    os.environ.pop("TULIP_TPU_LN_PALLAS", None)
+    nccl = {k: v for k, v in step_us[True].items() if "nccl" in k.lower()}
+    busy = {k: sum(v.values()) / 1e3 for k, v in step_us.items()}
+    avg_ms = sum(avg_us.values()) / 1e3
+    print(f"dp (a) train step, batch {TRAIN_BATCH}, bf16, "
+          f"TULIP_TPU_LN_PALLAS=1: {len(calls)} all_reduce calls a step in "
+          f"one rank's nccl group ({sum(calls) * 4 / 1e6:.1f} MB, {buckets} "
+          f"buckets expected); device ms a step {busy[True]:.3f} under the "
+          f"group, {busy[False]:.3f} without; NCCL kernels a step "
+          f"{ {k: round(v, 2) for k, v in nccl.items()} } (us); one "
+          f"average_ of the step's gradients {avg_ms:.4f} ms of device time "
+          f"({ {k[:60]: round(v, 2) for k, v in avg_us.items()} } us); "
+          f"median step ms of 8 timed steps, runs off, on, on, off: without "
+          f"a group {ms[False][0]:.2f} / {ms[False][1]:.2f}, under the group "
+          f"{ms[True][0]:.2f} / {ms[True][1]:.2f}", flush=True)
+    if len(calls) != buckets:
+        raise SystemExit(f"dp (a): {len(calls)} all_reduce calls a step, "
+                         f"expected {buckets}")
+    report["step"] = dict(all_reduce_calls=len(calls),
+                          all_reduce_mb=sum(calls) * 4 / 1e6,
+                          device_ms_group=busy[True],
+                          device_ms_no_group=busy[False],
+                          nccl_us=nccl, average_ms=avg_ms,
+                          average_us_by_name=avg_us,
+                          step_ms_no_group=ms[False], step_ms_group=ms[True])
+
+    report["two_ranks"] = run_dp_ranks(
+        torch, dev, weights, data_root, root, "gloo", [str(dev)] * 2,
+        "(b) gloo, one card (host copies, not a multi-GPU time)")
+    return report
+
+
 # kernel-name substring -> class of the profile's summary line; a name that
 # matches none is PyTorch's own
 PROFILE_CLASSES = {
@@ -2407,6 +2859,9 @@ def time_paths_nn(torch, dev, tree, data_root, weights):
 
 def main() -> int:
     import torch
+    if "--dp-rank" in sys.argv[1:]:
+        i = sys.argv.index("--dp-rank")
+        return dp_rank_main(int(sys.argv[i + 1]), sys.argv[i + 2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2438,6 +2893,10 @@ def main() -> int:
     if "--paths" in sys.argv[1:]:
         build.load()
         return time_paths(torch, dev, tree)
+    if "--ranks" in sys.argv[1:]:
+        build.load()
+        return run_ranks_check(
+            torch, int(sys.argv[sys.argv.index("--ranks") + 1]))
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2572,6 +3031,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_report = run_cli_phase(torch, dev, weights)
 
+    # -- 9. data parallel ----------------------------------------------------
+    torch.cuda.empty_cache()
+    dp_report = run_dp_phase(torch, dev, weights)
+
     # -- summary -----------------------------------------------------------
     # per kernel: the sums over its bf16 (chamfer: fp32) cases on the path
     kernels = []
@@ -2622,6 +3085,7 @@ def main() -> int:
         json.dump(dict(nvidia_smi=smi_line, device=kind, table=table,
                        img_per_s=throughput, kernels=kernels,
                        eval=eval_report, train=train_report, cli=cli_report,
+                       data_parallel=dp_report,
                        build=dict(seconds=build_s, nvcc_seconds=nvcc_s),
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)

@@ -3,7 +3,7 @@ as bash_scripts/*.sh drive the reference, on a synthetic CARLA folder
 (16x256 -> 64x256, the smallest width TULIP-base's four stages take), on
 the CPU: train 2 epochs -> checkpoints -> resume to 3 -> --eval from the
 directory and from the .pth -> --eval --mc_drop; and the device, launcher
-and not-yet-ported rules.  The longer runs (resume against an
+(the process group), --mesh_shape and not-yet-ported rules.  The longer runs (resume against an
 uninterrupted run, SIGTERM, ``python -m``, the first step against the JAX
 package) are in test_torch_cli_runs.py, a file of its own so that the two
 run side by side."""
@@ -205,30 +205,67 @@ def test_default_device_needs_a_gpu(carla, tmp_path, monkeypatch):
     assert M._device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("flags,slice_no", [
-    (["--sp_degree", "2"], "slice 6"), (["--mesh_shape", "4"], "slice 5")])
+@pytest.mark.parametrize("flags,slice_no", [(["--sp_degree", "2"], "slice 6")])
 def test_unported_parallel_flags_raise(carla, tmp_path, flags, slice_no):
     with pytest.raises(NotImplementedError, match=slice_no):
         _main(_common(carla) + _train_flags(str(tmp_path / "run"), 1) + flags)
 
 
-def test_launcher_ranks(monkeypatch, capsys):
-    """Under torchrun with world 4: rank 2 prints and exits 0, rank 0 goes
-    on alone with the launcher's world size recorded (the batch is then
-    batch_size x 4); TULIP_TPU_MULTIHOST=1 raises, naming the slice."""
-    args = get_args_parser().parse_args([])
-    monkeypatch.setenv("RANK", "2")
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(SystemExit) as e:
-        TMesh.init_distributed_mode(args)
-    assert e.value.code == 0 and "this rank exits" in capsys.readouterr().out
-    monkeypatch.setenv("RANK", "0")
-    TMesh.init_distributed_mode(args)
-    assert (args.rank, args.launcher_world_size, args.distributed) == \
-        (0, 4, False)
+@pytest.mark.parametrize("shape", [["4"], ["2"], ["1", "1"]])
+def test_mesh_shape_other_than_the_world_size_raises(carla, tmp_path, shape):
+    """--mesh_shape names the one data axis of the group: without a
+    launcher, a world of 1."""
+    with pytest.raises(ValueError, match="1 rank"):
+        _main(_common(carla) + _train_flags(str(tmp_path / "run"), 1)
+              + ["--mesh_shape", *shape])
+
+
+def test_mesh_shape_of_the_world_and_multihost_train(carla, tmp_path,
+                                                     monkeypatch):
+    """--mesh_shape 1 (the world without a launcher) and
+    TULIP_TPU_MULTIHOST=1 (one group in torch, whatever the hosts) ask for
+    nothing more: the run trains."""
     monkeypatch.setenv("TULIP_TPU_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        TMesh.init_distributed_mode(args)
+    out_dir = str(tmp_path / "run")
+    _main(_common(carla) + _train_flags(out_dir, 1) + ["--mesh_shape", "1"])
+    assert os.path.exists(os.path.join(out_dir, "checkpoint-0.pth"))
+
+
+def test_launcher_joins_a_group(monkeypatch, tmp_path):
+    """Under a launcher (world 1 included) the process joins a group at
+    --dist_url: gloo for --device cpu; nccl on cuda:LOCAL_RANK for --device
+    cuda, the device deciding.  Without one, no group."""
+    import torch.distributed as td
+    args = get_args_parser().parse_args(["--device", "cpu"])
+    TMesh.init_distributed_mode(args)
+    assert (args.rank, args.world_size, args.distributed, args.gpu) == \
+        (0, 1, False, None)
+    assert not td.is_initialized()
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("TULIP_TPU_MULTIHOST", "1")
+    args = get_args_parser().parse_args(
+        ["--device", "cpu", "--dist_url", f"file://{tmp_path / 'init'}"])
+    TMesh.init_distributed_mode(args)
+    try:
+        assert args.distributed and args.gpu is None
+        assert td.get_backend() == "gloo" and td.get_world_size() == 1
+    finally:
+        td.destroy_process_group()
+
+    calls = []
+    monkeypatch.setenv("RANK", "3")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setattr(TMesh.torch.cuda, "set_device", calls.append)
+    monkeypatch.setattr(TMesh.td, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    args = get_args_parser().parse_args(["--dist_url", "env://"])
+    TMesh.init_distributed_mode(args)
+    assert calls == [1, ("nccl", dict(init_method="env://", world_size=4,
+                                      rank=3))]
+    assert (args.rank, args.gpu, args.distributed) == (3, 1, True)
 
 
 @pytest.mark.parametrize("env,dist_on_itp", [

@@ -10,7 +10,7 @@ keep equal to the originals.
 - ``tulip_tpu_torch.main_lidar_upsampling``  the command line (``python3 -m
   tulip_tpu_torch.main_lidar_upsampling``, the flags of bash_scripts/*.sh):
   train, checkpoint, resume, ``--eval``; ``--device cuda`` (default) or
-  ``cpu``.
+  ``cpu``; data-parallel under ``torchrun --nproc_per_node=N``.
 - ``tulip_tpu_torch.config``    the argument parser and the static model
   config (a copy of ``tulip_tpu/config.py``; ``--attn_impl`` is accepted
   and ignored).
@@ -29,8 +29,9 @@ keep equal to the originals.
 - ``tulip_tpu_torch.eval``      the evaluate / MCdrop engines, device
   projections and metrics (chamfer, voxel counts).
 - ``tulip_tpu_torch.parallel``  grid rolls and circular padding; launcher
-  discovery and the single-process start-up (``mesh``); the
-  single-process rank and metric reduction (``dist``).
+  discovery, the torch.distributed group and the replicas (``mesh``); the
+  rank, the metric reductions and the bucketed gradient average
+  (``dist``).
 - ``tulip_tpu_torch.utils``     checkpoints (save / load / resume, the JAX
   package's native file included) and the weight exchange with the JAX
   package, the TensorBoard / PLY writers, the LR schedule and the metric

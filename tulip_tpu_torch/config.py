@@ -125,8 +125,10 @@ def get_args_parser() -> argparse.ArgumentParser:
                              'brute force, pallas_h = hierarchical exact '
                              'tile skipping, xla = plain tensor ops)')
     parser.add_argument('--mesh_shape', nargs='+', type=int, default=None,
-                        help='device mesh shape of the JAX package; not '
-                             'ported yet (raises)')
+                        help='device mesh shape of the JAX package; the '
+                             'port has one data axis over the ranks of its '
+                             'group, so N, the world size (any other shape '
+                             'raises)')
     parser.add_argument('--sp_degree', default=1, type=int,
                         help='sequence-parallel degree of the JAX package '
                              '(W-axis sharding); values above 1 are not '

@@ -14,6 +14,11 @@ sample).  Metric-order parity quirks preserved:
 - MCdrop std uses Bessel's correction (torch.std default, engine:423) and
   zeroes pixels where std > threshold * mean (engine:424-426).
 - metrics only accumulate when a log_writer is present (engine:174, 428).
+  Under data parallel each rank evaluates its own stride of the val set
+  (as the JAX entry shards it) and only rank 0, the one rank with a
+  log_writer, computes metrics and writes the results file and the PLY
+  clouds: the reference's quirk kept (SURVEY.md:197-200), its results
+  cover rank 0's share.  No two ranks write the same file.
 - keep_close_scan zeroes ranges > 0.25 for durlar in evaluate and for
   kitti in MCdrop only.
 
@@ -34,6 +39,7 @@ import tqdm
 
 from ..models.tulip import apply_model
 from ..ops.chamfer import get_chamfer_impl
+from ..parallel import dist
 from ..utils.writer import colorize_range_image, write_ply
 from .geometry import (img_to_pcd_carla, img_to_pcd_carla_torch,
                        img_to_pcd_durlar, img_to_pcd_durlar_torch,
@@ -277,6 +283,8 @@ def _log_sample(log_writer, local_step, global_step, images_high_res,
 
 def _finalize(evaluation_metrics, totals, global_step, log_writer, args,
               results_name):
+    if not dist.is_main_process():
+        return evaluation_metrics
     evaluation_file_path = os.path.join(args.output_dir, results_name)
     with open(evaluation_file_path, 'w') as f:
         json.dump(evaluation_metrics, f)

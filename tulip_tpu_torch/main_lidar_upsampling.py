@@ -1,8 +1,9 @@
 """Command-line entry point of the port: flag- and workflow-compatible with
 the reference (tulip/main_lidar_upsampling.py:34-329) and with the JAX
-package's entry, step for step, on PyTorch and one CUDA device.
+package's entry, step for step, on PyTorch with one CUDA device a process.
 
     python3 -m tulip_tpu_torch.main_lidar_upsampling <the flags of bash_scripts/*.sh>
+    torchrun --nproc_per_node=N -m tulip_tpu_torch.main_lidar_upsampling <flags>
 
 Train: datasets and loaders, model from the flags, AdamW over fp32 master
 weights with bf16 compute (``--precision``), ``--resume``, one
@@ -14,9 +15,18 @@ weights with bf16 compute (``--precision``), ``--resume``, one
 
 ``--device`` chooses the device: ``cuda`` (the default) runs on the GPU and
 raises if there is none; ``cpu`` runs the plain PyTorch versions of the
-kernels.  Nothing falls back to the CPU by itself.  Under ``torchrun`` with
-N processes rank 0 runs alone with ``batch_size x N`` as its batch and the
-other ranks exit cleanly (real data parallel is not ported yet).
+kernels.  Nothing falls back to the CPU by itself.
+
+Under a launcher (torchrun, OpenMPI with ``--dist_on_itp``, SLURM) the N
+ranks train data-parallel in one torch.distributed group joined at
+``--dist_url`` (nccl for ``--device cuda`` on ``cuda:LOCAL_RANK``, gloo for
+``--device cpu``; parallel/mesh.py): each rank loads its own stride of the
+epoch and steps on ``--batch_size`` samples, the gradients are averaged
+across the ranks, and the global batch (and the lr rule's effective batch)
+is ``batch_size x N x accum_iter``.  Only rank 0 prints, logs and writes
+checkpoints; every rank reads the same checkpoint on ``--resume`` and the
+weights are then broadcast from rank 0.  ``--mesh_shape`` may name the
+group's one data axis (N); ``--sp_degree`` above 1 is a later slice.
 """
 
 import datetime
@@ -29,6 +39,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 
 
 def _device(name: str) -> torch.device:
@@ -47,6 +58,20 @@ def _device(name: str) -> torch.device:
 
 
 def main(args):
+    from tulip_tpu_torch.parallel.mesh import init_distributed_mode
+
+    device = _device(args.device)   # no GPU: raise before joining a group
+    init_distributed_mode(args)
+    if args.gpu is not None:
+        device = torch.device("cuda", args.gpu)
+    try:
+        _run(args, device)
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device):
     from tulip_tpu_torch.config import model_config_from_args
     from tulip_tpu_torch.data import generate_dataset
     from tulip_tpu_torch.data.pipeline import DataLoader, ShardedSampler
@@ -54,13 +79,12 @@ def main(args):
     from tulip_tpu_torch.models.tulip import TULIP, init_params
     from tulip_tpu_torch.ops.chamfer import set_default_chamfer_impl
     from tulip_tpu_torch.parallel import dist
-    from tulip_tpu_torch.parallel.mesh import init_distributed_mode
+    from tulip_tpu_torch.parallel.mesh import check_mesh_shape, replicate
     from tulip_tpu_torch.train.engine import train_one_epoch
     from tulip_tpu_torch.train.step import make_optimizer, make_train_step
     from tulip_tpu_torch.utils import checkpoint as ckpt_util
     from tulip_tpu_torch.utils.writer import TBWriter, finish_wandb, init_wandb
 
-    init_distributed_mode(args)
     set_default_chamfer_impl(args.chamfer_impl)
 
     sp = getattr(args, 'sp_degree', 1) or 1
@@ -68,12 +92,7 @@ def main(args):
         raise NotImplementedError(
             f"--sp_degree {sp}: W-axis sequence parallel is slice 6 of the "
             "port (parallel/{sp,halo}.py) and is not ported yet")
-    if getattr(args, 'mesh_shape', None):
-        raise NotImplementedError(
-            f"--mesh_shape {args.mesh_shape}: data parallel over a device "
-            "mesh is slice 5 of the port (parallel/{mesh,dist}.py) and is "
-            "not ported yet")
-    device = _device(args.device)
+    check_mesh_shape(getattr(args, 'mesh_shape', None))
 
     print('job dir: {}'.format(os.path.dirname(os.path.realpath(__file__))))
     print("{}".format(args).replace(', ', ',\n'))
@@ -90,12 +109,10 @@ def main(args):
           f"and {len(dataset_val)} validation data")
 
     # Effective batch parity: torchrun scripts mean batch_size per worker x
-    # nproc (reference: main:265).  One process feeds the whole batch to
-    # the one device.
-    launcher_world = getattr(args, 'launcher_world_size', 1)
-    global_batch = args.batch_size * max(1, launcher_world)
+    # nproc (reference: main:265)
+    world, global_rank = dist.get_world_size(), dist.get_rank()
+    global_batch = args.batch_size * world
 
-    global_rank = dist.get_rank()
     wandb_mod = init_wandb(args) if global_rank == 0 else None
     if global_rank == 0 and args.log_dir is not None:
         os.makedirs(args.log_dir, exist_ok=True)
@@ -103,16 +120,18 @@ def main(args):
     else:
         log_writer = None
 
-    sampler_train = ShardedSampler(len(dataset_train), num_replicas=1, rank=0,
-                                   shuffle=True, seed=args.seed,
-                                   drop_last=True)
+    # each rank loads its own stride of the epoch, for train and val
+    # (reference: DistributedSampler, main:172-178)
+    sampler_train = ShardedSampler(len(dataset_train), num_replicas=world,
+                                   rank=global_rank, shuffle=True,
+                                   seed=args.seed, drop_last=True)
     data_loader_train = DataLoader(
-        dataset_train, batch_size=global_batch, sampler=sampler_train,
+        dataset_train, batch_size=args.batch_size, sampler=sampler_train,
         drop_last=True, num_workers=args.num_workers)
     data_loader_val = DataLoader(
         dataset_val, batch_size=1,
-        sampler=ShardedSampler(len(dataset_val), num_replicas=1, rank=0,
-                               shuffle=False),
+        sampler=ShardedSampler(len(dataset_val), num_replicas=world,
+                               rank=global_rank, shuffle=False),
         drop_last=False, num_workers=args.num_workers)
 
     cfg = model_config_from_args(args)
@@ -135,6 +154,7 @@ def main(args):
             ckpt_util.get_latest_checkpoint(args)
         ckpt_util.load_model(args, model, None)
         model = model.to(device=device, dtype=eval_dtype)
+        replicate(model)
 
         print("Start Evaluation")
         if args.mc_drop:
@@ -167,13 +187,15 @@ def main(args):
 
     args.start_epoch = ckpt_util.load_model(args, model, optimizer,
                                             train_step)
+    replicate(model)
 
     print(f"Start training for {args.epochs} epochs")
     start_time = time.time()
 
     # Preemption handling (as the JAX package's entry): on SIGTERM finish
     # the current epoch, checkpoint, and exit cleanly so that --resume /
-    # get_latest_checkpoint restarts it.
+    # get_latest_checkpoint restarts it.  The flag is reduced over the
+    # ranks at the end of each epoch, so that all of them stop together.
     preempted = {"flag": False}
 
     def _on_sigterm(signum, frame):
@@ -196,6 +218,7 @@ def main(args):
             if dist.is_main_process():
                 ckpt_util.save_model(args, epoch, model, optimizer,
                                      train_step)
+            dist.barrier()
 
         log_stats = {**{f'train_{k}': v for k, v in train_stats.items()},
                      'epoch': epoch}
@@ -206,12 +229,15 @@ def main(args):
                       encoding="utf-8") as f:
                 f.write(json.dumps(log_stats) + "\n")
 
-        if preempted["flag"]:
+        stop = dist.all_reduce_sum(
+            np.asarray([float(preempted["flag"])]))[0] > 0
+        if stop:
             if args.output_dir and dist.is_main_process():
                 ckpt_util.save_model(args, epoch, model, optimizer,
                                      train_step)
                 print(f"[tulip_tpu_torch] preemption checkpoint written at "
                       f"epoch {epoch}")
+            dist.barrier()
             break
 
     total_time = time.time() - start_time

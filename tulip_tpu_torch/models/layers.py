@@ -18,7 +18,7 @@ autograd in float64.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -62,18 +62,39 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+class RankDraws(NamedTuple):
+    """The drop-path draws of one rank of ``world`` under data parallel:
+    each draw is the keep mask of the global batch (``world`` ranks of
+    equal batch, joined in rank order) from ``generator``, which every rank
+    seeds alike; the rank keeps its own rows.  So the ranks' generators
+    stay in step and N ranks draw what one process draws on the joined
+    batch, as the JAX package's one key for the global batch does."""
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
+Draws = Union[torch.Generator, RankDraws]
+
 def drop_path(x: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator],
+              generator: Optional[Draws],
               active: bool) -> torch.Tensor:
     """Per-sample stochastic depth (reference: tulip/model/tulip.py:16-30;
     tulip_tpu/models/layers.py:drop_path): each sample of the batch is kept
     with probability 1 - rate and scaled by 1 / (1 - rate), or zeroed.  The
-    draw comes from ``generator``, which lives on x's device."""
+    draw comes from ``generator``, which lives on x's device: a
+    ``torch.Generator`` where x is the whole batch, a :class:`RankDraws`
+    where x is one rank's rows of it."""
     if not active or rate == 0.0 or generator is None:
         return x
+    rank, world = 0, 1
+    if isinstance(generator, RankDraws):
+        generator, rank, world = generator
     keep = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    B = x.shape[0]
+    shape = (B * world,) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator,
+                      device=x.device)[rank * B:(rank + 1) * B] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -146,7 +146,7 @@ class SwinBlockV1(nn.Module):
         self.register_buffer("attn_mask", mask, persistent=False)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[L.Draws] = None) -> torch.Tensor:
         if train:
             return self._forward_train(x, generator)
         d = x.dtype
@@ -189,7 +189,7 @@ class SwinBlockV1(nn.Module):
         return roll_hw(out, sh, sw)
 
     def _forward_train(self, x: torch.Tensor,
-                       generator: Optional[torch.Generator]) -> torch.Tensor:
+                       generator: Optional[L.Draws]) -> torch.Tensor:
         B, H, W, C = x.shape
         d, rate = x.dtype, self.st.drop_path
         a, m = self.attn, self.mlp

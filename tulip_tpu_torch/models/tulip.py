@@ -208,7 +208,7 @@ class TULIP(nn.Module):
         return out.reshape(B, H * s, W * s, 1)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[L.Draws] = None) -> torch.Tensor:
         """NHWC input image -> NHWC prediction (reference: TULIP.forward,
         tulip.py:702-731).  ``train`` selects the blocks' training path
         (drop-path drawn from ``generator``)."""
@@ -247,12 +247,13 @@ def forward_loss(pred: torch.Tensor, target: torch.Tensor,
 def apply_model(model: TULIP, x: torch.Tensor,
                 target: Optional[torch.Tensor] = None, *, mode: str = "eval",
                 mc_drop: bool = False, compute_dtype=torch.float32,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[L.Draws] = None):
     """Public forward.  ``x``/``target`` are NCHW.  ``mode`` 'eval' is
     deterministic; 'mc' is model.eval() + active dropout, which is the
     identity at the shipped rates of 0; 'train' runs with autograd on and
-    drop-path active, drawn from ``generator`` (on x's device; None turns
-    drop-path off).  Returns pred (NCHW) if ``mc_drop`` else (pred,
+    drop-path active, drawn from ``generator`` (on x's device; a
+    ``layers.RankDraws`` where x is one rank's share of a data-parallel
+    batch; None turns drop-path off).  Returns pred (NCHW) if ``mc_drop`` else (pred,
     total_loss, pixel_loss), as tulip_tpu.models.tulip.apply_model does."""
     cfg = model.cfg
     if mode not in ("train", "eval", "mc"):

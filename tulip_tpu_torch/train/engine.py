@@ -7,6 +7,11 @@ the NaN abort (exit code 1); MetricLogger every 20 iterations; TensorBoard
 scalars on the epoch_1000x axis.  Losses are read one step late: the
 previous step's loss tensors are read back after the next step is
 launched, so the host waits on the card once per step at most.
+
+Under data parallel each rank draws the drop-path masks of the global
+batch from the same (seed, epoch) generator and keeps its own rows
+(``layers.RankDraws``); the step returns losses already averaged over the
+ranks, so the NaN abort fires on every rank at the same step.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import sys
 import numpy as np
 import torch
 
+from ..models.layers import RankDraws
 from ..parallel import dist
 from ..utils.logger import MetricLogger, SmoothedValue
 from ..utils.lr_sched import lr_at_epoch
@@ -51,9 +57,14 @@ def train_one_epoch(train_step, data_loader, epoch: int, *, device,
         print('log_dir: {}'.format(log_writer.logdir))
 
     # the epoch's drop-path draws: one generator on the device, seeded from
-    # (seed, epoch), in place of the JAX package's fold_in(key, epoch)
+    # (seed, epoch) alike on every rank, in place of the JAX package's
+    # fold_in(key, epoch); under data parallel each rank keeps its rows of
+    # the global batch's draws
     seed = np.random.SeedSequence([int(args.seed), epoch]).generate_state(1)
     generator = torch.Generator(device=device).manual_seed(int(seed[0]))
+    world = dist.get_world_size()
+    if world > 1:
+        generator = RankDraws(generator, dist.get_rank(), world)
     num_steps = len(data_loader)
     lr = 0.0
     pending = None  # (iter_step, lr, total_loss, pixel_loss) of the last step

@@ -115,7 +115,8 @@ def save_checkpoint(path: str, model: nn.Module, optimizer=None,
 
 def save_model(args, epoch: int, model: nn.Module, optimizer,
                train_step=None) -> None:
-    """(reference: misc.py:332-349); the caller gates on rank 0."""
+    """(reference: misc.py:332-349); the caller gates on rank 0 and then
+    waits at a barrier, so no rank reads a checkpoint before it is whole."""
     path = Path(args.output_dir) / f"checkpoint-{epoch}.pth"
     save_checkpoint(str(path), model, optimizer, epoch,
                     args=_plain_args(args), train_step=train_step)
@@ -274,7 +275,9 @@ def load_model(args, model: nn.Module, optimizer=None, train_step=None) -> int:
     """Resume semantics of misc.load_model:361-470: restore the model
     always; restore the optimizer (and the accumulation state of
     ``train_step``) and move start_epoch past the checkpoint's epoch unless
-    --eval.  Returns start_epoch."""
+    --eval.  Returns start_epoch.  Under data parallel every rank reads the
+    same file; the caller then broadcasts the parameters from rank 0
+    (parallel/mesh.py:replicate)."""
     start_epoch = getattr(args, "start_epoch", 0)
     if not args.resume:
         return start_epoch

@@ -6,8 +6,9 @@
         the time goes, in this checkout or in the one at DIR)
     python3 chip_smoke.py --paths [--tree DIR]    (time_paths: the forward's
         and the train step's wall ms, of this checkout or of the one at DIR)
-    python3 chip_smoke.py --ranks N    (run_ranks_check: data parallel over
-        N GPUs under NCCL, on a machine with N cards)
+    python3 chip_smoke.py --ranks N    (run_ranks_check: data parallel and
+        W-axis sequence parallel over N GPUs under NCCL, on a machine with
+        N cards)
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
@@ -92,6 +93,23 @@ Phases, one line or more each; any failure raises and exits non-zero:
    1e-4 of each parameter's max|ref|, the bf16 gradient's cosine >=
    0.999, the two ranks' gradients and, after 3 bf16 steps, weights equal
    bit for bit; their step ms measure host copies, not a multi-GPU system.
+
+10. W-axis sequence parallel (--sp_degree 2): two gloo ranks, processes of
+   their own on the one card, each on its W half of the scans
+   (run_sp_ranks): (a) the bf16 and fp32 forwards of TULIP-base at full
+   width, DurLAR 32x2048 -> 128x2048, batch 1 and 4, the two halves
+   joined, against one process on the same weights (bf16 within 3e-2 of
+   max|ref|, fp32 1e-4); (b) one fp32 and three bf16 train steps at batch
+   4, drop_path_rate 0.1, against one process: fp32 gradients within
+   1e-4 of each parameter's max|ref|, the bf16 gradient's cosine >=
+   0.999, the ranks' gradients and weights bit-equal; (c) K1 / K2
+   launches per forward on each rank 8 / 6, as unsharded, and the train
+   kernels' launches a step as one process's; (d) 15 halo exchanges a
+   forward, 29 a step, and their transport (gloo moves a CUDA tensor's
+   columns through host memory: the times are host-staged exchanges, not
+   a multi-GPU time): the bf16 forward's ms at batch 1 and 8 against one
+   process, the device ms of the exchanges (there: the staging copies) a
+   forward and a step, and of the step.
 
 Phase 3 also holds K1 / K2 in bf16 at batch 1 and 8 (the tensor-core
 kernel's head splits differ by batch) and at token counts that leave a last
@@ -2005,26 +2023,33 @@ def run_cli_phase(torch, dev, weights):
 DP_GLOBAL_BATCH, DP_STEPS = 8, 3
 
 
-def dp_steps(torch, dev, root, rank, world, profile=False):
+def dp_steps(torch, dev, root, rank, world, profile=False, mesh=None):
     """Phase 9(b)'s training, as rank ``rank`` of ``world`` (1: one process,
     no group): the flagship with drop_path_rate 0.1 from root/weights.pt,
     on rows [rank * b, (rank + 1) * b) of the batch in root/batch.npz, the
     drop-path draws of the whole batch from one generator seeded 0; one
-    fp32 step and DP_STEPS bf16 steps.  Returns, for each type, the first
-    update's gradient (fp32, on the CPU), the losses, the step ms and, for
-    bf16, the weights after the last step; with ``profile``, the device us
-    by kernel name of one more bf16 step and of one average_ of the step's
-    gradients (every rank runs them: they hold collectives)."""
+    fp32 step and DP_STEPS bf16 steps.  Under a sequence-parallel ``mesh``
+    (phase 10) the rows are the data index's and the rank takes its W
+    shard of them through make_sp_train_step.  Returns, for each type, the
+    first update's gradient (fp32, on the CPU), the losses, the step ms
+    and, for bf16, the weights after the last step and (under a mesh) the
+    kernel launches and halo exchanges a step; with ``profile``, the
+    device us by kernel name of one more bf16 step and of one average_ of
+    the step's gradients (every rank runs them: they hold collectives)."""
     from tulip_tpu_torch.models.layers import RankDraws
     from tulip_tpu_torch.models.tulip import tulip_base
-    from tulip_tpu_torch.parallel import dist
+    from tulip_tpu_torch.parallel import dist, halo
     from tulip_tpu_torch.parallel.mesh import replicate
+    from tulip_tpu_torch.parallel.sp import make_sp_train_step, shard_w
     from tulip_tpu_torch.train.step import make_optimizer, make_train_step
     weights = torch.load(os.path.join(root, "weights.pt"), weights_only=True)
+    d, dp = (rank, world) if mesh is None else (mesh.data_index, mesh.dp)
     with np.load(os.path.join(root, "batch.npz")) as f:
-        b = f["low"].shape[0] // world
-        low, high = (torch.from_numpy(f[k][rank * b:(rank + 1) * b]).to(dev)
+        b = f["low"].shape[0] // dp
+        low, high = (torch.from_numpy(f[k][d * b:(d + 1) * b]).to(dev)
                      for k in ("low", "high"))
+    if mesh is not None:
+        low, high = shard_w(low, mesh), shard_w(high, mesh)
     out = {}
     for name, dtype, steps in (("fp32", torch.float32, 1),
                                ("bf16", torch.bfloat16, DP_STEPS)):
@@ -2042,10 +2067,14 @@ def dp_steps(torch, dev, root, rank, world, profile=False):
             return opt_step(*a, **k)
 
         opt.step = recording_step
-        step = make_train_step(model, opt, compute_dtype=dtype)
+        step = (make_train_step(model, opt, compute_dtype=dtype)
+                if mesh is None else
+                make_sp_train_step(model, opt, mesh, compute_dtype=dtype))
         gen = torch.Generator(device=dev).manual_seed(0)
-        draws = gen if world == 1 else RankDraws(gen, rank, world)
+        draws = gen if world == 1 else RankDraws(gen, d, dp)
         losses, ms = [], []
+        reset_counts()
+        ex = halo.exchanges()
         for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2057,6 +2086,9 @@ def dp_steps(torch, dev, root, rank, world, profile=False):
         if name == "bf16":
             out[name]["weights"] = {n: p.detach().cpu()
                                     for n, p in model.named_parameters()}
+            out[name]["launches"] = {k: v // steps
+                                     for k, v in counts().items()}
+            out[name]["exchanges"] = (halo.exchanges() - ex) // steps
             if profile:
                 g = [torch.randn_like(p) for p in model.parameters()]
                 out["profile"] = dict(
@@ -2068,23 +2100,99 @@ def dp_steps(torch, dev, root, rank, world, profile=False):
     return out
 
 
+# phase 10: the batch of the sequence-parallel train steps, the batches of
+# the forwards held against one process and of the timed ones
+SP_BATCH = 4
+SP_CHECKED, SP_TIMED = (1, 4), (1, 8)
+
+
+def sp_forwards(torch, dev, root, mesh, profile=False):
+    """Phase 10 (a, c, d) on this rank of ``mesh`` (None: one process on
+    the whole scans, the reference): the flagship from
+    root/weights.pt in fp32 and bf16, mode "eval", on this rank's W shard
+    of each batch x{B} in root/forward.npz.  Returns the local preds at
+    the SP_CHECKED batches (on the CPU; the caller joins the shards), the
+    K1 / K2 launches and the halo exchanges of each forward (the counts
+    set to 0 just before it), the bf16 forward's median ms at the
+    SP_TIMED batches (host clock around synchronised forwards, every rank
+    in step), with ``profile`` their device us by kernel name, and the
+    exchanges' transport."""
+    from tulip_tpu_torch.models.tulip import apply_model, tulip_base
+    from tulip_tpu_torch.parallel import halo
+    from tulip_tpu_torch.parallel.sp import make_sp_forward, shard_w
+    weights = torch.load(os.path.join(root, "weights.pt"), weights_only=True)
+    with np.load(os.path.join(root, "forward.npz")) as f:
+        xs = {int(k[1:]): f[k] for k in f.files}
+    out = dict(preds={}, launches={}, exchanges={}, ms={}, profile={})
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = tulip_base(**FLAGSHIP)
+        model.load_state_dict(weights, strict=True)
+        model = model.to(device=dev, dtype=dtype)
+        if mesh is None:    # one process on the whole scans
+            def run(x):
+                return apply_model(model, x, mc_drop=True,
+                                   compute_dtype=dtype)
+        else:
+            run = make_sp_forward(model, mesh, mode="eval",
+                                  compute_dtype=dtype)
+        for b, x in sorted(xs.items()):
+            xl = torch.from_numpy(x).to(dev)
+            if mesh is not None:
+                xl = shard_w(xl, mesh)
+            reset_counts()
+            ex = halo.exchanges()
+            pred = run(xl)
+            torch.cuda.synchronize()
+            c = counts()
+            key = f"{name} batch {b}"
+            out["launches"][key] = dict(
+                K1=c["window_msa"] - c["window_msa_many_heads"],
+                K2=c["window_msa_many_heads"])
+            out["exchanges"][key] = halo.exchanges() - ex
+            if b in SP_CHECKED:
+                out["preds"][key] = pred.float().cpu()
+            if name == "bf16" and b in SP_TIMED:
+                for _ in range(3):
+                    run(xl)
+                times = []
+                for _ in range(20):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(xl)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out["ms"][b] = statistics.median(times)
+                if profile:
+                    out["profile"][b] = device_us(torch, lambda: run(xl),
+                                                  n=5)
+        del model, run
+        torch.cuda.empty_cache()
+    out["transport"] = dict(halo.TRANSPORT)
+    return out
+
+
 def dp_rank_main(rank, root):
     """``chip_smoke.py --dp-rank R DIR``: rank R of the group that
     DIR/spec.json describes ({"backend", "devices": one per rank,
-    "profile"}); the result goes to DIR/rank{R}.pt."""
+    "profile", "sp": the seq degree, 1 for data parallel alone}); the
+    result goes to DIR/rank{R}.pt."""
     import torch
     import torch.distributed as td
+    from tulip_tpu_torch.parallel.mesh import make_mesh
     with open(os.path.join(root, "spec.json")) as f:
         spec = json.load(f)
     dev = torch.device(spec["devices"][rank])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(dev)
-    world = len(spec["devices"])
+    world, sp = len(spec["devices"]), spec.get("sp", 1)
     td.init_process_group(spec["backend"], store=td.FileStore(
         os.path.join(root, "store"), world), rank=rank, world_size=world)
     try:
-        out = dp_steps(torch, dev, root, rank, world, spec["profile"])
+        mesh = make_mesh(sp) if sp > 1 else None
+        out = dp_steps(torch, dev, root, rank, world, spec["profile"], mesh)
+        if mesh is not None:
+            out["sp"] = sp_forwards(torch, dev, root, mesh, spec["profile"])
     finally:
         td.destroy_process_group()
     torch.save(out, os.path.join(root, f"rank{rank}.pt"))
@@ -2204,6 +2312,166 @@ def run_dp_ranks(torch, dev, weights, data_root, root, backend, devices,
     return report
 
 
+def exchange_us(prof):
+    """The device us of a profile's halo exchanges: NCCL's point-to-point
+    kernels, or under gloo the host-staging copies (of the exchanges, and
+    in a step of gloo's all-reduce too)."""
+    return sum(v for k, v in prof.items()
+               if ("nccl" in k.lower() and "allreduce" not in k.lower())
+               or "memcpy" in k.lower())
+
+
+def run_sp_ranks(torch, dev, weights, data_root, root, backend, devices, sp,
+                 label):
+    """Phase 10 and ``--ranks N``'s sequence parallel: len(devices) ranks of
+    ``backend`` as (world // sp) x sp, processes of their own, against one
+    process on ``dev``, the flagship from the same weights.  (a) the
+    fp32 and bf16 forwards at batch 1 and 4 (each data index runs the whole
+    batch; its shards joined in seq order) within 1e-4 / 3e-2 of max|ref|;
+    (b) one fp32 and DP_STEPS bf16 train steps at batch SP_BATCH (each data
+    index its rows), drop_path_rate 0.1: fp32 gradients within 1e-4 of
+    each parameter's max|ref|, the bf16 gradient's cosine >= 0.999, every
+    rank's gradients and weights bit-equal; (c) K1 / K2 launches per
+    forward on every rank those of one process (8 / 6: a launch a block
+    of <= 8 / > 8 heads), the train kernels' per step as one process's;
+    (d) two halo exchanges a shifted block and one for the patch embed's
+    pad a forward (15), the rolls' again backward (29 a step).  Times: the
+    bf16 forward's ms at batch 1 and 8 against one process, and rank 0's
+    device time of the step and of the exchanges (profiler)."""
+    from tulip_tpu_torch.config import model_config
+    world = len(devices)
+    cfg = model_config("tulip_base", **FLAGSHIP)
+    stages = cfg.encoder_stages + cfg.decoder_stages
+    shifted = sum(st.depth // 2 for st in stages)
+    want_fwd, want_step_ex = 2 * shifted + 1, 4 * shifted + 1
+    want_l = {(("K1", sum(st.depth for st in stages if st.num_heads <= 8)),
+               ("K2", sum(st.depth for st in stages if st.num_heads > 8)))}
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(dict(backend=backend, devices=devices, profile=True,
+                       sp=sp), f)
+    torch.save(weights, os.path.join(root, "weights.pt"))
+    width = FLAGSHIP["img_size"][1]
+    low, high = load_batches(data_root, SP_BATCH, width, split="train")[0]
+    np.savez(os.path.join(root, "batch.npz"), low=low["sample"],
+             high=high["sample"])
+    np.savez(os.path.join(root, "forward.npz"), **{
+        f"x{b}": load_batches(data_root, b, width, split="train")[0][0]
+        ["sample"] for b in sorted(set(SP_CHECKED + SP_TIMED))})
+    wall = run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+          root] for r in range(world)], timeout=900, cwd=root)
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
+             for r in range(world)]
+    ref_fwd = sp_forwards(torch, dev, root, None)
+    ref = dp_steps(torch, dev, root, 0, 1)
+    fwd = {}
+    for key, want in ref_fwd["preds"].items():
+        errs = []
+        for d in range(world // sp):
+            got = torch.cat([ranks[d * sp + s]["sp"]["preds"][key]
+                             for s in range(sp)], dim=-1)
+            errs.append(rel_err(torch, got, want))
+        fwd[key] = max(errs)
+    fwd_ok = all(v <= (1e-4 if k.startswith("fp32") else 3e-2)
+                 for k, v in fwd.items())
+    launches = {r: set(map(lambda v: tuple(sorted(v.items())),
+                           rk["sp"]["launches"].values()))
+                for r, rk in enumerate(ranks)}
+    ex_fwd = {v for rk in ranks for v in rk["sp"]["exchanges"].values()}
+    ex_step = {rk["bf16"]["exchanges"] for rk in ranks}
+    want_step = {k: v for k, v in PER_STEP.items() if v}
+    step_launches = [{k: rk["bf16"]["launches"][k] for k in want_step}
+                     for rk in ranks]
+    g32 = ranks[0]["fp32"]["grads"]
+    errs = {k: rel_err(torch, g32[k], v)
+            for k, v in ref["fp32"]["grads"].items()}
+    worst = max(errs, key=errs.get)
+    _, _, cos = grad_check(torch, (0.0, ranks[0]["bf16"]["grads"]),
+                           (1.0, ref["bf16"]["grads"]))
+    same = all(torch.equal(v, r[name]["grads"][k]) for r in ranks[1:]
+               for name in ("fp32", "bf16")
+               for k, v in ranks[0][name]["grads"].items())
+    w0 = ranks[0]["bf16"]["weights"]
+    same_w = all(torch.equal(v, r["bf16"]["weights"][k])
+                 for r in ranks[1:] for k, v in w0.items())
+    moved = max(float((w0[k] - weights[k]).abs().max()) for k in w0)
+    transport = ranks[0]["sp"]["transport"]
+    prof = ranks[0]["profile"]
+    step_ms = sum(prof["step"].values()) / 1e3
+    step_ex_ms = exchange_us(prof["step"]) / 1e3
+    fwd_ex_ms = {b: exchange_us(p) / 1e3
+                 for b, p in ranks[0]["sp"]["profile"].items()}
+    fwd_dev_ms = {b: sum(p.values()) / 1e3
+                  for b, p in ranks[0]["sp"]["profile"].items()}
+    print(f"sp {label}: {world} {backend} ranks as {world // sp} data x {sp} "
+          f"seq on {sorted(set(devices))}, transport {transport}; "
+          f"forwards against one process, err/max|ref| "
+          f"{ {k: f'{v:.2e}' for k, v in fwd.items()} } (limits fp32 1e-4, "
+          f"bf16 3e-2); K1 / K2 launches per forward on each rank "
+          f"{sorted(set().union(*launches.values()))} (want {want_l}); "
+          f"exchanges a forward {sorted(ex_fwd)} (want {want_fwd}), a step "
+          f"{sorted(ex_step)} (want {want_step_ex}); train kernels a step on "
+          "each rank "
+          f"{step_launches[0]} (all ranks alike: "
+          f"{all(x == step_launches[0] for x in step_launches)})", flush=True)
+    print(f"sp {label}: batch {SP_BATCH}, drop_path_rate 0.1, against one "
+          f"process: fp32 gradient worst {worst} err/max|ref| "
+          f"{errs[worst]:.2e} (limit 1e-4), losses "
+          f"{ranks[0]['fp32']['losses']} vs {ref['fp32']['losses']}; bf16 "
+          f"gradient cosine {cos:.6f} (limit 0.999); every rank's gradients "
+          f"bit-equal {same}, weights after {DP_STEPS} bf16 steps bit-equal "
+          f"{same_w} (moved {moved:.2e})", flush=True)
+    print(f"sp {label}: bf16 forward ms (host clock, median of 20) "
+          f"{ {b: round(v, 3) for b, v in ranks[0]['sp']['ms'].items()} } "
+          f"against one process "
+          f"{ {b: round(v, 3) for b, v in ref_fwd['ms'].items()} }; rank "
+          f"0's device ms a forward {fwd_dev_ms}, of it exchanges "
+          f"{fwd_ex_ms}; rank 0's bf16 step {step_ms:.3f} ms of device "
+          f"time, of it exchanges {step_ex_ms:.4f}; step ms (host clock) "
+          f"rank 0 {statistics.median(ranks[0]['bf16']['ms'][1:]):.2f}, "
+          f"one process {statistics.median(ref['bf16']['ms'][1:]):.2f}; "
+          f"the ranks' wall {wall:.1f} s", flush=True)
+    ok = (fwd_ok and all(v == want_l for v in launches.values())
+          and ex_fwd == {want_fwd} and ex_step == {want_step_ex}
+          and all(x == want_step for x in step_launches)
+          and errs[worst] <= 1e-4 and cos >= 0.999 and same and same_w
+          and moved > 0)
+    if backend == "nccl" and set(transport) != {"nccl"}:
+        ok = False
+        print(f"sp {label}: an exchange left the devices: {transport}")
+    if not ok:
+        raise SystemExit(f"sp {label}: the ranks disagree with one process, "
+                         "with each other or with the counts")
+    return dict(backend=backend, devices=devices, sp=sp, dp=world // sp,
+                transport=transport, forward_err=fwd,
+                launches_per_forward=[dict(v) for v in want_l],
+                shifted_blocks=shifted,
+                exchanges_per_forward=sorted(ex_fwd),
+                exchanges_per_step=sorted(ex_step),
+                step_launches=step_launches[0],
+                fp32_worst_grad=worst, fp32_worst_grad_err=errs[worst],
+                bf16_grad_cos=cos, ranks_bit_equal=same_w,
+                forward_ms=ranks[0]["sp"]["ms"], one_forward_ms=ref_fwd["ms"],
+                forward_device_ms=fwd_dev_ms, forward_exchange_ms=fwd_ex_ms,
+                step_device_ms=step_ms, step_exchange_ms=step_ex_ms,
+                step_ms=ranks[0]["bf16"]["ms"],
+                one_step_ms=ref["bf16"]["ms"], wall_s=wall)
+
+
+def run_sp_phase(torch, dev, weights):
+    """Phase 10: W-axis sequence parallel on the one card, two gloo ranks
+    (NCCL refuses two ranks on one GPU), against one process
+    (run_sp_ranks)."""
+    import shutil
+    root = os.path.join(REPO, "build", "chip_smoke_sp")
+    shutil.rmtree(root, ignore_errors=True)
+    data_root = os.path.join(REPO, "build", "chip_smoke_cli", "durlar")
+    return run_sp_ranks(
+        torch, dev, weights, data_root, root, "gloo", [str(dev)] * 2, 2,
+        "(one card, gloo: host-staged exchanges, not a multi-GPU time)")
+
+
 def run_ranks_check(torch, n):
     """``chip_smoke.py --ranks N``: data parallel over N GPUs under NCCL,
     for a machine with N cards.  (i) The command line through
@@ -2218,7 +2486,18 @@ def run_ranks_check(torch, n):
     mean below 1e-3 lr): AdamW's normalised update turns the rounding noise
     of a gradient entry near zero into a move of up to lr.
     (ii) Phase 9(b) over the N ranks, one device each, with rank 0's
-    profile of the step and of one gradient average."""
+    profile of the step and of one gradient average.
+    W-axis sequence parallel over the N cards (NCCL): (iii) the command
+    line's ``--eval --sp_degree N`` through torchrun, the results file
+    against one process's eval of the same checkpoint (mae and chamfer
+    within 1e-4 relative, the voxel ratios within 1e-3); (iv) its
+    training as (N / 2) data x 2 seq through torchrun, batch 1 a data
+    index, against one process at batch N / 2, as (i) and over (i)'s
+    steps (a folder of half the scans), beside data parallel alone over
+    N / 2 ranks on the same steps (a control of how far the ranks drift
+    from one process without W shards); (v) phase 10's
+    forwards and steps at sp 2 (N / 2 data indices) and at sp N
+    (run_sp_ranks), with their times."""
     import shutil
     from tulip_tpu_torch.models.tulip import init_params, tulip_base
     if torch.cuda.device_count() < n:
@@ -2229,14 +2508,27 @@ def run_ranks_check(torch, n):
     width = FLAGSHIP["img_size"][1]
     write_durlar(data_root, CLI_TRAIN, width, split="train")
     write_durlar(data_root, CLI_VAL, width, split="val")
+    # (iv) runs N / 2 data indices on a folder of half the scans, so that
+    # its steps are (i)'s: fp32 runs drift apart with the steps (AdamW
+    # turns rounding noise into moves of up to lr), data parallel alone as
+    # much as with W shards, and the limits below hold over (i)'s 8
+    data_half = os.path.join(root, "durlar_half")
+    write_durlar(data_half, CLI_TRAIN // 2, width, split="train")
+    write_durlar(data_half, CLI_VAL, width, split="val")
+    torchrun = ["-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={n}"]
     runs = {}
-    for name, batch, launcher in (
-            ("ranks", 1, ["-m", "torch.distributed.run", "--standalone",
-                          f"--nproc_per_node={n}"]),
-            ("one", n, [])):
+    for name, batch, launcher, extra, data in (
+            ("ranks", 1, torchrun, [], data_root),
+            ("one", n, [], [], data_root),
+            ("sp_ranks", 1, torchrun, ["--sp_degree", "2"], data_half),
+            ("sp_one", n // 2, [], [], data_half),
+            ("dp_half", 1, torchrun[:-1] + [f"--nproc_per_node={n // 2}"],
+             [], data_half)):
         out = os.path.join(root, name)
-        flags = cli_flags(data_root, out, "--epochs", "2", "--warmup_epochs",
-                          "1", "--save_frequency", "1", "--precision", "fp32")
+        flags = cli_flags(data, out, "--epochs", "2", "--warmup_epochs",
+                          "1", "--save_frequency", "1", "--precision", "fp32",
+                          *extra)
         flags[flags.index("--batch_size") + 1] = str(batch)
         os.makedirs(out)
         env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -2248,29 +2540,85 @@ def run_ranks_check(torch, n):
         runs[name] = dict(log=read_log(out), model=ckpt["model"], s=t,
                           tb=len([f for f in os.listdir(out)
                                   if f.startswith("events.out.tfevents")]))
-    ranks, one = runs["ranks"], runs["one"]
-    lr, steps = 5e-4, 2 * (CLI_TRAIN // n)
-    d = torch.cat([(ranks["model"][k] - v).abs().reshape(-1)
-                   for k, v in one["model"].items()])
-    moves = dict(max=float(d.max()), share=float((d > 1e-2 * lr).float()
-                                                 .mean()),
-                 mean=float(d.mean()))
-    losses = [(a["train_loss"], b["train_loss"])
-              for a, b in zip(ranks["log"], one["log"])]
-    ok = (len(ranks["log"]) == len(one["log"]) == 2 and ranks["tb"] == 1
-          and all(abs(a - b) <= 1e-5 * abs(b) for a, b in losses)
-          and moves["max"] <= 2 * lr * steps and moves["share"] <= 5e-3
-          and moves["mean"] <= 1e-3 * lr)
-    print(f"ranks (i) torchrun --nproc_per_node={n} (nccl), fp32, batch "
-          f"1 a rank, against one process at batch {n}, {steps} steps: "
-          f"train_loss {losses}; weights |diff| max {moves['max']:.3e} "
-          f"(limit {2 * lr * steps:.1e}), share beyond 1e-2 lr "
-          f"{moves['share']:.2e} (limit 5e-3), mean {moves['mean']:.3e} "
-          f"(limit {1e-3 * lr:.1e}); TensorBoard files {ranks['tb']}; wall "
-          f"{ranks['s']:.1f} / {one['s']:.1f} s", flush=True)
-    if not ok:
-        raise SystemExit(f"--ranks {n}: the command line under {n} ranks "
-                         "differs from one process")
+    lr = 5e-4
+
+    def cli_against_one(label, ranks, one, steps):
+        d = torch.cat([(ranks["model"][k] - v).abs().reshape(-1)
+                       for k, v in one["model"].items()])
+        moves = dict(max=float(d.max()), share=float((d > 1e-2 * lr).float()
+                                                     .mean()),
+                     mean=float(d.mean()))
+        losses = [(a["train_loss"], b["train_loss"])
+                  for a, b in zip(ranks["log"], one["log"])]
+        rel = [abs(a - b) / abs(b) for a, b in losses]
+        ok = (len(ranks["log"]) == len(one["log"]) == 2 and ranks["tb"] == 1
+              and all(r <= 1e-5 for r in rel)
+              and moves["max"] <= 2 * lr * steps and moves["share"] <= 5e-3
+              and moves["mean"] <= 1e-3 * lr)
+        print(f"ranks {label}, {steps} steps: train_loss {losses} (relative "
+              f"differences {[f'{r:.2e}' for r in rel]}, limit 1e-5); "
+              f"weights |diff| max {moves['max']:.3e} (limit "
+              f"{2 * lr * steps:.1e}), share beyond 1e-2 lr "
+              f"{moves['share']:.2e} (limit 5e-3), mean {moves['mean']:.3e} "
+              f"(limit {1e-3 * lr:.1e}); TensorBoard files {ranks['tb']}; "
+              f"wall {ranks['s']:.1f} / {one['s']:.1f} s", flush=True)
+        if not ok:
+            failed.append(label)
+        return dict(losses=losses, loss_rel_diff=rel, weight_diff=moves,
+                    wall_s=[ranks["s"], one["s"]], ok=ok)
+
+    failed = []
+
+    cli_dp = cli_against_one(
+        f"(i) torchrun --nproc_per_node={n} (nccl), fp32, batch 1 a rank, "
+        f"against one process at batch {n}", runs["ranks"], runs["one"],
+        2 * (CLI_TRAIN // n))
+    cli_sp = cli_against_one(
+        f"(iv) torchrun --nproc_per_node={n} --sp_degree 2 (nccl, {n // 2} "
+        f"data x 2 seq), fp32, batch 1 a data index, against one process "
+        f"at batch {n // 2}", runs["sp_ranks"], runs["sp_one"],
+        2 * (CLI_TRAIN // 2 // (n // 2)))
+    # the same steps as (iv) under data parallel alone: how far N / 2 ranks
+    # of batch 1 drift from one process at batch N / 2 without W shards
+    cli_dp_half = cli_against_one(
+        f"(iv) control: torchrun --nproc_per_node={n // 2} (nccl, data "
+        f"parallel alone), fp32, batch 1 a rank, against the same one "
+        f"process at batch {n // 2}", runs["dp_half"], runs["sp_one"],
+        2 * (CLI_TRAIN // 2 // (n // 2)))
+
+    # (iii) --eval --sp_degree n through torchrun against one process, on
+    # copies of the one-process run's last checkpoint
+    results = {}
+    for name, launcher, extra in (("eval_sp", torchrun,
+                                   ["--sp_degree", str(n)]),
+                                  ("eval_one", [], [])):
+        out = os.path.join(root, name)
+        os.makedirs(out)
+        shutil.copy(os.path.join(root, "one", "checkpoint-1.pth"), out)
+        t = run_processes([[sys.executable, *launcher, "-m",
+                            "tulip_tpu_torch.main_lidar_upsampling",
+                            *cli_flags(data_root, out, "--eval", *extra)]],
+                          timeout=600, cwd=out,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+        with open(os.path.join(out, "results.txt")) as f:
+            results[name] = dict(results=json.load(f), s=t)
+    got, want = results["eval_sp"]["results"], results["eval_one"]["results"]
+    eval_label = f"(iii) --eval --sp_degree {n} (torchrun, nccl)"
+    eval_worst = None
+    if {len(v) for v in got.values()} != {CLI_VAL}:
+        print(f"{eval_label}: results of "
+              f"{ {k: len(v) for k, v in got.items()} } scans, expected "
+              f"{CLI_VAL}", flush=True)
+        failed.append(eval_label)
+    else:
+        try:
+            eval_worst = compare_results(
+                f"{eval_label} against one process, {CLI_VAL} scans, wall "
+                f"{results['eval_sp']['s']:.1f} / "
+                f"{results['eval_one']['s']:.1f} s", got, want, 1e-4, 1e-3)
+        except SystemExit as e:
+            print(e, flush=True)
+            failed.append(eval_label)
     cfg = tulip_base(**FLAGSHIP).cfg
     weights = init_params(cfg, torch.Generator().manual_seed(0))
     dp_root = os.path.join(root, "steps")
@@ -2278,12 +2626,28 @@ def run_ranks_check(torch, n):
     report = run_dp_ranks(torch, torch.device("cuda", 0), weights, data_root,
                           dp_root, "nccl", [f"cuda:{r}" for r in range(n)],
                           f"(ii) nccl over {n} GPUs")
-    report["cli"] = dict(losses=losses, weight_diff=moves,
-                         wall_s=[ranks["s"], one["s"]])
+    report["cli"] = cli_dp
+    report["cli_sp"] = cli_sp
+    report["cli_dp_half"] = cli_dp_half
+    report["eval_sp"] = dict(worst=eval_worst, results=results)
+    report["sp"] = {}
+    for sp in (2, n):
+        label = f"(v) nccl over {n} GPUs, sp {sp}"
+        try:
+            report["sp"][sp] = run_sp_ranks(
+                torch, torch.device("cuda", 0), weights, data_root,
+                os.path.join(root, f"sp{sp}"), "nccl",
+                [f"cuda:{r}" for r in range(n)], sp, label)
+        except SystemExit as e:
+            print(e, flush=True)
+            failed.append(label)
+    report["failed"] = failed
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"ranks{n}.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
+    if failed:
+        raise SystemExit(f"--ranks {n}: failed: {failed}")
     return 0
 
 
@@ -3035,6 +3399,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_report = run_dp_phase(torch, dev, weights)
 
+    # -- 10. W-axis sequence parallel ---------------------------------------
+    torch.cuda.empty_cache()
+    sp_report = run_sp_phase(torch, dev, weights)
+
     # -- summary -----------------------------------------------------------
     # per kernel: the sums over its bf16 (chamfer: fp32) cases on the path
     kernels = []
@@ -3085,7 +3453,7 @@ def main() -> int:
         json.dump(dict(nvidia_smi=smi_line, device=kind, table=table,
                        img_per_s=throughput, kernels=kernels,
                        eval=eval_report, train=train_report, cli=cli_report,
-                       data_parallel=dp_report,
+                       data_parallel=dp_report, sequence_parallel=sp_report,
                        build=dict(seconds=build_s, nvcc_seconds=nvcc_s),
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)

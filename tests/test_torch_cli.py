@@ -3,7 +3,8 @@ as bash_scripts/*.sh drive the reference, on a synthetic CARLA folder
 (16x256 -> 64x256, the smallest width TULIP-base's four stages take), on
 the CPU: train 2 epochs -> checkpoints -> resume to 3 -> --eval from the
 directory and from the .pth -> --eval --mc_drop; and the device, launcher
-(the process group), --mesh_shape and not-yet-ported rules.  The longer runs (resume against an
+(the process group) and --mesh_shape rules (--sp_degree:
+test_torch_sp_cli.py).  The longer runs (resume against an
 uninterrupted run, SIGTERM, ``python -m``, the first step against the JAX
 package) are in test_torch_cli_runs.py, a file of its own so that the two
 run side by side."""
@@ -205,16 +206,10 @@ def test_default_device_needs_a_gpu(carla, tmp_path, monkeypatch):
     assert M._device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("flags,slice_no", [(["--sp_degree", "2"], "slice 6")])
-def test_unported_parallel_flags_raise(carla, tmp_path, flags, slice_no):
-    with pytest.raises(NotImplementedError, match=slice_no):
-        _main(_common(carla) + _train_flags(str(tmp_path / "run"), 1) + flags)
-
-
-@pytest.mark.parametrize("shape", [["4"], ["2"], ["1", "1"]])
+@pytest.mark.parametrize("shape", [["4"], ["2"], ["1", "2"]])
 def test_mesh_shape_other_than_the_world_size_raises(carla, tmp_path, shape):
-    """--mesh_shape names the one data axis of the group: without a
-    launcher, a world of 1."""
+    """--mesh_shape names the one data axis of the group or its (data,
+    seq) layout: without a launcher, a world of 1 (so [1] or [1, 1])."""
     with pytest.raises(ValueError, match="1 rank"):
         _main(_common(carla) + _train_flags(str(tmp_path / "run"), 1)
               + ["--mesh_shape", *shape])

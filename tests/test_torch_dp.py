@@ -417,7 +417,8 @@ def test_mesh_shape_must_name_the_world_size():
     assert dist.get_world_size() == 1
     check_mesh_shape(None)
     check_mesh_shape([1])
-    for shape in ([4], [2], [1, 1]):
+    check_mesh_shape([1, 1])     # (data, seq) = (world // 1, 1)
+    for shape in ([4], [2], [1, 2]):
         with pytest.raises(ValueError, match="1 rank"):
             check_mesh_shape(shape)
 

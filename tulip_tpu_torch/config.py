@@ -125,14 +125,19 @@ def get_args_parser() -> argparse.ArgumentParser:
                              'brute force, pallas_h = hierarchical exact '
                              'tile skipping, xla = plain tensor ops)')
     parser.add_argument('--mesh_shape', nargs='+', type=int, default=None,
-                        help='device mesh shape of the JAX package; the '
-                             'port has one data axis over the ranks of its '
-                             'group, so N, the world size (any other shape '
+                        help='device mesh of the JAX package; the port lays '
+                             'the N ranks of its group out as [dp, sp] = '
+                             '[N / sp_degree, sp_degree], so N or '
+                             'N/sp_degree sp_degree (any other shape '
                              'raises)')
     parser.add_argument('--sp_degree', default=1, type=int,
-                        help='sequence-parallel degree of the JAX package '
-                             '(W-axis sharding); values above 1 are not '
-                             'ported yet (raise)')
+                        help='W-axis sequence parallel: the range image is '
+                             'cut along W over sp_degree ranks of each data '
+                             'index, whose shards meet in halo exchanges '
+                             '(rank = d*sp + s); clamped to the geometry\'s '
+                             'cap (every stage keeps 2 window columns a '
+                             'shard: 4 for TULIP-base at 32x2048); one that '
+                             'does not divide the world size raises')
     parser.add_argument('--depth_scale_loss', action='store_true',
                         help='reference references this flag without defining it '
                              '(engine_upsampling.py:107); defined here so the '

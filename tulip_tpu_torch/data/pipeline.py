@@ -11,7 +11,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -54,6 +54,19 @@ class ShardedSampler:
         return iter(indices[self.rank:self.total_size:self.num_replicas])
 
 
+def slice_w(batch, index: int, count: int):
+    """W shard ``index`` of ``count`` of a collated batch: every
+    'sample' array cut along its last axis (the range image's W), the rest
+    as it is (W-axis sequence parallel feeds each seq rank its shard)."""
+    if isinstance(batch, tuple):
+        return tuple(slice_w(b, index, count) for b in batch)
+    out = dict(batch)
+    a = out["sample"]
+    w = a.shape[-1] // count
+    out["sample"] = np.ascontiguousarray(a[..., index * w:(index + 1) * w])
+    return out
+
+
 def _collate(items):
     """Stack a list of dataset items.  Items are tuples of dicts
     ({'sample','class','name'}, ...) as produced by PairDataset."""
@@ -73,13 +86,16 @@ class DataLoader:
 
     Loads items via a thread pool (numpy file IO releases the GIL) and keeps
     up to ``prefetch`` collated batches in flight so the accelerator never
-    waits on the host.
+    waits on the host.  ``w_shard=(index, count)`` hands out W shard
+    ``index`` of ``count`` of every batch (:func:`slice_w`).
     """
 
     def __init__(self, dataset, batch_size: int, sampler: Optional[ShardedSampler] = None,
                  shuffle: bool = False, drop_last: bool = False,
-                 num_workers: int = 8, prefetch: int = 4, seed: int = 0):
+                 num_workers: int = 8, prefetch: int = 4, seed: int = 0,
+                 w_shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
+        self.w_shard = w_shard
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
@@ -102,7 +118,10 @@ class DataLoader:
             yield batch
 
     def _load_batch(self, idxs):
-        return _collate([self.dataset[i] for i in idxs])
+        batch = _collate([self.dataset[i] for i in idxs])
+        if self.w_shard is not None:
+            batch = slice_w(batch, *self.w_shard)
+        return batch
 
     def __iter__(self):
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)

@@ -18,7 +18,10 @@ sample).  Metric-order parity quirks preserved:
   (as the JAX entry shards it) and only rank 0, the one rank with a
   log_writer, computes metrics and writes the results file and the PLY
   clouds: the reference's quirk kept (SURVEY.md:197-200), its results
-  cover rank 0's share.  No two ranks write the same file.
+  cover rank 0's share.  No two ranks write the same file.  Under W-axis
+  sequence parallel (``sp_forward``: parallel/sp.py:make_sp_eval_forward)
+  every rank of a data index runs each scan's forward on its W shard and
+  receives the joined pred; rank 0 alone goes on to the metrics.
 - keep_close_scan zeroes ranges > 0.25 for durlar in evaluate and for
   kitti in MCdrop only.
 

@@ -25,8 +25,19 @@ epoch and steps on ``--batch_size`` samples, the gradients are averaged
 across the ranks, and the global batch (and the lr rule's effective batch)
 is ``batch_size x N x accum_iter``.  Only rank 0 prints, logs and writes
 checkpoints; every rank reads the same checkpoint on ``--resume`` and the
-weights are then broadcast from rank 0.  ``--mesh_shape`` may name the
-group's one data axis (N); ``--sp_degree`` above 1 is a later slice.
+weights are then broadcast from rank 0.
+
+``--sp_degree S`` lays the N ranks out as N / S data indices of S W shards
+(rank = d·S + s, parallel/mesh.py:make_mesh; W-axis sequence parallel,
+parallel/sp.py): the ranks of a data index load the same samples, each
+takes its W slice of them, and the shards meet in halo exchanges.  The
+global batch is then ``batch_size x N / S``.  S above the geometry's cap
+(``sp.max_sp_degree``: every stage keeps two window columns a shard) is
+clamped to it with a message; an S that does not divide N raises
+ValueError.  ``--eval`` under S runs each scan's forward on the S ranks of
+a data index and gathers the shards; rank 0 computes the metrics and
+writes the results file while the others wait.  ``--mesh_shape`` may name
+the layout: N, or N / S and S.
 """
 
 import datetime
@@ -79,7 +90,11 @@ def _run(args, device):
     from tulip_tpu_torch.models.tulip import TULIP, init_params
     from tulip_tpu_torch.ops.chamfer import set_default_chamfer_impl
     from tulip_tpu_torch.parallel import dist
-    from tulip_tpu_torch.parallel.mesh import check_mesh_shape, replicate
+    from tulip_tpu_torch.parallel.mesh import (check_mesh_shape, make_mesh,
+                                               replicate)
+    from tulip_tpu_torch.parallel.sp import (make_sp_eval_forward,
+                                             make_sp_train_step,
+                                             max_sp_degree)
     from tulip_tpu_torch.train.engine import train_one_epoch
     from tulip_tpu_torch.train.step import make_optimizer, make_train_step
     from tulip_tpu_torch.utils import checkpoint as ckpt_util
@@ -87,20 +102,32 @@ def _run(args, device):
 
     set_default_chamfer_impl(args.chamfer_impl)
 
+    cfg = model_config_from_args(args)
+    model = TULIP(cfg)
+
+    # --sp_degree: W-axis sequence parallel.  Clamp to the geometry's cap
+    # (every stage needs >= 2 window columns a W shard), as the JAX entry
+    # does, rather than fail inside the model
     sp = getattr(args, 'sp_degree', 1) or 1
     if sp > 1:
-        raise NotImplementedError(
-            f"--sp_degree {sp}: W-axis sequence parallel is slice 6 of the "
-            "port (parallel/{sp,halo}.py) and is not ported yet")
-    check_mesh_shape(getattr(args, 'mesh_shape', None))
+        cap = max_sp_degree(model)
+        if sp > cap:
+            print(f"[tulip_tpu_torch] --sp_degree {sp} exceeds this model "
+                  f"geometry's ceiling (every stage needs >= 2 window "
+                  f"columns per W shard); clamping to {cap}")
+            sp = cap
+        args.sp_degree = sp
+    mesh = make_mesh(sp)
+    check_mesh_shape(getattr(args, 'mesh_shape', None), sp)
 
     print('job dir: {}'.format(os.path.dirname(os.path.realpath(__file__))))
     print("{}".format(args).replace(', ', ',\n'))
 
     # reproducibility (reference: main:154-157): numpy drives the host-side
-    # data pipeline; the weights and the drop-path draws come from explicit
-    # torch generators
-    seed = args.seed + dist.get_rank()
+    # data pipeline (and --roll's shift, which a data index's W shards
+    # share); the weights and the drop-path draws come from explicit torch
+    # generators
+    seed = args.seed + mesh.data_index
     np.random.seed(seed)
 
     dataset_train = generate_dataset(is_train=True, args=args)
@@ -109,9 +136,9 @@ def _run(args, device):
           f"and {len(dataset_val)} validation data")
 
     # Effective batch parity: torchrun scripts mean batch_size per worker x
-    # nproc (reference: main:265)
-    world, global_rank = dist.get_world_size(), dist.get_rank()
-    global_batch = args.batch_size * world
+    # nproc (reference: main:265); under sequence parallel per data index
+    global_rank = dist.get_rank()
+    global_batch = args.batch_size * mesh.dp
 
     wandb_mod = init_wandb(args) if global_rank == 0 else None
     if global_rank == 0 and args.log_dir is not None:
@@ -120,22 +147,22 @@ def _run(args, device):
     else:
         log_writer = None
 
-    # each rank loads its own stride of the epoch, for train and val
-    # (reference: DistributedSampler, main:172-178)
-    sampler_train = ShardedSampler(len(dataset_train), num_replicas=world,
-                                   rank=global_rank, shuffle=True,
+    # each data index loads its own stride of the epoch, for train and val
+    # (reference: DistributedSampler, main:172-178); in training each of its
+    # seq ranks takes its W shard of the batch, in eval the whole scans
+    sampler_train = ShardedSampler(len(dataset_train), num_replicas=mesh.dp,
+                                   rank=mesh.data_index, shuffle=True,
                                    seed=args.seed, drop_last=True)
     data_loader_train = DataLoader(
         dataset_train, batch_size=args.batch_size, sampler=sampler_train,
-        drop_last=True, num_workers=args.num_workers)
+        drop_last=True, num_workers=args.num_workers,
+        w_shard=(mesh.seq_index, sp) if sp > 1 else None)
     data_loader_val = DataLoader(
         dataset_val, batch_size=1,
-        sampler=ShardedSampler(len(dataset_val), num_replicas=world,
-                               rank=global_rank, shuffle=False),
+        sampler=ShardedSampler(len(dataset_val), num_replicas=mesh.dp,
+                               rank=mesh.data_index, shuffle=False),
         drop_last=False, num_workers=args.num_workers)
 
-    cfg = model_config_from_args(args)
-    model = TULIP(cfg)
     model.load_state_dict(
         init_params(cfg, torch.Generator().manual_seed(args.seed)),
         strict=True)
@@ -157,13 +184,21 @@ def _run(args, device):
         replicate(model)
 
         print("Start Evaluation")
+        sp_forward = None
+        if sp > 1:
+            sp_forward = make_sp_eval_forward(
+                model, mesh, mode="mc" if args.mc_drop else "eval",
+                compute_dtype=eval_dtype)
         if args.mc_drop:
             print("Evaluation with Monte Carlo Dropout")
             MCdrop(data_loader_val, model, log_writer, args=args,
-                   device=device, compute_dtype=eval_dtype)
+                   device=device, compute_dtype=eval_dtype,
+                   sp_forward=sp_forward)
         else:
             evaluate(data_loader_val, model, log_writer, args=args,
-                     device=device, compute_dtype=eval_dtype)
+                     device=device, compute_dtype=eval_dtype,
+                     sp_forward=sp_forward)
+        dist.barrier()   # the others wait while rank 0 finishes its metrics
         print("Evaluation finished")
         sys.exit(0)
     else:
@@ -181,9 +216,14 @@ def _run(args, device):
     optimizer = make_optimizer(model, args.weight_decay)
     compute_dtype = (torch.bfloat16 if args.precision == 'bf16'
                      else torch.float32)
-    train_step = make_train_step(model, optimizer,
-                                 accum_iter=args.accum_iter,
-                                 compute_dtype=compute_dtype)
+    if sp > 1:
+        train_step = make_sp_train_step(model, optimizer, mesh,
+                                        accum_iter=args.accum_iter,
+                                        compute_dtype=compute_dtype)
+    else:
+        train_step = make_train_step(model, optimizer,
+                                     accum_iter=args.accum_iter,
+                                     compute_dtype=compute_dtype)
 
     args.start_epoch = ckpt_util.load_model(args, model, optimizer,
                                             train_step)

@@ -27,6 +27,14 @@ there (default off):
   row-strip entry (roll, :func:`~tulip_tpu_torch.ops.window_msa.
   window_msa_nat`, roll back); the others keep the default path.  It wins
   over ``TULIP_TPU_MSA_GROUPED``, as there.
+
+Under W-axis sequence parallel (``parallel/sp.py``) x is this rank's W
+shard: a shifted block rolls it by -sw across the shards
+(``halo.roll_w``, an exchange of sw columns), hands the kernel the shift
+(sh, 0) and the shard's mask (``halo.block_mask``), and rolls the result
+back by +sw.  In training the roll takes LN1(x), C wide, not qkv, 3C wide
+(LN1 and the linear are token-wise, so the orders agree), and the attention
+core's output, before proj.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from ..ops.ln import layer_norm_fn
 from ..ops.mlp import fused_ln_mlp, two_matmul
 from ..ops.window_msa import (group_partition, group_unpartition, window_msa,
                               window_msa_grouped, window_msa_nat)
-from ..parallel.halo import roll_hw
+from ..parallel.halo import block_mask, roll_hw, roll_w, sharded
 from . import layers as L
 
 GROUP_TARGET = 8   # windows per group of the grouped layout (128 tokens)
@@ -111,10 +119,11 @@ class WindowAttention(nn.Module):
                              persistent=False)
 
     def gathered_bias(self) -> torch.Tensor:
-        """(nh, L, L) fp32 relative-position bias."""
+        """(nh, L, L) fp32 relative-position bias (float64 for a float64
+        table, so that a float64 run rounds nothing to fp32)."""
         idx = self.relative_position_index
         Lw = idx.shape[0]
-        b = self.relative_position_bias_table.float()[idx.reshape(-1)]
+        b = L.wide(self.relative_position_bias_table)[idx.reshape(-1)]
         return b.reshape(Lw, Lw, -1).permute(2, 0, 1).contiguous()
 
 
@@ -164,16 +173,21 @@ class SwinBlockV1(nn.Module):
         """x + proj(MSA(LN1(x))) through the entry :func:`msa_layout`
         names; the three compute the same function."""
         a, st = self.attn, self.st
+        mask = block_mask(self, self.attn_mask)
         args = (cast(self.norm1.weight), cast(self.norm1.bias),
                 cast(a.qkv.weight), cast(a.qkv.bias), cast(a.proj.weight),
                 cast(a.proj.bias), a.gathered_bias(),
-                None if self.attn_mask is None else self.attn_mask.float())
+                None if mask is None else mask.float())
         layout = msa_layout(st.num_heads)
-        if layout == "default":
-            return window_msa(x, *args, window=st.window, shift=st.shift,
-                              eps=self.eps)
-        B, H, W, C = x.shape
         (wh, ww), (sh, sw) = st.window, st.shift
+        if layout == "default":
+            if not sharded():
+                return window_msa(x, *args, window=st.window, shift=st.shift,
+                                  eps=self.eps)
+            out = window_msa(roll_w(x, -sw), *args, window=st.window,
+                             shift=(sh, 0), eps=self.eps)
+            return roll_w(out, sw)
+        B, H, W, C = x.shape
         xr = roll_hw(x, -sh, -sw)
         if layout == "nat":
             out = window_msa_nat(xr.reshape(B * (H // wh), wh, W, C), *args,
@@ -193,16 +207,22 @@ class SwinBlockV1(nn.Module):
         B, H, W, C = x.shape
         d, rate = x.dtype, self.st.drop_path
         a, m = self.attn, self.mlp
-        mask = None if self.attn_mask is None else self.attn_mask.float()
+        mask = block_mask(self, self.attn_mask)
+        mask = None if mask is None else mask.float()
         if (d == torch.bfloat16
                 and os.environ.get("TULIP_TPU_LN_PALLAS") == "1"):
             y = layer_norm_fn(x.reshape(-1, C), self.norm1.weight,
                               self.norm1.bias, self.eps).reshape(B, H, W, C)
         else:
             y = L.layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps)
+        (sh, sw), w_sharded = self.st.shift, sharded()
+        if w_sharded:
+            y = roll_w(y, -sw)
         qkv = L.linear(y, a.qkv.weight, a.qkv.bias)
         y = attn_core(qkv, a.gathered_bias(), mask, window=self.st.window,
-                      shift=self.st.shift)
+                      shift=(sh, 0) if w_sharded else (sh, sw))
+        if w_sharded:
+            y = roll_w(y, sw)
         y = L.linear(y, a.proj.weight, a.proj.bias)
         x = x + L.drop_path(y, rate, generator, True)
         y = two_matmul(

@@ -1,5 +1,5 @@
-"""Launcher discovery, the process group and the replicas (port of
-tulip_tpu/parallel/mesh.py, single-axis form).
+"""Launcher discovery, the process group, the dp x sp layout and the
+replicas (port of tulip_tpu/parallel/mesh.py).
 
 One process drives one device, as in the reference (tulip/util/misc.py:
 253-285): under ``torchrun --nproc_per_node=N`` (or OpenMPI / SLURM) the N
@@ -8,7 +8,10 @@ JAX package's names map onto the group so:
 
 - ``make_mesh``: a one-axis ``data`` mesh over N devices is the group
   itself, N ranks of one device each (``--mesh_shape`` may name it: N, the
-  world size);
+  world size); ``make_mesh((N // sp, sp), ("data", "seq"))`` of W-axis
+  sequence parallel is :func:`make_mesh` ``(sp)``, a :class:`Mesh` over
+  the same ranks in JAX's device order, seq fastest: rank = d·sp + s
+  (``--mesh_shape`` may name it: N // sp, sp);
 - ``replicate``: :func:`replicate` broadcasts the parameters from rank 0
   after start-up or a resume, so the replicas start bit-equal;
 - ``shard_batch``: each rank loads its own stride of the epoch
@@ -28,12 +31,14 @@ variable asks for nothing more here.
 from __future__ import annotations
 
 import os
+from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as td
 
 from ..utils.logger import setup_for_distributed
 from . import dist
+from .halo import SeqRing
 
 
 def discover_launcher_env(args=None):
@@ -109,15 +114,60 @@ def init_distributed_mode(args) -> None:
     setup_for_distributed(rank == 0)
 
 
-def check_mesh_shape(mesh_shape) -> None:
-    """``--mesh_shape``: the one-axis data mesh the group is, so N, the
-    world size, or nothing."""
+class Mesh(NamedTuple):
+    """The (data, seq) layout of the group's ranks: ``dp`` data indices of
+    ``sp`` W shards each, rank = d·sp + s; ``group`` is the process group
+    of this rank's seq ring (None: the whole world, where dp is 1)."""
+    dp: int
+    sp: int
+    rank: int
+    group: Any = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.sp
+
+    @property
+    def seq_index(self) -> int:
+        return self.rank % self.sp
+
+    def ring(self) -> SeqRing:
+        """This rank's W ring: its seq index and its left / right
+        neighbours' global ranks, cyclic within its data index."""
+        base, s = self.data_index * self.sp, self.seq_index
+        return SeqRing(self.sp, s, base + (s - 1) % self.sp,
+                       base + (s + 1) % self.sp, self.group)
+
+
+def make_mesh(sp: int = 1) -> Mesh:
+    """The world as (world // sp) data x sp seq ranks.  Raises ValueError
+    where sp does not divide the world.  Where there are several seq rings
+    every rank makes every ring's group (torch.distributed.new_group is
+    collective) and keeps its own."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if sp < 1 or world % sp:
+        raise ValueError(f"--sp_degree {sp} does not divide the world of "
+                         f"{world} rank(s)")
+    dp, group = world // sp, None
+    if dp > 1 and sp > 1:
+        for d in range(dp):
+            g = td.new_group(list(range(d * sp, (d + 1) * sp)))
+            if d == rank // sp:
+                group = g
+    return Mesh(dp, sp, rank, group)
+
+
+def check_mesh_shape(mesh_shape, sp: int = 1) -> None:
+    """``--mesh_shape``: the group's one data axis, N, the world size, or
+    its (data, seq) layout, N // sp and sp (``--sp_degree``), or
+    nothing."""
     world = dist.get_world_size()
-    if mesh_shape and list(mesh_shape) != [world]:
+    if mesh_shape and list(mesh_shape) not in ([world], [world // sp, sp]):
         raise ValueError(
             f"--mesh_shape {' '.join(map(str, mesh_shape))}: the port's mesh "
-            f"is one data axis over the {world} rank(s) of the group; pass "
-            f"--mesh_shape {world} or leave it out")
+            f"is the {world} rank(s) of the group as {world // sp} data x "
+            f"{sp} seq; pass --mesh_shape {world}, --mesh_shape "
+            f"{world // sp} {sp} or leave it out")
 
 
 def replicate(model: torch.nn.Module) -> None:

@@ -10,8 +10,10 @@ launched, so the host waits on the card once per step at most.
 
 Under data parallel each rank draws the drop-path masks of the global
 batch from the same (seed, epoch) generator and keeps its own rows
-(``layers.RankDraws``); the step returns losses already averaged over the
-ranks, so the NaN abort fires on every rank at the same step.
+(``layers.RankDraws``); under W-axis sequence parallel the rows of its
+data index, which its seq ranks share (``train_step.mesh``).  The step
+returns losses already averaged over the ranks, so the NaN abort fires on
+every rank at the same step.
 """
 
 from __future__ import annotations
@@ -59,12 +61,14 @@ def train_one_epoch(train_step, data_loader, epoch: int, *, device,
     # the epoch's drop-path draws: one generator on the device, seeded from
     # (seed, epoch) alike on every rank, in place of the JAX package's
     # fold_in(key, epoch); under data parallel each rank keeps its rows of
-    # the global batch's draws
+    # the global batch's draws, under sequence parallel its data index's
     seed = np.random.SeedSequence([int(args.seed), epoch]).generate_state(1)
     generator = torch.Generator(device=device).manual_seed(int(seed[0]))
-    world = dist.get_world_size()
-    if world > 1:
-        generator = RankDraws(generator, dist.get_rank(), world)
+    if dist.get_world_size() > 1:
+        mesh = getattr(train_step, "mesh", None)
+        generator = (RankDraws(generator, dist.get_rank(),
+                               dist.get_world_size()) if mesh is None else
+                     RankDraws(generator, mesh.data_index, mesh.dp))
     num_steps = len(data_loader)
     lr = 0.0
     pending = None  # (iter_step, lr, total_loss, pixel_loss) of the last step

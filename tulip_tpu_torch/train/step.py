@@ -42,7 +42,8 @@ def make_optimizer(model: TULIP, weight_decay: float) -> torch.optim.AdamW:
 
 
 def make_train_step(model: TULIP, opt: torch.optim.Optimizer, *,
-                    accum_iter: int = 1, compute_dtype=torch.bfloat16):
+                    accum_iter: int = 1, compute_dtype=torch.bfloat16,
+                    forward=None):
     """Build ``step(low, high, lr, generator) -> (total_loss, pixel_loss)``.
 
     low / high: NCHW fp32 tensors on the model's device (under data
@@ -53,6 +54,11 @@ def make_train_step(model: TULIP, opt: torch.optim.Optimizer, *,
     the weights move on the k-th only (optax.MultiSteps semantics).  The
     returned losses are device scalars, not yet read back; under a group,
     their means over the ranks, so that every rank reads the same.
+
+    ``forward(low, high, generator) -> (pred, total_loss, pixel_loss)``
+    replaces ``apply_model(mode="train")``: W-axis sequence parallel's
+    sharded forward (``parallel/sp.py:make_sp_train_step``), whose losses
+    are this rank's shard's and whose world mean is the global loss.
 
     ``step.state_dict()`` / ``step.load_state_dict(d)`` carry the
     accumulation across a checkpoint: the micro-step counter and the
@@ -69,14 +75,17 @@ def make_train_step(model: TULIP, opt: torch.optim.Optimizer, *,
     buffer would have to survive both."""
     micro = 0
     params = [p for p in model.parameters() if p.requires_grad]
+    if forward is None:
+        def forward(low, high, generator):
+            return apply_model(model, low, high, mode="train",
+                               generator=generator,
+                               compute_dtype=compute_dtype)
 
     def step(low, high, lr, generator=None):
         nonlocal micro
         for group in opt.param_groups:
             group["lr"] = float(lr)
-        _, total_loss, pixel_loss = apply_model(
-            model, low, high, mode="train", generator=generator,
-            compute_dtype=compute_dtype)
+        _, total_loss, pixel_loss = forward(low, high, generator)
         (total_loss / accum_iter).backward()
         total_loss, pixel_loss = total_loss.detach(), pixel_loss.detach()
         if dist.in_group():

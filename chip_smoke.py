@@ -9,6 +9,7 @@
     python3 chip_smoke.py --ranks N    (run_ranks_check: data parallel and
         W-axis sequence parallel over N GPUs under NCCL, on a machine with
         N cards)
+    python3 chip_smoke.py --variants    (phase 11 alone)
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
@@ -110,6 +111,28 @@ Phases, one line or more each; any failure raises and exits non-zero:
    a multi-GPU time): the bf16 forward's ms at batch 1 and 8 against one
    process, the device ms of the exchanges (there: the staging copies) a
    forward and a step, and of the step.
+
+11. the model variants (run_variants_phase), full width, DurLAR 32x2048
+   -> 128x2048, random weights from seeded generators, each run with the
+   counts set to 0 just before it and read just after: (a) Swin-v2 with
+   the flagship heads: bf16 forwards at batch 1 and 8 (K1 / K2 / K4 0, K3
+   15, K14 31 a forward), the batch-1 bf16 / fp32 preds against the fp32
+   CPU plain path (3e-2 / 1e-3 of max|ref|), the batch-8 forward's device
+   ms by class and of its cosine attentions alone (torch.profiler), three
+   bf16 train steps at batch 8 (K10 15, K15 31 a step; ms, peak memory)
+   and the batch-1 whole step against the CPU as phase 7 holds it; (b) v1
+   with the default heads (PatchExpanding, FinalPatchExpanding): K1 8, K2
+   6, K3 14, K4 3, K14 5 a forward, the batch-1 pred against the CPU; (c)
+   TULIP-large with the flags of bash_scripts/tulip_upsampling_carla.sh:
+   K1 8, K2 10, K3 19, K4 4 a forward at batch 1 and 8, the batch-1 pred
+   against the CPU, three bf16 train steps at batch 8 (K8 / K9 18, K10 19,
+   K11 4 a step); (d) dropout 0.1 / 0.1 on the flagship: MCdrop (50
+   iterations, threshold 0.0005) on four scans twice (K1 / K2 0 and K3 1
+   a forward; the iterations differ, std > 0, the second run draws the
+   same and writes the same results_mcdrop.txt), evaluate bit-equal to
+   the rate-0 model's, three train steps with finite losses; (e) the
+   command line with --swin_v2 and neither head flag: one epoch on phase
+   8's folder, then --eval.  Its seconds end the phase.
 
 Phase 3 also holds K1 / K2 in bf16 at batch 1 and 8 (the tensor-core
 kernel's head splits differ by batch) and at token counts that leave a last
@@ -3221,6 +3244,392 @@ def time_paths_nn(torch, dev, tree, data_root, weights):
                   + f", eval metric step {step:.4f} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the model variants beyond the flagship
+# ---------------------------------------------------------------------------
+
+# launches a forward / a train step: (a) Swin-v2 with the flagship heads,
+# (b) v1 with the default heads, (c) TULIP-large with the flags of
+# bash_scripts/tulip_upsampling_carla.sh
+V2_PER_FORWARD = {"window_msa": 0, "ln_linear": 0, "two_matmul": 15,
+                  "ln_fwd": 31}
+V2_PER_STEP = {"window_msa": 0, "attn_core_fwd": 0, "attn_core_bwd": 0,
+               "two_matmul": 15, "two_matmul_bwd": 15, "ln_linear": 0,
+               "ln_linear_bwd": 0, "ln_fwd": 31, "ln_bwd": 31}
+DEFAULT_HEADS_PER_FORWARD = {"window_msa": 14, "window_msa_many_heads": 6,
+                             "two_matmul": 14, "ln_linear": 3, "ln_fwd": 5}
+LARGE_PER_FORWARD = {"window_msa": 18, "window_msa_many_heads": 10,
+                     "two_matmul": 19, "ln_linear": 4, "ln_fwd": 0}
+LARGE_PER_STEP = {"window_msa": 0, "attn_core_fwd": 18, "attn_core_bwd": 18,
+                  "two_matmul": 19, "two_matmul_bwd": 19, "ln_linear": 4,
+                  "ln_linear_bwd": 4, "ln_fwd": 0, "ln_bwd": 0}
+# the dropout model (0.1 / 0.1): the head's K3 alone, in "mc" and in a step
+MC_PER_FORWARD = {"window_msa": 0, "two_matmul": 1, "ln_linear": 3,
+                  "ln_fwd": 0}
+DROPOUT_PER_STEP = {"window_msa": 0, "attn_core_fwd": 0, "attn_core_bwd": 0,
+                    "two_matmul": 1, "two_matmul_bwd": 1, "ln_linear": 3,
+                    "ln_linear_bwd": 3, "ln_fwd": 0, "ln_bwd": 0}
+VARIANT_STEPS = 3
+
+
+def _launch_check(name, got, want, n=1):
+    per = {k: got[k] // n if n else got[k] for k in want}
+    if any(got[k] != v * n for k, v in want.items()):
+        raise SystemExit(f"{name}: launches {per} (x{n}), expected {want}")
+    return per
+
+
+def _variant_forwards(torch, name, model, data_root, want):
+    """bf16 forwards at batch 1 and 8 through apply_model, counted one at
+    a time; the median ms of 5 more.  Returns ({batch: ms}, batch-1
+    input, its pred)."""
+    from tulip_tpu_torch.models.tulip import apply_model
+    dev = next(model.parameters()).device
+    out, first = {}, None
+    for bs in (1, 8):
+        low, high = load_batches(data_root, bs, 2048)[0]
+        x = torch.from_numpy(low["sample"]).to(dev)
+        t = torch.from_numpy(high["sample"]).to(dev)
+        reset_counts()
+        pred, loss, _ = apply_model(model, x, t, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        per = _launch_check(f"{name} forward batch {bs}", counts(), want)
+        if (tuple(pred.shape) != (bs, 1, 128, 2048)
+                or not bool(torch.isfinite(pred).all())
+                or not math.isfinite(loss.item())):
+            raise SystemExit(f"{name}: bad pred at batch {bs}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            apply_model(model, x, t, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[bs] = statistics.median(times) * 1e3
+        if bs == 1:
+            first = (x, pred)
+        print(f"variants {name}: bf16 forward batch {bs}: launches {per}, "
+              f"median {out[bs]:.2f} ms (min {min(times) * 1e3:.2f})",
+              flush=True)
+    return out, first
+
+
+def _against_cpu(torch, name, make, weights, x1, pred_bf16, fp32=True):
+    """The batch-1 bf16 (and fp32) cuda preds against the fp32 CPU plain
+    path on the same weights: 3e-2 / 1e-3 of max|ref|."""
+    from tulip_tpu_torch.models.tulip import apply_model
+    cpu = make()
+    cpu.load_state_dict(weights, strict=True)
+    ref = apply_model(cpu, x1.cpu(), mc_drop=True)
+    errs = {"bf16": rel_err(torch, pred_bf16.cpu(), ref)}
+    if fp32:
+        m32 = make().to(x1.device)
+        m32.load_state_dict(weights, strict=True)
+        errs["fp32"] = rel_err(torch, apply_model(m32, x1, mc_drop=True).cpu(),
+                               ref)
+        del m32
+    print(f"variants {name}: batch-1 pred vs the fp32 cpu plain path: "
+          f"err/max|ref| {errs} (limits bf16 3e-2, fp32 1e-3)", flush=True)
+    if errs["bf16"] > 3e-2 or errs.get("fp32", 0.0) > 1e-3:
+        raise SystemExit(f"variants {name}: pred check failed")
+    return errs
+
+
+def _variant_steps(torch, dev, name, make, weights, data_root, want):
+    """VARIANT_STEPS bf16 train steps at batch TRAIN_BATCH, drop-path 0.1
+    drawn from a device generator, counted: finite losses, the launches
+    a step, the median ms of the last two, peak memory."""
+    from tulip_tpu_torch.train.step import make_optimizer, make_train_step
+    model = make(drop_path_rate=0.1).to(dev)
+    model.load_state_dict(weights, strict=True)
+    step = make_train_step(model, make_optimizer(model, 0.01),
+                           compute_dtype=torch.bfloat16)
+    low, high = load_batches(data_root, TRAIN_BATCH, 2048, split="train")[0]
+    low = torch.from_numpy(low["sample"]).to(dev)
+    high = torch.from_numpy(high["sample"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, times = [], []
+    for _ in range(VARIANT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(low, high, 5e-4, gen)[0].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per = _launch_check(f"{name} train", counts(), want, VARIANT_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"variants {name}: train losses {losses}")
+    ms = statistics.median(times[1:]) * 1e3
+    print(f"variants {name}: {VARIANT_STEPS} bf16 train steps of batch "
+          f"{TRAIN_BATCH}, drop_path_rate 0.1: losses "
+          f"{[round(v, 5) for v in losses]}, launches/step {per}, step "
+          f"{ms:.2f} ms (first {times[0] * 1e3:.1f}), peak mem {peak:.0f} MiB",
+          flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=ms, peak_mib=peak, launches=per)
+
+
+def _v2_split(torch, model, x, t):
+    """Device ms of the batch-8 bf16 v2 forward by class (K3, K14, the
+    rest: PyTorch's ops), and of its 14 cosine attentions alone (PyTorch's
+    ops), by torch.profiler."""
+    from tulip_tpu_torch.models.tulip import apply_model
+    from tulip_tpu_torch.models.swin import window_partition
+    us = device_us(torch, lambda: apply_model(model, x, t,
+                                              compute_dtype=torch.bfloat16),
+                   n=3)
+    split = {"K3": 0.0, "K14": 0.0, "PyTorch": 0.0}
+    for k, v in us.items():
+        cls = ("K3" if "two_matmul" in k or "ln_rows" in k else
+               "K14" if "ln_fwd" in k else "PyTorch")
+        split[cls] += v / 1e3
+    calls = []
+    for stages in (model.layers, model.layers_up):
+        for stage in stages:
+            for blk in stage.blocks:
+                H, W = blk.st.grid
+                C = blk.attn.proj.weight.shape[0]
+                xw = window_partition(torch.randn(
+                    x.shape[0], H, W, C, device=x.device,
+                    dtype=torch.bfloat16), *blk.st.window)
+                mask = (None if blk.attn_mask is None
+                        else blk.attn_mask.float())
+                calls.append((blk.attn, xw, mask))
+
+    def attention():
+        with torch.no_grad():
+            for attn, xw, mask in calls:
+                attn(xw, mask)
+
+    attn_ms = sum(device_us(torch, attention, n=3).values()) / 1e3
+    split["cosine attention (PyTorch ops, alone)"] = attn_ms
+    print(f"variants v2: device ms of the batch-8 bf16 forward by class "
+          f"{ {k: round(v, 3) for k, v in split.items()} }", flush=True)
+    return split
+
+
+def run_variants_phase(torch, dev, data_root, cli_data_root):
+    """Phase 11: the model variants at full width (DurLAR 32x2048 ->
+    128x2048, random weights from seeded generators), every run with the
+    counts set to 0 just before it and read just after."""
+    import shutil
+    from tulip_tpu_torch.eval import engine as E
+    from tulip_tpu_torch.models.tulip import (apply_model, init_params,
+                                              tulip_base, tulip_large)
+    from tulip_tpu_torch.utils.writer import TBWriter
+    t_phase = time.perf_counter()
+    report = {}
+    bf16 = torch.bfloat16
+
+    def maker(factory, **kw):
+        return lambda **more: factory(**dict(FLAGSHIP, **kw, **more))
+
+    def loaded(make, weights, device, dtype=torch.float32, **kw):
+        m = make(**kw)
+        m.load_state_dict(weights, strict=True)
+        return m.to(device=device, dtype=dtype)
+
+    def on_card(make, weights):
+        return loaded(make, weights, dev, bf16)
+
+    # -- (a) Swin-v2 with the flagship heads -------------------------------
+    make = maker(tulip_base, swin_v2=True)
+    weights = init_params(make().cfg, torch.Generator().manual_seed(1))
+    model = on_card(make, weights)
+    ms, (x1, p1) = _variant_forwards(torch, "v2", model, data_root,
+                                     V2_PER_FORWARD)
+    errs = _against_cpu(torch, "v2", make, weights, x1, p1)
+    low, high = load_batches(data_root, 8, 2048)[0]
+    split = _v2_split(torch, model, torch.from_numpy(low["sample"]).to(dev),
+                      torch.from_numpy(high["sample"]).to(dev))
+    del model
+    steps = _variant_steps(torch, dev, "v2", make, weights, data_root,
+                           V2_PER_STEP)
+    t1 = torch.from_numpy(load_batches(data_root, 1, 2048)[0][1]["sample"])
+    cpu = torch.device("cpu")
+    ref = train_grads(torch, loaded(make, weights, cpu, drop_path_rate=0.0),
+                      x1.cpu(), t1, torch.float32)
+    got32 = train_grads(torch, loaded(make, weights, dev, drop_path_rate=0.0),
+                        x1, t1.to(dev), torch.float32)
+    got16 = train_grads(torch, loaded(make, weights, dev, drop_path_rate=0.0),
+                        x1, t1.to(dev), bf16)
+    rel32, gerrs, cos32 = grad_check(torch, got32, ref)
+    rel16, _, cos16 = grad_check(torch, got16, ref)
+    worst = max(gerrs, key=gerrs.get)
+    print(f"variants v2: whole step batch 1 vs the fp32 cpu plain path: "
+          f"fp32 loss rel {rel32:.2e} (limit 1e-4), worst gradient {worst} "
+          f"{gerrs[worst]:.2e} (limit 1e-3); bf16 loss rel {rel16:.2e} "
+          f"(limit 3e-2), cosine {cos16:.5f} (limit 0.99)", flush=True)
+    if not (rel32 <= 1e-4 and gerrs[worst] <= 1e-3 and rel16 <= 3e-2
+            and cos16 >= 0.99):
+        raise SystemExit("variants v2: whole-step check failed")
+    report["v2"] = dict(forward_ms=ms, pred_err=errs, split_ms=split,
+                        train=steps, whole_step=dict(
+                            loss_rel_fp32=rel32, worst_grad=worst,
+                            worst_grad_err=gerrs[worst], cos_fp32=cos32,
+                            loss_rel_bf16=rel16, cos_bf16=cos16))
+
+    # -- (b) v1 blocks with the default heads ------------------------------
+    make = maker(tulip_base, pixel_shuffle=False, patch_unmerging=False)
+    weights = init_params(make().cfg, torch.Generator().manual_seed(2))
+    model = on_card(make, weights)
+    low = torch.from_numpy(load_batches(data_root, 1, 2048)[0][0]["sample"])
+    reset_counts()
+    pred = apply_model(model, low.to(dev), mc_drop=True, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    per = _launch_check("default heads forward", counts(),
+                        DEFAULT_HEADS_PER_FORWARD)
+    print(f"variants default heads: bf16 forward batch 1: launches {per}",
+          flush=True)
+    report["default_heads"] = dict(launches=per, pred_err=_against_cpu(
+        torch, "default heads", make, weights, low.to(dev), pred))
+    del model
+
+    # -- (c) TULIP-large, the flags of tulip_upsampling_carla.sh -----------
+    make = maker(tulip_large)
+    weights = init_params(make().cfg, torch.Generator().manual_seed(3))
+    model = on_card(make, weights)
+    ms, (x1, p1) = _variant_forwards(torch, "TULIP-large", model, data_root,
+                                     LARGE_PER_FORWARD)
+    del model
+    report["tulip_large"] = dict(
+        forward_ms=ms,
+        pred_err=_against_cpu(torch, "TULIP-large", make, weights, x1, p1,
+                              fp32=False),
+        train=_variant_steps(torch, dev, "TULIP-large", make, weights,
+                             data_root, LARGE_PER_STEP))
+
+    # -- (d) dropout 0.1 / 0.1 on the flagship ------------------------------
+    out_dir = os.path.join(REPO, "build", "chip_smoke_variants")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    writer = TBWriter(os.path.join(out_dir, "tb"))
+    samples = load_batches(data_root, 1, 2048)[:NUM_EVAL]
+    weights = init_params(tulip_base(**FLAGSHIP).cfg,
+                          torch.Generator().manual_seed(4))
+    drop = on_card(maker(tulip_base, drop_rate=0.1, attn_drop_rate=0.1),
+                   weights)
+    plain = on_card(maker(tulip_base), weights)
+    chunks = []
+    make_mc = E._make_mc_forward
+
+    def recording(*a, **k):
+        fwd = make_mc(*a, **k)
+
+        def run(x, generator=None):
+            out = fwd(x, generator)
+            if len(chunks) < 7:      # sample 1's ceil(50 / 8) chunks
+                chunks.append(out)
+            return out
+        return run
+
+    texts, mc_counts = [], None
+    for i in range(2):
+        E._make_mc_forward = recording
+        reset_counts()
+        E.MCdrop(samples, drop, writer, args=eval_args(out_dir), device=dev,
+                 compute_dtype=bf16)
+        torch.cuda.synchronize()
+        got = counts()
+        E._make_mc_forward = make_mc
+        n_fwd = NUM_EVAL * math.ceil(50 / 8)
+        mc_counts = _launch_check("dropout MCdrop", got, MC_PER_FORWARD,
+                                  n_fwd)
+        with open(os.path.join(out_dir, "results_mcdrop.txt"), "rb") as f:
+            texts.append(f.read())
+        if i == 0:
+            preds = torch.cat(chunks)[:50].float()
+            std = preds.std(0, correction=1)
+            differ = not torch.equal(preds[0], preds[1])
+            removed = float((std > 0.0005 * preds.mean(0)).float().mean())
+            first = [c.clone() for c in chunks]
+            chunks.clear()
+    same_draws = all(torch.equal(a, b) for a, b in zip(first, chunks))
+    print(f"variants dropout: MCdrop 50 iterations on {NUM_EVAL} scans, "
+          f"bf16, drop / attn_drop 0.1: launches/forward {mc_counts}, "
+          f"iterations differ {differ}, pred_std max {float(std.max()):.4g}, "
+          f"share of pixels removed {removed:.4f}; second run: the same "
+          f"draws {same_draws}, results_mcdrop.txt equal "
+          f"{texts[0] == texts[1]}", flush=True)
+    if not (differ and float(std.max()) > 0 and same_draws
+            and texts[0] == texts[1]):
+        raise SystemExit("variants dropout: MCdrop check failed")
+    results = []
+    for m in (drop, plain):
+        E.evaluate(samples, m, writer, args=eval_args(out_dir), device=dev,
+                   compute_dtype=bf16)
+        with open(os.path.join(out_dir, "results.txt"), "rb") as f:
+            results.append(f.read())
+    print(f"variants dropout: evaluate equals the rate-0 model's bit for "
+          f"bit: {results[0] == results[1]}", flush=True)
+    if results[0] != results[1]:
+        raise SystemExit("variants dropout: evaluate differs from rate 0")
+    del drop, plain
+    report["dropout"] = dict(
+        mc_launches_per_forward=mc_counts, pred_std_max=float(std.max()),
+        removed_share=removed,
+        train=_variant_steps(
+            torch, dev, "dropout", maker(tulip_base, drop_rate=0.1,
+                                         attn_drop_rate=0.1), weights,
+            data_root, DROPOUT_PER_STEP))
+
+    # -- (e) the command line: --swin_v2 without the head flags ------------
+    cli_dir = os.path.join(out_dir, "cli")
+    flags = [f for f in cli_flags(cli_data_root, cli_dir, "--epochs", "1",
+                                  "--warmup_epochs", "1", "--save_frequency",
+                                  "1", "--swin_v2")
+             if f not in ("--pixel_shuffle", "--patch_unmerging")]
+    reset_counts()
+    run_cli_train(flags)
+    got = counts()
+    log = read_log(cli_dir)
+    steps = CLI_TRAIN // CLI_BATCH
+    per = _launch_check("cli --swin_v2 train", got,
+                        {"window_msa": 0, "attn_core_fwd": 0,
+                         "two_matmul_bwd": 14}, steps)
+    text, code = run_cli([f for f in cli_flags(
+        cli_data_root, os.path.join(cli_dir, "checkpoint-0.pth"), "--eval",
+        "--swin_v2", log_dir=cli_dir)
+        if f not in ("--pixel_shuffle", "--patch_unmerging")])
+    with open(os.path.join(cli_dir, "results.txt")) as f:
+        res = json.load(f)
+    ok = (code == 0 and len(log) == 1 and math.isfinite(log[0]["train_loss"])
+          and sorted(res) == RESULT_KEYS
+          and all(math.isfinite(v) for k in res for v in res[k])
+          and len(res["mae"]) == CLI_VAL)
+    print(f"variants cli --swin_v2, default heads: one epoch ({steps} steps, "
+          f"launches/step {per}), train_loss {log[0]['train_loss']:.5f}; "
+          f"--eval exit {code}, results.txt {len(res['mae'])} scans, "
+          f"mae {res['mae']}", flush=True)
+    if not ok:
+        raise SystemExit(f"variants cli failed:\n{text[-3000:]}")
+    report["cli"] = dict(train_loss=log[0]["train_loss"], results=res)
+
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"variants: phase 11 took {report['seconds']:.1f} s", flush=True)
+    return report
+
+
+def variants_only(torch, dev) -> int:
+    """``python3 chip_smoke.py --variants``: phase 11 alone, on the folders
+    phases 4, 7 and 8 write (written here); no kernel table."""
+    data_root = os.path.join(REPO, "build", "chip_smoke_durlar")
+    write_durlar(data_root, 8, 2048)
+    write_durlar(data_root, 2 * TRAIN_BATCH, 2048, split="train")
+    cli_root = os.path.join(REPO, "build", "chip_smoke_cli", "durlar")
+    write_durlar(cli_root, CLI_TRAIN, 2048, split="train")
+    write_durlar(cli_root, CLI_VAL, 2048, split="val")
+    report = run_variants_phase(torch, dev, data_root, cli_root)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "variants.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
 def main() -> int:
     import torch
     if "--dp-rank" in sys.argv[1:]:
@@ -3261,6 +3670,9 @@ def main() -> int:
         build.load()
         return run_ranks_check(
             torch, int(sys.argv[sys.argv.index("--ranks") + 1]))
+    if "--variants" in sys.argv[1:]:
+        build.load()
+        return variants_only(torch, dev)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3403,6 +3815,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     sp_report = run_sp_phase(torch, dev, weights)
 
+    # -- 11. the model variants ---------------------------------------------
+    torch.cuda.empty_cache()
+    variants_report = run_variants_phase(
+        torch, dev, data_root,
+        os.path.join(REPO, "build", "chip_smoke_cli", "durlar"))
+
     # -- summary -----------------------------------------------------------
     # per kernel: the sums over its bf16 (chamfer: fp32) cases on the path
     kernels = []
@@ -3454,6 +3872,7 @@ def main() -> int:
                        img_per_s=throughput, kernels=kernels,
                        eval=eval_report, train=train_report, cli=cli_report,
                        data_parallel=dp_report, sequence_parallel=sp_report,
+                       variants=variants_report,
                        build=dict(seconds=build_s, nvcc_seconds=nvcc_s),
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)

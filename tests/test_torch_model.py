@@ -96,13 +96,10 @@ def test_apply_model_arity_and_modes(pair):
     model.zero_grad(set_to_none=True)
 
 
-@pytest.mark.parametrize("flag", ["swin_v2", "pixel_shuffle",
-                                  "patch_unmerging"])
-def test_unported_configs_raise(flag):
-    kw = dict(KW)
-    kw[flag] = not kw.get(flag, False)
+def test_in_chans_other_than_one_raises():
+    """The folded head predicts one channel: in_chans 2 stays refused."""
     with pytest.raises(NotImplementedError):
-        TT.tulip_base(**kw)
+        TT.tulip_base(**dict(KW, in_chans=2))
 
 
 def test_forward_loss_matches_jax():

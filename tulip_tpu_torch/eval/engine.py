@@ -108,14 +108,17 @@ def _make_eval_forward(model, dataset: str, log_transform: bool, gates,
 
 def _make_mc_forward(model, compute_dtype, sp_forward=None):
     """One batch of dropout-active forwards (engine:409-421; model called
-    with mc_drop=True, tulip.py:733-734).  ``sp_forward(low_tiled) -> pred``
-    optionally replaces the model forward."""
+    with mc_drop=True, tulip.py:733-734), the dropout drawn from
+    ``generator``.  ``sp_forward(low_tiled) -> pred`` optionally replaces
+    the model forward (sequence parallel takes no non-zero dropout rate,
+    so it draws nothing)."""
 
-    def fwd(low_tiled):
+    def fwd(low_tiled, generator=None):
         if sp_forward is not None:
             return sp_forward(low_tiled).float()
         return apply_model(model, low_tiled, None, mode="mc", mc_drop=True,
-                           compute_dtype=compute_dtype).float()
+                           compute_dtype=compute_dtype,
+                           generator=generator).float()
 
     return fwd
 
@@ -445,14 +448,24 @@ def evaluate(data_loader, model, log_writer, args=None, *, device,
                      'results.txt')
 
 
+def _chunk_generator(seed, step: int, chunk: int, device) -> torch.Generator:
+    """The dropout draws of MC chunk ``chunk`` of sample ``step``."""
+    state = np.random.SeedSequence([int(seed), step, chunk]).generate_state(1)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
 def MCdrop(data_loader, model, log_writer, args=None, *, device,
            compute_dtype=torch.float32, sp_forward=None):
     """Monte-Carlo-dropout evaluation (reference: engine:361-608).
 
-    Runs num_mcdropout_iterations dropout-active forwards in tiles of 8,
-    averages, and zeroes pixels whose std exceeds threshold * mean.  NOTE
-    (parity): shipped configs have all dropout rates 0, so the passes are
-    identical, std == 0, and no pixel is removed (SURVEY.md 7.3.8).
+    Runs num_mcdropout_iterations dropout-active forwards in ceil(n / 8)
+    chunks of 8, averages, and zeroes pixels whose std exceeds threshold *
+    mean.  Chunk c of sample ``step`` draws its dropout from a generator on
+    the device seeded from (args.seed, step, c), so a run repeats bit for
+    bit under one seed.  The dropout rates are the model config's
+    (``model_config(drop_rate=..., attn_drop_rate=...)``); the shipped
+    configs have both at 0, so there the passes are identical, std == 0,
+    and no pixel is removed (SURVEY.md 7.3.8).
 
     At dropout rate 0 ONE forward broadcast to the iteration count feeds the
     same mean/std/removal computation the full loop would see (identical
@@ -491,7 +504,8 @@ def MCdrop(data_loader, model, log_writer, args=None, *, device,
         else:
             n_chunks = math.ceil(iteration / iteration_batch)
             tiled = low.repeat(iteration_batch, 1, 1, 1)
-            preds = torch.cat([mc_fwd(tiled) for _ in range(n_chunks)])
+            preds = torch.cat([mc_fwd(tiled, _chunk_generator(
+                args.seed, step, c, low.device)) for c in range(n_chunks)])
             preds = preds[:iteration]
         return postprocess(preds, low, high)
 

@@ -63,18 +63,34 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
 
 
 class RankDraws(NamedTuple):
-    """The drop-path draws of one rank of ``world`` under data parallel:
-    each draw is the keep mask of the global batch (``world`` ranks of
-    equal batch, joined in rank order) from ``generator``, which every rank
-    seeds alike; the rank keeps its own rows.  So the ranks' generators
-    stay in step and N ranks draw what one process draws on the joined
-    batch, as the JAX package's one key for the global batch does."""
+    """The drop-path and dropout draws of one rank of ``world`` under data
+    parallel: each draw is the keep mask of the global batch (``world``
+    ranks of equal batch, joined in rank order) from ``generator``, which
+    every rank seeds alike; the rank keeps its own rows.  So the ranks'
+    generators stay in step and N ranks draw what one process draws on the
+    joined batch, as the JAX package's one key for the global batch does."""
     generator: torch.Generator
     rank: int
     world: int
 
 
 Draws = Union[torch.Generator, RankDraws]
+
+
+def _keep_mask(x: torch.Tensor, shape, keep: float,
+               generator: Draws) -> torch.Tensor:
+    """The keep mask of x's rows: ``shape`` (x's first axis first) drawn
+    for the global batch, this rank's block of rows kept.  x's first axis
+    is batch-major at every site (samples, or windows / tokens ordered by
+    sample), so a rank's rows are one contiguous block of it."""
+    rank, world = 0, 1
+    if isinstance(generator, RankDraws):
+        generator, rank, world = generator
+    n = x.shape[0]
+    u = torch.rand((n * world,) + tuple(shape[1:]), generator=generator,
+                   device=x.device)
+    return u[rank * n:(rank + 1) * n] < keep
+
 
 def drop_path(x: torch.Tensor, rate: float,
               generator: Optional[Draws],
@@ -87,14 +103,23 @@ def drop_path(x: torch.Tensor, rate: float,
     where x is one rank's rows of it."""
     if not active or rate == 0.0 or generator is None:
         return x
-    rank, world = 0, 1
-    if isinstance(generator, RankDraws):
-        generator, rank, world = generator
     keep = 1.0 - rate
-    B = x.shape[0]
-    shape = (B * world,) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator,
-                      device=x.device)[rank * B:(rank + 1) * B] < keep
+    mask = _keep_mask(x, (x.shape[0],) + (1,) * (x.ndim - 1), keep,
+                      generator)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[Draws],
+            active: bool) -> torch.Tensor:
+    """Element-wise dropout (tulip_tpu/models/layers.py:dropout): each
+    element is kept with probability 1 - rate and scaled by 1 / (1 - rate),
+    or zeroed.  Drawn as :func:`drop_path` draws, from the same
+    ``generator`` (a :class:`RankDraws` draws the global batch's mask)."""
+    if not active or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(x, x.shape, keep, generator)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -195,6 +220,21 @@ def relative_position_index(window) -> np.ndarray:
     rel[:, :, 1] += ww - 1
     rel[:, :, 0] *= 2 * ww - 1
     return rel.sum(-1)
+
+
+def cpb_coords_table(window) -> np.ndarray:
+    """Swin-v2's log-spaced relative coordinates, ((2wh-1)(2ww-1), 2) fp32:
+    the input of the continuous position bias MLP (the numpy half of
+    tulip_tpu/models/swin.py:_cpb_table)."""
+    wh, ww = window
+    ch = np.arange(-(wh - 1), wh, dtype=np.float32)
+    cw = np.arange(-(ww - 1), ww, dtype=np.float32)
+    table = np.stack(np.meshgrid(ch, cw, indexing="ij"), axis=-1)
+    table[..., 0] /= max(wh - 1, 1)
+    table[..., 1] /= max(ww - 1, 1)
+    table *= 8.0
+    table = np.sign(table) * np.log2(np.abs(table) + 1.0) / np.log2(8.0)
+    return table.reshape(-1, 2).astype(np.float32)
 
 
 def shift_attention_mask(grid, window, shift) -> np.ndarray:

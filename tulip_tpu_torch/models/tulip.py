@@ -17,13 +17,21 @@ the attention core, the MLP halves, the merges and the head are
 the patch-embed im2col, the skip-fuse linears, the unmerging 1x1 convs and
 the loss are plain autograd.
 
-Only the configuration the shipped scripts use is ported:
-``--pixel_shuffle --circular_padding --patch_unmerging`` with Swin-v1
-blocks; other heads, PatchExpanding and Swin-v2 raise NotImplementedError.
+Every variant of the JAX package's ``model_config`` runs: Swin-v1 or
+Swin-v2 blocks (``swin_v2``; PatchMergingV2 with them), the patch
+unmerging or PatchExpanding decoder upsample (``patch_unmerging``), the
+pixel-shuffle or FinalPatchExpanding head (``pixel_shuffle``), and
+dropout at the config's ``drop_rate`` / ``attn_drop_rate`` in the modes
+'train' and 'mc' (:func:`apply_model`).  The new norms (v2's post-norms,
+PatchMergingV2's, PatchExpanding's, FinalPatchExpanding's and ``norm_up``
+before it) run on the LayerNorm kernels.  Only ``in_chans != 1`` (the
+folded head) and ``qkv_bias=False`` (the window-MSA kernel) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,22 +41,35 @@ from ..config import ModelConfig, model_config
 from ..ops.mlp import ln_linear, two_matmul
 from ..parallel.halo import circular_pad_w
 from . import layers as L
-from .swin import SwinBlockV1, make_block_static
+from .swin import (CPB_HIDDEN, SwinBlockV1, SwinBlockV2, layer_norm_tokens,
+                   make_block_static)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.swin_v2:
-        raise NotImplementedError("Swin-v2 blocks are not ported yet")
-    if not cfg.pixel_shuffle:
-        raise NotImplementedError(
-            "only the pixel-shuffle head is ported (FinalPatchExpanding is not)")
-    if not cfg.patch_unmerging:
-        raise NotImplementedError(
-            "only patch unmerging is ported (PatchExpanding is not)")
     if cfg.in_chans != 1:
         raise NotImplementedError("the fused head takes in_chans == 1")
     if not cfg.qkv_bias:
         raise NotImplementedError("the window-MSA kernel takes a qkv bias")
+
+
+def _space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/2, W/2, 4C), zero-padded to even H and W;
+    channel blocks (0,0),(1,0),(0,1),(1,1) (reference: tulip.py:92-99)."""
+    B, H, W, C = x.shape
+    if H % 2 or W % 2:
+        x = nn.functional.pad(x, (0, 0, 0, W % 2, 0, H % 2))
+        H, W = x.shape[1], x.shape[2]
+    x = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 4, 2, 5)
+    return x.reshape(B, H // 2, W // 2, 4 * C)
+
+
+def _depth_to_space(x: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, H, W, s*s*C) -> (B, H*s, W*s, C), channels split (p1, p2, c):
+    the rearrange of PatchExpanding / FinalPatchExpanding."""
+    B, H, W, CS = x.shape
+    C = CS // (s * s)
+    x = x.reshape(B, H, W, s, s, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H * s, W * s, C)
 
 
 def _pixel_shuffle_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -105,16 +126,28 @@ class PatchMerging(nn.Module):
                                   dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, C = x.shape
-        if H % 2 or W % 2:
-            x = nn.functional.pad(x, (0, 0, 0, W % 2, 0, H % 2))
-            H, W = x.shape[1], x.shape[2]
-        x = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 4, 2, 5)
-        x = x.reshape(-1, 4 * C)
+        x = _space_to_depth(x)
+        B, H2, W2, C4 = x.shape
         d = x.dtype
-        out = ln_linear(x, self.norm.weight.to(d), self.norm.bias.to(d),
-                        self.reduction.weight.to(d), eps=self.eps)
-        return out.reshape(B, H // 2, W // 2, 2 * C)
+        out = ln_linear(x.reshape(-1, C4), self.norm.weight.to(d),
+                        self.norm.bias.to(d), self.reduction.weight.to(d),
+                        eps=self.eps)
+        return out.reshape(B, H2, W2, C4 // 2)
+
+
+class PatchMergingV2(nn.Module):
+    """Space-to-depth as :class:`PatchMerging`, then the bias-free 4C -> 2C
+    reduction, then norm(2C) (reference: swin_transformer_v2.py:341-365)."""
+
+    def __init__(self, dim: int, eps: float, *, device=None, dtype=None):
+        super().__init__()
+        self.reduction = L.Linear(4 * dim, 2 * dim, False, device=device,
+                                  dtype=dtype)
+        self.norm = L.LayerNorm(2 * dim, eps, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.reduction(_space_to_depth(x))
+        return layer_norm_tokens(self.norm, y)
 
 
 class PatchUnmerging(nn.Module):
@@ -130,13 +163,63 @@ class PatchUnmerging(nn.Module):
             L.conv1x1(x, self.expand.weight, self.expand.bias), 2)
 
 
+class PatchExpanding(nn.Module):
+    """Bias-free C -> 2C linear, depth-to-space by 2 (channels split (p1,
+    p2, c)), norm(C/2) (reference: tulip.py:126-140)."""
+
+    def __init__(self, dim: int, eps: float, *, device=None, dtype=None):
+        super().__init__()
+        self.expand = L.Linear(dim, 2 * dim, False, device=device,
+                               dtype=dtype)
+        self.norm = L.LayerNorm(dim // 2, eps, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _depth_to_space(self.expand(x), 2)
+        return layer_norm_tokens(self.norm, y)
+
+
+class FinalPatchExpanding(nn.Module):
+    """Bias-free C -> s^2 C linear, depth-to-space by s (channels split
+    (p1, p2, c)), norm(C) (reference: tulip.py:144-159)."""
+
+    def __init__(self, dim: int, scale: int, eps: float, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.scale = scale
+        self.expand = L.Linear(dim, scale * scale * dim, False,
+                               device=device, dtype=dtype)
+        self.norm = L.LayerNorm(dim, eps, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _depth_to_space(self.expand(x), self.scale)
+        return layer_norm_tokens(self.norm, y)
+
+
+def _upsample(cfg: ModelConfig, dim: int, **kw) -> nn.Module:
+    if cfg.patch_unmerging:
+        return PatchUnmerging(dim, **kw)
+    return PatchExpanding(dim, cfg.layer_norm_eps, **kw)
+
+
 class Stage(nn.Module):
     def __init__(self, cfg: ModelConfig, stage, *, device=None, dtype=None):
         super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        if cfg.swin_v2:
+            # v2 builds its relative index from the stage's (resolved)
+            # window, v1 from the config window (tulip_tpu/models/tulip.py:
+            # build_model)
+            self.blocks = nn.ModuleList(
+                SwinBlockV2(stage.dim, make_block_static(stage, j,
+                                                         stage.window),
+                            cfg.mlp_ratio, cfg.layer_norm_eps, **kw)
+                for j in range(stage.depth))
+            return
         self.blocks = nn.ModuleList(
             SwinBlockV1(stage.dim, make_block_static(stage, j, cfg.window_size),
                         cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
-                        cfg.layer_norm_eps, device=device, dtype=dtype)
+                        cfg.layer_norm_eps, drop=cfg.drop_rate,
+                        attn_drop=cfg.attn_drop_rate, **kw)
             for j in range(stage.depth))
 
     def forward(self, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -163,25 +246,30 @@ class TULIP(nn.Module):
         for i, st in enumerate(cfg.encoder_stages):
             stage = Stage(cfg, st, **kw)
             if i < n - 1:
-                stage.downsample = PatchMerging(st.dim, cfg.layer_norm_eps,
-                                                **kw)
+                merge = PatchMergingV2 if cfg.swin_v2 else PatchMerging
+                stage.downsample = merge(st.dim, cfg.layer_norm_eps, **kw)
             self.layers.append(stage)
-        self.first_patch_expanding = PatchUnmerging(
-            cfg.embed_dim * 2 ** (n - 1), **kw)
+        self.first_patch_expanding = _upsample(
+            cfg, cfg.embed_dim * 2 ** (n - 1), **kw)
         self.layers_up = nn.ModuleList()
         for i, st in enumerate(cfg.decoder_stages):
             stage = Stage(cfg, st, **kw)
             if i < n - 2:
-                stage.upsample = PatchUnmerging(st.dim, **kw)
+                stage.upsample = _upsample(cfg, st.dim, **kw)
             self.layers_up.append(stage)
         self.skip_connection_layers = nn.ModuleList(
             L.Linear(st.dim * 2, st.dim, True, **kw)
             for st in cfg.decoder_stages)
         self.norm_up = L.LayerNorm(cfg.embed_dim, cfg.layer_norm_eps, **kw)
         r2 = cfg.upscale_factor ** 2
-        self.ps_head = nn.Module()
-        self.ps_head.conv_expand = nn.ModuleList(
-            [L.Conv2d(cfg.embed_dim, cfg.embed_dim * r2, 1, 1, True, **kw)])
+        if cfg.pixel_shuffle:
+            self.ps_head = nn.Module()
+            self.ps_head.conv_expand = nn.ModuleList(
+                [L.Conv2d(cfg.embed_dim, cfg.embed_dim * r2, 1, 1, True,
+                          **kw)])
+        else:
+            self.final_patch_expanding = FinalPatchExpanding(
+                cfg.embed_dim, cfg.upscale_factor, cfg.layer_norm_eps, **kw)
         self.decoder_pred = L.Conv2d(cfg.embed_dim, cfg.in_chans, 1, 1, False,
                                      **kw)
 
@@ -189,7 +277,12 @@ class TULIP(nn.Module):
         """norm_up + ps_head + decoder_pred as one fused two-matmul: the 1x1
         prediction conv commutes with PixelShuffle, so it folds into a dense
         (r^2, C*r^2) second weight whose row s reads the expanded channels
-        {c*r^2 + s}; the (tokens, C*r^2) expansion never reaches memory."""
+        {c*r^2 + s}; the (tokens, C*r^2) expansion never reaches memory.
+        Without the pixel-shuffle head: norm_up, FinalPatchExpanding and
+        the 1x1 prediction conv."""
+        if not self.cfg.pixel_shuffle:
+            x = self.final_patch_expanding(layer_norm_tokens(self.norm_up, x))
+            return L.conv1x1(x, self.decoder_pred.weight)
         B, H, W, C = x.shape
         s = self.cfg.upscale_factor
         r2 = s * s
@@ -208,13 +301,17 @@ class TULIP(nn.Module):
         return out.reshape(B, H * s, W * s, 1)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
+                dropout: bool = False,
                 generator: Optional[L.Draws] = None) -> torch.Tensor:
         """NHWC input image -> NHWC prediction (reference: TULIP.forward,
         tulip.py:702-731).  ``train`` selects the blocks' training path
-        (drop-path drawn from ``generator``)."""
+        (drop-path drawn from ``generator``), ``dropout`` activates the
+        dropout sites (drawn from it too): pos_drop after the patch embed
+        and the v1 blocks' attention, projection and MLP dropout."""
         n = self.cfg.num_layers
-        kw = dict(train=train, generator=generator)
+        kw = dict(train=train, dropout=dropout, generator=generator)
         x = self.patch_embed(x)
+        x = L.dropout(x, self.cfg.drop_rate, generator, dropout)  # pos_drop
         x_save = []
         for i, stage in enumerate(self.layers):
             x_save.append(x)
@@ -249,22 +346,20 @@ def apply_model(model: TULIP, x: torch.Tensor,
                 mc_drop: bool = False, compute_dtype=torch.float32,
                 generator: Optional[L.Draws] = None):
     """Public forward.  ``x``/``target`` are NCHW.  ``mode`` 'eval' is
-    deterministic; 'mc' is model.eval() + active dropout, which is the
-    identity at the shipped rates of 0; 'train' runs with autograd on and
-    drop-path active, drawn from ``generator`` (on x's device; a
+    deterministic; 'mc' is model.eval() + active dropout at the config's
+    rates; 'train' runs with autograd on, dropout and drop-path active.
+    The draws come from ``generator`` (on x's device; a
     ``layers.RankDraws`` where x is one rank's share of a data-parallel
-    batch; None turns drop-path off).  Returns pred (NCHW) if ``mc_drop`` else (pred,
-    total_loss, pixel_loss), as tulip_tpu.models.tulip.apply_model does."""
+    batch; None draws nothing, as the JAX package's rng None).  Returns
+    pred (NCHW) if ``mc_drop`` else (pred, total_loss, pixel_loss), as
+    tulip_tpu.models.tulip.apply_model does."""
     cfg = model.cfg
     if mode not in ("train", "eval", "mc"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode != "eval" and (cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0):
-        raise NotImplementedError("active dropout at a non-zero rate is not "
-                                  "ported yet")
     train = mode == "train"
     with torch.set_grad_enabled(train):
         xh = x.permute(0, 2, 3, 1).to(compute_dtype).contiguous()
-        pred = model(xh, train=train,
+        pred = model(xh, train=train, dropout=mode != "eval",
                      generator=generator).permute(0, 3, 1, 2)
     if mc_drop:
         return pred
@@ -283,15 +378,38 @@ def _block_params(dim: int, nh: int, cfg: ModelConfig,
     p = {}
     for k in ("norm1", "norm2"):
         p.update({f"{k}.{n}": t for n, t in L.layer_norm_init(dim).items()})
-    sub = {"attn.qkv": L.torch_linear_trunc_init(dim, 3 * dim, cfg.qkv_bias, g),
-           "attn.proj": L.torch_linear_trunc_init(dim, dim, True, g),
-           "mlp.fc1": L.torch_linear_trunc_init(dim, hidden, True, g),
-           "mlp.fc2": L.torch_linear_trunc_init(hidden, dim, True, g)}
+    if cfg.swin_v2:   # tulip_tpu/models/tulip.py:_attn_params
+        sub = {"attn.qkv": L.torch_linear_trunc_init(dim, 3 * dim, False, g),
+               "attn.cpb_mlp.0": L.torch_linear_trunc_init(2, CPB_HIDDEN,
+                                                           True, g),
+               "attn.cpb_mlp.2": L.torch_linear_trunc_init(CPB_HIDDEN, nh,
+                                                           False, g)}
+        p["attn.q_bias"] = torch.zeros(dim)
+        p["attn.v_bias"] = torch.zeros(dim)
+        p["attn.logit_scale"] = torch.full((nh, 1, 1), math.log(10.0))
+    else:
+        sub = {"attn.qkv": L.torch_linear_trunc_init(dim, 3 * dim,
+                                                     cfg.qkv_bias, g)}
+    sub.update({"attn.proj": L.torch_linear_trunc_init(dim, dim, True, g),
+                "mlp.fc1": L.torch_linear_trunc_init(dim, hidden, True, g),
+                "mlp.fc2": L.torch_linear_trunc_init(hidden, dim, True, g)})
     for k, d in sub.items():
         p.update({f"{k}.{n}": t for n, t in d.items()})
-    p["attn.relative_position_bias_table"] = L.trunc_normal(
-        ((2 * wh - 1) * (2 * ww - 1), nh), 0.02, g)
+    if not cfg.swin_v2:   # drawn last, so a seed gives v1 the same weights
+        p["attn.relative_position_bias_table"] = L.trunc_normal(
+            ((2 * wh - 1) * (2 * ww - 1), nh), 0.02, g)
     return p
+
+
+def _upsample_params(dim: int, cfg: ModelConfig,
+                     g: torch.Generator) -> Dict[str, torch.Tensor]:
+    if cfg.patch_unmerging:
+        return {f"expand.{n}": t for n, t in
+                L.torch_conv_init(2 * dim, dim, 1, 1, True, g).items()}
+    return {"expand.weight": L.torch_linear_trunc_init(
+                dim, 2 * dim, False, g)["weight"],
+            **{f"norm.{n}": t for n, t in
+               L.layer_norm_init(dim // 2).items()}}
 
 
 def init_params(cfg: ModelConfig,
@@ -316,25 +434,31 @@ def init_params(cfg: ModelConfig,
             put(f"layers.{i}.blocks.{j}", _block_params(st.dim, st.num_heads,
                                                         cfg, g))
         if i < n - 1:
-            put(f"layers.{i}.downsample.norm", L.layer_norm_init(4 * st.dim))
+            # PatchMergingV2 norms the 2C output, v1 the 4C input
+            put(f"layers.{i}.downsample.norm", L.layer_norm_init(
+                (2 if cfg.swin_v2 else 4) * st.dim))
             put(f"layers.{i}.downsample.reduction",
                 L.torch_linear_trunc_init(4 * st.dim, 2 * st.dim, False, g))
-    bott = cfg.embed_dim * 2 ** (n - 1)
-    put("first_patch_expanding.expand",
-        L.torch_conv_init(2 * bott, bott, 1, 1, True, g))
+    put("first_patch_expanding",
+        _upsample_params(cfg.embed_dim * 2 ** (n - 1), cfg, g))
     for i, st in enumerate(cfg.decoder_stages):
         for j in range(st.depth):
             put(f"layers_up.{i}.blocks.{j}", _block_params(
                 st.dim, st.num_heads, cfg, g))
         if i < n - 2:
-            put(f"layers_up.{i}.upsample.expand",
-                L.torch_conv_init(2 * st.dim, st.dim, 1, 1, True, g))
+            put(f"layers_up.{i}.upsample", _upsample_params(st.dim, cfg, g))
     for i, st in enumerate(cfg.decoder_stages):
         put(f"skip_connection_layers.{i}",
             L.torch_linear_trunc_init(2 * st.dim, st.dim, True, g))
     put("norm_up", L.layer_norm_init(cfg.embed_dim))
-    put("ps_head.conv_expand.0", L.torch_conv_init(
-        cfg.embed_dim * cfg.upscale_factor ** 2, cfg.embed_dim, 1, 1, True, g))
+    s2 = cfg.upscale_factor ** 2
+    if cfg.pixel_shuffle:
+        put("ps_head.conv_expand.0", L.torch_conv_init(
+            cfg.embed_dim * s2, cfg.embed_dim, 1, 1, True, g))
+    else:
+        put("final_patch_expanding.expand", L.torch_linear_trunc_init(
+            cfg.embed_dim, s2 * cfg.embed_dim, False, g))
+        put("final_patch_expanding.norm", L.layer_norm_init(cfg.embed_dim))
     out["decoder_pred.weight"] = L.torch_conv_init(
         cfg.in_chans, cfg.embed_dim, 1, 1, False, g)["weight"]
     return out

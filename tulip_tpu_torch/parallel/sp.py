@@ -9,9 +9,16 @@ patch embed's circular pad (2 columns a side) and the shifted windows'
 W roll (half a window, 4 columns at window 2 x 8), twice a shifted block.
 The kernels see the local shard: the shifted blocks hand them the W-rolled
 shard with shift (sh, 0), so the H roll stays addressing inside them, and
-the local mask.  Everything else is token-local or a local 2 x 2
-space-to-depth: the merges, the unmerging, the skip concats and the
-pixel-shuffle head run unchanged on the shard.
+the local mask; Swin-v2's shifted blocks roll the shard (``halo.roll_hw``)
+and partition its windows with the local mask.  Everything else is
+token-local or a local 2 x 2 space-to-depth: the merges (v1 and v2), the
+unmerging or PatchExpanding, the skip concats and either head run
+unchanged on the shard.
+
+Dropout at a non-zero rate raises NotImplementedError under sharding: the
+JAX package's shard_map draws one local mask for every shard, which is
+not the unsharded model's draw, and the port keeps to the unsharded
+semantics.
 
 Masks.  The reference's shifted-window mask marks the boundary regions
 of the *globally last* window column along W only (tulip/model/
@@ -100,8 +107,8 @@ def build_sp_statics(model: TULIP, n_seq: int) -> SpStatics:
         if W % n_seq:
             raise ValueError(f"token grid W={W} not divisible by sp={n_seq}")
         local = dataclasses.replace(stage, grid=(H, W // n_seq))
-        return tuple(_sp_block(local, j, cfg.window_size)
-                     for j in range(local.depth))
+        cw = local.window if cfg.swin_v2 else cfg.window_size
+        return tuple(_sp_block(local, j, cw) for j in range(local.depth))
 
     return SpStatics(
         enc=tuple(shard_stage(s) for s in cfg.encoder_stages),
@@ -150,7 +157,14 @@ def make_sp_forward(model: TULIP, mesh: Mesh, *, mode: str = "train",
     shard.  ``mode`` as there: 'train' (autograd on, drop-path from
     ``generator``, a ``layers.RankDraws`` of the data index), 'mc', 'eval'.
     Every rank of the ring calls it in step: the exchanges are
-    collective."""
+    collective.  A non-zero dropout rate in 'train' or 'mc' raises."""
+    cfg = model.cfg
+    if (mesh.sp > 1 and mode != "eval"
+            and (cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0)):
+        raise NotImplementedError(
+            f"dropout (drop_rate {cfg.drop_rate}, attn_drop_rate "
+            f"{cfg.attn_drop_rate}) under sequence parallel: one mask for "
+            f"the whole scan is not drawn across W shards")
     statics = build_sp_statics(model, mesh.sp)
     ring = mesh.ring()
     pairs = _local_masks(model, statics, ring.index == ring.size - 1)

@@ -8,8 +8,8 @@ scalars on the epoch_1000x axis.  Losses are read one step late: the
 previous step's loss tensors are read back after the next step is
 launched, so the host waits on the card once per step at most.
 
-Under data parallel each rank draws the drop-path masks of the global
-batch from the same (seed, epoch) generator and keeps its own rows
+Under data parallel each rank draws the drop-path and dropout masks of the
+global batch from the same (seed, epoch) generator and keeps its own rows
 (``layers.RankDraws``); under W-axis sequence parallel the rows of its
 data index, which its seq ranks share (``train_step.mesh``).  The step
 returns losses already averaged over the ranks, so the NaN abort fires on
@@ -58,10 +58,11 @@ def train_one_epoch(train_step, data_loader, epoch: int, *, device,
     if log_writer is not None:
         print('log_dir: {}'.format(log_writer.logdir))
 
-    # the epoch's drop-path draws: one generator on the device, seeded from
-    # (seed, epoch) alike on every rank, in place of the JAX package's
-    # fold_in(key, epoch); under data parallel each rank keeps its rows of
-    # the global batch's draws, under sequence parallel its data index's
+    # the epoch's drop-path and dropout draws: one generator on the device,
+    # seeded from (seed, epoch) alike on every rank, in place of the JAX
+    # package's fold_in(key, epoch); under data parallel each rank keeps its
+    # rows of the global batch's draws, under sequence parallel its data
+    # index's
     seed = np.random.SeedSequence([int(args.seed), epoch]).generate_state(1)
     generator = torch.Generator(device=device).manual_seed(int(seed[0]))
     if dist.get_world_size() > 1:

@@ -48,7 +48,7 @@ def make_train_step(model: TULIP, opt: torch.optim.Optimizer, *,
 
     low / high: NCHW fp32 tensors on the model's device (under data
     parallel this rank's rows of the global batch); lr: this step's
-    learning rate; generator: the drop-path draws (on the device; a
+    learning rate; generator: the drop-path and dropout draws (on the device; a
     ``layers.RankDraws`` under data parallel).  With
     ``accum_iter`` k > 1 the gradient is the mean over k micro-steps and
     the weights move on the k-th only (optax.MultiSteps semantics).  The

@@ -10,6 +10,7 @@
         W-axis sequence parallel over N GPUs under NCCL, on a machine with
         N cards)
     python3 chip_smoke.py --variants    (phase 11 alone)
+    python3 chip_smoke.py --data    (phase 12 alone)
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
@@ -133,6 +134,28 @@ Phases, one line or more each; any failure raises and exits non-zero:
    the rate-0 model's, three train steps with finite losses; (e) the
    command line with --swin_v2 and neither head flag: one epoch on phase
    8's folder, then --eval.  Its seconds end the phase.
+
+12. the data path (run_data_phase): (a) seeded synthetic OS1-128 sweeps
+   in DurLAR's raw layout (<drive>/ouster_points/data/*.bin, 128 x 2048 x
+   4 float32, placed by the beam model from ranges within (0.3, 120) m; 16
+   in each of the four train drives, 20 in the test drive) through
+   python3 -m tulip_tpu_torch.etl.sample_durlar_dataset with the flags of
+   bash_scripts/create_durlar_dataset.sh: 16 train and 2 val files of 128
+   x 2048 x 2; (b) the DurLAR builder's folders on them read by the fused
+   native reader against the numpy loader + transform chain (bit-equal
+   without log1p, within 1e-6 with it), and the port's DataLoader's ms per
+   batch of 8 pairs on both paths at --num_workers 2 and 10 (warm page
+   cache, the host's CPU count beside them); (c) the command line with the
+   flags of bash_scripts/tulip_upsampling_durlar.sh (TULIP-base 32x2048 ->
+   128x2048, bf16, batch 8): one epoch on those folders, then --eval on
+   the val folder: the launches of the step's and the eval's kernels, the
+   native reader's batches counted and no item through the numpy chain,
+   finite losses in log.txt, results.txt written, MetricLogger's data time
+   against its step time; (d) the flagship's forward and train GFLOP
+   (utils/flops.py), chip_peak_tflops() for this card and the MFU of phase
+   4's batch-8 forward, utils/profiler.trace around one bf16 forward (its
+   trace must name K3's two_matmul_tc_kernel), and device_memory_stats'
+   peak.  Its seconds end the phase.
 
 Phase 3 also holds K1 / K2 in bf16 at batch 1 and 8 (the tensor-core
 kernel's head splits differ by batch) and at token counts that leave a last
@@ -1733,6 +1756,273 @@ def run_train_phase(torch, dev, data_root, weights):
                                 worst_grad_err=errs[worst], cos_fp32=cos32,
                                 cos_bf16=cos16)
     return report
+
+
+# phase 12: the data path.  DurLAR's raw layout: four train drives and one
+# test drive of OS1-128 sweeps (bash_scripts/create_durlar_dataset.sh keeps
+# every 4th train and every 10th test scan: 16 train and 2 val files)
+ETL_TRAIN_DRIVES = ['DurLAR_20210716', 'DurLAR_20211012', 'DurLAR_20211208',
+                    'DurLAR_20210901']
+ETL_TEST_DRIVE = 'DurLAR_20211209'
+ETL_TRAIN_SCANS, ETL_TEST_SCANS = 16, 20
+ETL_COLS = 2048
+ETL_FLAGS = ["--output_path_name_train", "train", "--output_path_name_val",
+             "val", "--train_data_per_frame", "4", "--test_data_per_frame",
+             "10", "--create_val"]
+LOADER_BATCH, LOADER_PASSES = 8, 5
+
+
+def os1_sweep(rng):
+    """One synthetic OS1-128 sweep as DurLAR stores it: (128 * 2048, 4)
+    float32 x, y, z, intensity in the sensor's staggered order, placed by
+    the beam model (eval/geometry.img_to_pcd_durlar) from a range image of
+    a range per beam plus jitter, within (0.3, 120) m."""
+    from tulip_tpu_torch.eval.geometry import img_to_pcd_durlar
+    ranges = durlar_scan(rng, ETL_COLS)
+    xyz = img_to_pcd_durlar(ranges / 120.0, maximum_range=120)
+    return np.concatenate([xyz, rng.uniform(0, 1, (xyz.shape[0], 1))],
+                          axis=1).astype(np.float32)
+
+
+def numpy_twin(pair):
+    """The same folders and transforms without the native spec: every item
+    through the numpy loader and transform chain."""
+    from tulip_tpu_torch.data.datasets import PairDataset, RangeMapFolder
+    return PairDataset(*[RangeMapFolder(d.root, transform=d.transform,
+                                        loader=d.loader, class_dir=False)
+                         for d in pair.datasets])
+
+
+def loader_ms(pair, workers):
+    """ms per batch of LOADER_BATCH pairs through the port's DataLoader
+    (host clock over LOADER_PASSES passes of the folder, the consumer doing
+    nothing; median of 3 runs after a warm-up run)."""
+    from tulip_tpu_torch.data import DataLoader
+    order = list(range(len(pair))) * LOADER_PASSES
+    runs = []
+    for _ in range(4):
+        loader = DataLoader(pair, batch_size=LOADER_BATCH, sampler=order,
+                            drop_last=True, num_workers=workers)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        runs.append((time.perf_counter() - t0) * 1e3 / n)
+    return statistics.median(runs[1:])
+
+
+def run_data_phase(torch, dev, weights, img_per_s_b8=None):
+    """Phase 12: the data path.  (a) the port's ETL on synthetic raw DurLAR
+    drives; (b) the native reader against the numpy chain on its files,
+    and both loaders' ms per batch; (c) the command line at full width on
+    them, the native counter read; (d) the FLOP / profiler utilities."""
+    import re
+    import shutil
+    from tulip_tpu_torch.data import native
+    from tulip_tpu_torch.data.datasets import build_durlar_upsampling_dataset
+    from tulip_tpu_torch.models.tulip import apply_model, tulip_base
+    from tulip_tpu_torch.utils.flops import (chip_peak_tflops, mfu,
+                                             model_forward_flops,
+                                             model_train_flops)
+    from tulip_tpu_torch.utils.profiler import device_memory_stats, trace
+    t_phase = time.perf_counter()
+    report = {}
+    root = os.path.join(REPO, "build", "chip_smoke_data")
+    shutil.rmtree(root, ignore_errors=True)
+    raw = os.path.join(root, "DurLAR")
+
+    # -- (a) the ETL ---------------------------------------------------------
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    for drive, n in [(d, ETL_TRAIN_SCANS) for d in ETL_TRAIN_DRIVES] + [
+            (ETL_TEST_DRIVE, ETL_TEST_SCANS)]:
+        d = os.path.join(raw, drive, "ouster_points", "data")
+        os.makedirs(d)
+        for i in range(n):
+            os1_sweep(rng).tofile(os.path.join(d, f"{i:010d}.bin"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    etl = subprocess.run(
+        [sys.executable, "-m", "tulip_tpu_torch.etl.sample_durlar_dataset",
+         "--input_path", raw + "/", *ETL_FLAGS],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    etl_s = time.perf_counter() - t0
+    if etl.returncode != 0:
+        raise SystemExit(f"etl exited {etl.returncode}:\n{etl.stdout}"
+                         f"{etl.stderr}")
+    made = {s: sorted(os.listdir(os.path.join(raw, s)))
+            for s in ("train", "val")}
+    arr = np.load(os.path.join(raw, "train", made["train"][0]))
+    valid = arr[..., 0][arr[..., 0] > 0]
+    ok = (len(made["train"]) == 16 and len(made["val"]) == 2
+          and arr.shape == (128, ETL_COLS, 2) and arr.dtype == np.float32
+          and float(valid.min()) > 0.3 and float(valid.max()) < 120)
+    print(f"data (a) etl: {4 * ETL_TRAIN_SCANS} + {ETL_TEST_SCANS} raw "
+          f"sweeps of 128 x {ETL_COLS} x 4 float32 written in {write_s:.1f} "
+          f"s; "
+          f"python3 -m tulip_tpu_torch.etl.sample_durlar_dataset "
+          f"{' '.join(ETL_FLAGS)}: {len(made['train'])} train + "
+          f"{len(made['val'])} val files of {arr.shape} {arr.dtype} in "
+          f"{etl_s:.1f} s (ranges {float(valid.min()):.3f}-"
+          f"{float(valid.max()):.3f} m, {valid.size} of {arr[..., 0].size} "
+          f"pixels with a return)", flush=True)
+    if not ok:
+        raise SystemExit(f"etl output wrong: {made}, {arr.shape}")
+    report["etl"] = dict(train=made["train"], val=made["val"],
+                         write_s=write_s, etl_s=etl_s)
+
+    # -- (b) the native reader against the numpy chain; both loaders --------
+    report["reader"] = {}
+    for log in (False, True):
+        args = types.SimpleNamespace(
+            img_size_low_res=[32, 2048], img_size_high_res=[128, 2048],
+            log_transform=log, roll=False, data_path_low_res=raw,
+            data_path_high_res=raw)
+        pair = build_durlar_upsampling_dataset(True, args)
+        if not pair.native:
+            raise SystemExit("the ETL's files do not read natively")
+        idx = list(range(len(pair)))
+        got = pair.read_batch(idx, num_threads=4)
+        ref = [np.stack([it["sample"] for it in (d[i] for i in idx)])
+               for d in numpy_twin(pair).datasets]
+        errs = [float(np.abs(g["sample"] - r).max()) for g, r in zip(got, ref)]
+        equal = all(np.array_equal(g["sample"], r) for g, r in zip(got, ref))
+        print(f"data (b) native reader vs numpy chain, log1p {log}: "
+              f"{len(idx)} pairs, low {got[0]['sample'].shape} high "
+              f"{got[1]['sample'].shape}, max |diff| {max(errs):.3e}, "
+              f"bit-equal {equal}", flush=True)
+        if not (equal if not log else max(errs) <= 1e-6):
+            raise SystemExit("the native reader disagrees with the numpy "
+                             "chain")
+        report["reader"][f"log1p_{log}"] = dict(max_abs_diff=max(errs),
+                                                bit_equal=equal)
+    report["loader_ms"] = {}
+    for name, ds in (("numpy", numpy_twin(pair)), ("native", pair)):
+        for workers in (2, 10):
+            report["loader_ms"][f"{name}_{workers}"] = loader_ms(ds, workers)
+    lm = report["loader_ms"]
+    report["cpus"] = os.cpu_count()
+    print(f"data (b) loader ms per batch of {LOADER_BATCH} pairs (32 x "
+          f"{ETL_COLS} + 128 x {ETL_COLS}, log1p, warm page cache, host clock, "
+          f"{os.cpu_count()} CPUs): numpy chain {lm['numpy_2']:.2f} at "
+          f"--num_workers 2, {lm['numpy_10']:.2f} at 10; native "
+          f"{lm['native_2']:.2f} at 2, {lm['native_10']:.2f} at 10",
+          flush=True)
+
+    # -- (c) the command line at full width on the ETL's files --------------
+    out = os.path.join(root, "run")
+    sched = ["--warmup_epochs", "1", "--save_frequency", "1"]
+    native.reset_counts()
+    reset_counts()
+    text = run_cli_train(cli_flags(raw, out, "--epochs", "1", *sched))
+    got, reads = counts(), dict(native.counts)
+    steps = len(made["train"]) // CLI_BATCH
+    want = {k: v * steps for k, v in PER_STEP.items()}
+    log = read_log(out)
+    lines = re.findall(r"Epoch: \[0\].*time: ([0-9.]+)\s+data: ([0-9.]+)",
+                       text)
+    if not lines:
+        raise SystemExit(f"no MetricLogger line:\n{text[-3000:]}")
+    step_s, data_s = map(float, lines[-1])
+    ok = ({k: got[k] for k in want} == want and len(log) == 1
+          and math.isfinite(log[0]["train_loss"])
+          and reads["batches"] == 2 * steps and reads["numpy_items"] == 0
+          and os.path.exists(os.path.join(out, "checkpoint-0.pth")))
+    print(f"data (c) cli: one epoch of {steps} bf16 steps of batch "
+          f"{CLI_BATCH} on the ETL's folders, launches {got}, train_loss "
+          f"{log[0]['train_loss']!r}; native reads {reads}; MetricLogger "
+          f"time {step_s * 1e3:.1f} ms / step, data {data_s * 1e3:.1f} ms "
+          f"(averages over the epoch's {steps} steps)", flush=True)
+    if not ok:
+        raise SystemExit(f"data cli training failed: launches {got}, "
+                         f"expected {want}; reads {reads}; log {log}")
+    native.reset_counts()
+    reset_counts()
+    text, code = run_cli(cli_flags(raw, out, "--eval", "--noise_threshold",
+                                   "0.0005"))
+    got, reads = counts(), dict(native.counts)
+    with open(os.path.join(out, "results.txt")) as f:
+        res = json.load(f)
+    n_val = len(made["val"])
+    ok = (code == 0 and sorted(res) == RESULT_KEYS
+          and all(len(v) == n_val for v in res.values())
+          and all(math.isfinite(x) for v in res.values() for x in v)
+          and got["nn_h2"] == n_val
+          and got["window_msa"] == PER_FORWARD["window_msa"] * n_val
+          and reads["batches"] == 2 * n_val and reads["numpy_items"] == 0)
+    print(f"data (c) cli --eval: exit {code}, results.txt {n_val} scans, "
+          f"K5 launches {got['nn_h2']}, native reads {reads}, mae "
+          f"{res['mae']}", flush=True)
+    if not ok:
+        raise SystemExit(f"data cli --eval failed: exit {code}, launches "
+                         f"{got}, reads {reads}, {res}")
+    report["cli"] = dict(train_loss=log[0]["train_loss"], results=res,
+                         step_ms=step_s * 1e3, data_ms=data_s * 1e3,
+                         steps=steps)
+
+    # -- (d) the utilities ---------------------------------------------------
+    model = tulip_base(**FLAGSHIP)
+    model.load_state_dict(weights, strict=True)
+    model = model.to(device=dev, dtype=torch.bfloat16)
+    low, high = pair.read_batch(list(range(8)), num_threads=4)
+    x = torch.from_numpy(low["sample"]).to(dev)
+    t = torch.from_numpy(high["sample"]).to(dev)
+    fwd = lambda: apply_model(model, x, t, compute_dtype=torch.bfloat16)
+    if img_per_s_b8 is None:   # phase 12 alone: phase 4's protocol here
+        for _ in range(3):
+            fwd()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        img_per_s_b8 = 8 / statistics.median(times)
+    flops = model_forward_flops(model.cfg)
+    peak = chip_peak_tflops()
+    tflops, share = mfu(img_per_s_b8, flops)
+    print(f"data (d) flops: flagship forward {flops / 1e9:.3f} GFLOP, train "
+          f"step {model_train_flops(model.cfg) / 1e9:.3f} GFLOP an image; "
+          f"chip_peak_tflops() {peak} for "
+          f"{torch.cuda.get_device_name(0)!r}; batch-8 bf16 forward "
+          f"{img_per_s_b8:.1f} img/s -> {tflops:.2f} TFLOP/s, MFU "
+          f"{share * 100:.2f} %", flush=True)
+    log_dir = os.path.join(root, "trace")
+    torch.cuda.reset_peak_memory_stats(dev)
+    with trace(log_dir):
+        fwd()
+        torch.cuda.synchronize()
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(log_dir, files[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    k3 = sorted(n for n in names if "two_matmul_tc_kernel" in n)
+    mem = device_memory_stats(dev)
+    print(f"data (d) profiler: trace of one batch-8 bf16 forward -> "
+          f"{files}, {len(names)} event names, K3's kernel "
+          f"{k3[0][:60] if k3 else None!r}; device_memory_stats {mem}",
+          flush=True)
+    if len(files) != 1 or not k3 or not mem.get("peak_bytes_in_use"):
+        raise SystemExit("profiler utilities failed")
+    report["utils"] = dict(forward_gflop=flops / 1e9,
+                           train_gflop=model_train_flops(model.cfg) / 1e9,
+                           peak_tflops=peak, img_per_s_b8=img_per_s_b8,
+                           tflops=tflops, mfu=share, memory=mem)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"data: phase 12 took {report['seconds']:.1f} s", flush=True)
+    return report
+
+
+def data_only(torch, dev) -> int:
+    """``python3 chip_smoke.py --data``: phase 12 alone (the MFU from its
+    own batch-8 forwards); no kernel table."""
+    from tulip_tpu_torch.models.tulip import init_params, tulip_base
+    weights = init_params(tulip_base(**FLAGSHIP).cfg,
+                          torch.Generator().manual_seed(0))
+    report = run_data_phase(torch, dev, weights)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "data.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
 
 
 class _Tee:
@@ -3673,6 +3963,9 @@ def main() -> int:
     if "--variants" in sys.argv[1:]:
         build.load()
         return variants_only(torch, dev)
+    if "--data" in sys.argv[1:]:
+        build.load()
+        return data_only(torch, dev)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3821,6 +4114,10 @@ def main() -> int:
         torch, dev, data_root,
         os.path.join(REPO, "build", "chip_smoke_cli", "durlar"))
 
+    # -- 12. the data path ---------------------------------------------------
+    torch.cuda.empty_cache()
+    data_report = run_data_phase(torch, dev, weights, throughput[8])
+
     # -- summary -----------------------------------------------------------
     # per kernel: the sums over its bf16 (chamfer: fp32) cases on the path
     kernels = []
@@ -3872,7 +4169,7 @@ def main() -> int:
                        img_per_s=throughput, kernels=kernels,
                        eval=eval_report, train=train_report, cli=cli_report,
                        data_parallel=dp_report, sequence_parallel=sp_report,
-                       variants=variants_report,
+                       variants=variants_report, data=data_report,
                        build=dict(seconds=build_s, nvcc_seconds=nvcc_s),
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)

@@ -1,9 +1,9 @@
 """The port's data package (tulip_tpu_torch.data) against the JAX package's,
-of which it is a numpy-only copy without the fused native reader: loaders,
-transforms, the three dataset builders on small synthetic folders, the
-sampler's order per epoch and the loader's batches.  Equality is exact
-where both sides run the same numpy code; the JAX package's native DurLAR /
-KITTI reader computes log1p in C, within 1e-6 of numpy's."""
+of which it is a copy: loaders, transforms, the three dataset builders on
+small synthetic folders, the sampler's order per epoch and the loader's
+batches.  Equality is exact: both sides run the same numpy code, and both
+read DurLAR / KITTI through the same C (the fused native reader,
+tests/test_torch_native.py)."""
 
 import os
 import types
@@ -13,6 +13,7 @@ import pytest
 
 from tulip_tpu import data as JD
 from tulip_tpu.data import datasets as JDS
+from tulip_tpu.data import native as JN
 from tulip_tpu_torch import data as TD
 from tulip_tpu_torch.data import datasets as TDS
 
@@ -56,7 +57,7 @@ def _args(root, name, low, high, log=True, roll=False):
 
 
 def test_exports_are_the_same():
-    assert set(n for n in dir(JD) if not n.startswith("_")) - {"native"} == \
+    assert set(n for n in dir(JD) if not n.startswith("_")) == \
         set(n for n in dir(TD) if not n.startswith("_"))
     assert set(TDS.dataset_list) == set(JDS.dataset_list) == \
         {"durlar", "kitti", "carla"}
@@ -129,17 +130,13 @@ def test_dataset_builder(folders, name, low, high, is_train, log):
     ours = TD.generate_dataset(args, is_train)
     ref = JD.generate_dataset(args, is_train)
     assert len(ours) == len(ref) > 0
-    # the JAX package's fused native reader (durlar, kitti) takes log1p in C
-    exact = name == "carla" or not log
+    # durlar and kitti read through the fused native reader on both sides
+    assert JN.available() and ours.native == (name != "carla")
     for i in range(len(ref)):
         for o, r, size in zip(ours[i], ref[i], (low, high)):
             assert o["name"] == r["name"] and o["class"] == r["class"]
             assert o["sample"].shape == r["sample"].shape == (1, *size)
-            if exact:
-                np.testing.assert_array_equal(o["sample"], r["sample"])
-            else:
-                np.testing.assert_allclose(o["sample"], r["sample"], rtol=0,
-                                           atol=1e-6)
+            np.testing.assert_array_equal(o["sample"], r["sample"])
 
 
 def test_durlar_roll_is_shared_by_both_resolutions(folders):
@@ -150,8 +147,8 @@ def test_durlar_roll_is_shared_by_both_resolutions(folders):
     ref = JD.generate_dataset(args, True)
     low, high = ours[0]
     rlow, rhigh = ref[0]
-    np.testing.assert_allclose(low["sample"], rlow["sample"], atol=1e-6)
-    np.testing.assert_allclose(high["sample"], rhigh["sample"], atol=1e-6)
+    np.testing.assert_array_equal(low["sample"], rlow["sample"])
+    np.testing.assert_array_equal(high["sample"], rhigh["sample"])
     np.testing.assert_array_equal(low["sample"][0], high["sample"][0, ::4])
 
 

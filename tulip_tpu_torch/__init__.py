@@ -16,7 +16,14 @@ keep equal to the originals.
   and ignored).
 - ``tulip_tpu_torch.data``      loaders, transforms, the durlar / kitti /
   carla dataset builders, the sharded sampler and the prefetching loader
-  (numpy-only copies of ``tulip_tpu/data``, without the native reader).
+  (copies of ``tulip_tpu/data``); ``data.native`` is the fused host reader
+  (``data/native/loader.cpp``, built by g++ on first use into
+  ``build/tulip_tpu_torch/``) that DurLAR and KITTI folders read through,
+  a whole batch in one call; a failed build or read raises.
+- ``tulip_tpu_torch.etl``       dataset creation from raw scans, offline on
+  the host: ``python3 -m tulip_tpu_torch.etl.sample_durlar_dataset`` /
+  ``sample_kitti_dataset`` (the flags of bash_scripts/create_*_dataset.sh)
+  and ``bin_to_img``.
 - ``tulip_tpu_torch.models``    the TULIP Swin U-Net as ``nn.Module``s whose
   parameter names are the reference state-dict keys.
 - ``tulip_tpu_torch.ops``       kernel wrappers: a CPU tensor takes the plain
@@ -34,8 +41,9 @@ keep equal to the originals.
   (``dist``).
 - ``tulip_tpu_torch.utils``     checkpoints (save / load / resume, the JAX
   package's native file included) and the weight exchange with the JAX
-  package, the TensorBoard / PLY writers, the LR schedule and the metric
-  logger.
+  package, the TensorBoard / PLY writers, the LR schedule, the metric
+  logger, ``flops`` (useful FLOPs per image, a card's bf16 peak, MFU) and
+  ``profiler`` (torch.profiler traces, device memory figures).
 """
 
 __version__ = "0.1.0"

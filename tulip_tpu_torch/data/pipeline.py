@@ -1,5 +1,5 @@
 """Host-side input pipeline: sampler + multi-threaded prefetching loader
-(the port's copy of tulip_tpu/data/pipeline.py, numpy only).
+(the port's copy of tulip_tpu/data/pipeline.py).
 
 Stands in for torch DataLoader + DistributedSampler
 (reference: tulip/main_lidar_upsampling.py:172-217).  Batches are numpy
@@ -84,9 +84,12 @@ def _collate(items):
 class DataLoader:
     """Batched loader with background prefetch.
 
-    Loads items via a thread pool (numpy file IO releases the GIL) and keeps
-    up to ``prefetch`` collated batches in flight so the accelerator never
-    waits on the host.  ``w_shard=(index, count)`` hands out W shard
+    Loads batches via a thread pool and keeps up to ``prefetch`` collated
+    batches in flight so the accelerator never waits on the host.  A
+    dataset that reads natively (``dataset.native``: a PairDataset of
+    DurLAR / KITTI folders) reads a whole batch in one call of the fused
+    native reader over ``num_workers`` threads; any other collates its
+    items.  ``w_shard=(index, count)`` hands out W shard
     ``index`` of ``count`` of every batch (:func:`slice_w`).
     """
 
@@ -118,7 +121,11 @@ class DataLoader:
             yield batch
 
     def _load_batch(self, idxs):
-        batch = _collate([self.dataset[i] for i in idxs])
+        if getattr(self.dataset, "native", False):
+            batch = self.dataset.read_batch(idxs,
+                                            num_threads=self.num_workers)
+        else:
+            batch = _collate([self.dataset[i] for i in idxs])
         if self.w_shard is not None:
             batch = slice_w(batch, *self.w_shard)
         return batch

@@ -2,10 +2,11 @@
 
 Parity target: tulip/util/misc.py:26-186.  A copy of
 tulip_tpu/utils/logger.py (jax-free, but its package's ``__init__`` imports
-jax), with two changes: the peak device memory line reads
-``torch.cuda.max_memory_allocated``, and synchronize_between_processes sums
-[count, total] over an initialised ``torch.distributed`` group
-(parallel/dist.py:all_reduce_sum); in one process it returns at once.
+jax), with one change: synchronize_between_processes sums [count, total]
+over an initialised ``torch.distributed`` group
+(parallel/dist.py:all_reduce_sum); in one process it returns at once.  The
+peak device memory line reads utils/profiler.device_memory_stats, as JAX's
+reads its own.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import time
 from collections import defaultdict, deque
 
 import numpy as np
-import torch
+
+from .profiler import device_memory_stats
 
 
 class SmoothedValue:
@@ -127,10 +129,12 @@ class MetricLogger:
                 msg = log_msg.format(i, len(iterable), eta=eta_string,
                                      meters=str(self), time=str(iter_time),
                                      data=str(data_time))
-                # the reference's max-GPU-mem print (misc.py:142-158)
-                if torch.cuda.is_available():
+                # the reference's max-GPU-mem print (misc.py:142-158):
+                # the allocator's peak on the current CUDA device
+                stats = device_memory_stats()
+                if stats.get("peak_bytes_in_use"):
                     msg += self.delimiter + "max mem: {:.0f}".format(
-                        torch.cuda.max_memory_allocated() / MB)
+                        stats["peak_bytes_in_use"] / MB)
                 print(msg)
             i += 1
             end = time.time()

@@ -11,6 +11,9 @@
         N cards)
     python3 chip_smoke.py --variants    (phase 11 alone)
     python3 chip_smoke.py --data    (phase 12 alone)
+    python3 chip_smoke.py --classifier    (phase 13 alone)
+    python3 chip_smoke.py --ranks N --drift    (the 16-step drift of
+        --ranks N part (iv) and of its data-parallel control alone)
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
@@ -156,6 +159,26 @@ Phases, one line or more each; any failure raises and exits non-zero:
    4's batch-8 forward, utils/profiler.trace around one bf16 forward (its
    trace must name K3's two_matmul_tc_kernel), and device_memory_stats'
    peak.  Its seconds end the phase.
+
+13. the last of the JAX package (run_classifier_phase): (a) the Swin-v2
+   image classifier at SwinV2-T width (tulip_tpu_torch.models.
+   swin_v2_classifier: 224 x 224, C 96, depths 2 / 2 / 6 / 2, heads 3 / 6
+   / 12 / 24, window 7, 1,000 classes), random weights from a seeded
+   generator, bf16 forwards at batch 1 and 128 (the reference Swin
+   config's eval batch): K3 12 and K14 29 a forward, K1 / K2 / K4 0,
+   finite logits, median ms and img/s, peak memory; (b) the batch-1 bf16
+   and fp32 logits against the same weights in fp32 on the CPU through
+   the plain versions (3e-2 / 1e-3 of max|ref|); (c) K3 (the v2 MLP) and
+   K14 at its token counts (batch x 3,136 / 784 / 196 / 49) for batch 1
+   and 128, and K3 at the flagship's folded head with two channels (O =
+   32), against their plain versions, bf16 twice for the same bits; (d)
+   TULIP at the flagship geometry, batch 1, against the CPU: --in_chans 2
+   with the pixel-shuffle head and with the default heads (a second,
+   seeded channel beside the scan), and a bias-free qkv with v1 blocks:
+   its forward (K1 / K2 8 / 6), one bf16 train step (phase 7's launches)
+   and the whole step as phase 7 holds it; (e) the batch-128 forward's
+   device ms by class (K3, K14, PyTorch's ops) and of its cosine
+   attentions alone (torch.profiler).  Its seconds end the phase.
 
 Phase 3 also holds K1 / K2 in bf16 at batch 1 and 8 (the tensor-core
 kernel's head splits differ by batch) and at token counts that leave a last
@@ -2785,6 +2808,92 @@ def run_sp_phase(torch, dev, weights):
         "(one card, gloo: host-staged exchanges, not a multi-GPU time)")
 
 
+CLI_LR = 5e-4   # the --lr of cli_flags
+
+
+def ranks_cli_runs(torch, root, n, specs):
+    """The command line's fp32 training, 2 epochs, once for each (name,
+    batch, ranks, extra flags, data folder) of ``specs``: through torchrun
+    over that many ranks, or in one process where ranks is 0.  Returns
+    {name: {log, model (checkpoint-1.pth's weights), s, tb}}."""
+    runs = {}
+    for name, batch, ranks, extra, data in specs:
+        out = os.path.join(root, name)
+        flags = cli_flags(data, out, "--epochs", "2", "--warmup_epochs",
+                          "1", "--save_frequency", "1", "--precision", "fp32",
+                          *extra)
+        flags[flags.index("--batch_size") + 1] = str(batch)
+        launcher = ["-m", "torch.distributed.run", "--standalone",
+                    f"--nproc_per_node={ranks}"] if ranks else []
+        os.makedirs(out)
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        t = run_processes([[sys.executable, *launcher, "-m",
+                            "tulip_tpu_torch.main_lidar_upsampling", *flags]],
+                          timeout=900, cwd=out, env=env)
+        ckpt = torch.load(os.path.join(out, "checkpoint-1.pth"),
+                          weights_only=True)
+        runs[name] = dict(log=read_log(out), model=ckpt["model"], s=t,
+                          tb=len([f for f in os.listdir(out)
+                                  if f.startswith("events.out.tfevents")]))
+    return runs
+
+
+def cli_gap(torch, ranks, one):
+    """(the two runs' train_loss pairs by epoch, their relative
+    differences, the weights' |diff|: max, share beyond 1e-2 lr, mean)."""
+    d = torch.cat([(ranks["model"][k] - v).abs().reshape(-1)
+                   for k, v in one["model"].items()])
+    moves = dict(max=float(d.max()),
+                 share=float((d > 1e-2 * CLI_LR).float().mean()),
+                 mean=float(d.mean()))
+    losses = [(a["train_loss"], b["train_loss"])
+              for a, b in zip(ranks["log"], one["log"])]
+    return losses, [abs(a - b) / abs(b) for a, b in losses], moves
+
+
+def run_drift_check(torch, n):
+    """``chip_smoke.py --ranks N --drift``: part (iv) of run_ranks_check
+    over 16 fp32 steps (2 epochs of the 16-scan folder at batch N / 2):
+    (N / 2) data x 2 seq through torchrun and data parallel alone over
+    N / 2 ranks, each against one process at batch N / 2 on the same
+    steps.  A measurement: it prints both loss and weight gaps beside
+    run_ranks_check's limits and fails only if a run fails."""
+    import shutil
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f"--ranks {n}: {torch.cuda.device_count()} GPU(s)")
+    root = os.path.join(REPO, "build", "chip_smoke_drift")
+    shutil.rmtree(root, ignore_errors=True)
+    data_root = os.path.join(root, "durlar")
+    write_durlar(data_root, CLI_TRAIN, FLAGSHIP["img_size"][1],
+                 split="train")
+    write_durlar(data_root, CLI_VAL, FLAGSHIP["img_size"][1], split="val")
+    runs = ranks_cli_runs(torch, root, n, (
+        ("sp_ranks", 1, n, ["--sp_degree", "2"], data_root),
+        ("dp_half", 1, n // 2, [], data_root),
+        ("sp_one", n // 2, 0, [], data_root)))
+    steps = 2 * (CLI_TRAIN // (n // 2))
+    report = dict(steps=steps)
+    for name, label in (("sp_ranks", f"{n // 2} data x 2 seq"),
+                        ("dp_half", f"data parallel alone, {n // 2} ranks")):
+        losses, rel, moves = cli_gap(torch, runs[name], runs["sp_one"])
+        print(f"drift {label} (torchrun, nccl, fp32, batch 1 a data index) "
+              f"against one process at batch {n // 2}, {steps} steps: "
+              f"train_loss {losses}, relative differences "
+              f"{[f'{r:.3e}' for r in rel]} (run_ranks_check's limit 1e-5); "
+              f"weights |diff| max {moves['max']:.3e} (limit "
+              f"{2 * CLI_LR * steps:.1e}), share beyond 1e-2 lr "
+              f"{moves['share']:.3e} (limit 5e-3), mean {moves['mean']:.3e} "
+              f"(limit {1e-3 * CLI_LR:.1e}); wall {runs[name]['s']:.1f} s",
+              flush=True)
+        report[name] = dict(losses=losses, loss_rel_diff=rel,
+                            weight_diff=moves, wall_s=runs[name]["s"])
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"drift{n}.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
 def run_ranks_check(torch, n):
     """``chip_smoke.py --ranks N``: data parallel over N GPUs under NCCL,
     for a machine with N cards.  (i) The command line through
@@ -2828,42 +2937,17 @@ def run_ranks_check(torch, n):
     data_half = os.path.join(root, "durlar_half")
     write_durlar(data_half, CLI_TRAIN // 2, width, split="train")
     write_durlar(data_half, CLI_VAL, width, split="val")
+    runs = ranks_cli_runs(torch, root, n, (
+        ("ranks", 1, n, [], data_root), ("one", n, 0, [], data_root),
+        ("sp_ranks", 1, n, ["--sp_degree", "2"], data_half),
+        ("sp_one", n // 2, 0, [], data_half),
+        ("dp_half", 1, n // 2, [], data_half)))
+    lr = CLI_LR
     torchrun = ["-m", "torch.distributed.run", "--standalone",
                 f"--nproc_per_node={n}"]
-    runs = {}
-    for name, batch, launcher, extra, data in (
-            ("ranks", 1, torchrun, [], data_root),
-            ("one", n, [], [], data_root),
-            ("sp_ranks", 1, torchrun, ["--sp_degree", "2"], data_half),
-            ("sp_one", n // 2, [], [], data_half),
-            ("dp_half", 1, torchrun[:-1] + [f"--nproc_per_node={n // 2}"],
-             [], data_half)):
-        out = os.path.join(root, name)
-        flags = cli_flags(data, out, "--epochs", "2", "--warmup_epochs",
-                          "1", "--save_frequency", "1", "--precision", "fp32",
-                          *extra)
-        flags[flags.index("--batch_size") + 1] = str(batch)
-        os.makedirs(out)
-        env = dict(os.environ, OMP_NUM_THREADS="1")
-        t = run_processes([[sys.executable, *launcher, "-m",
-                            "tulip_tpu_torch.main_lidar_upsampling", *flags]],
-                          timeout=900, cwd=out, env=env)
-        ckpt = torch.load(os.path.join(out, "checkpoint-1.pth"),
-                          weights_only=True)
-        runs[name] = dict(log=read_log(out), model=ckpt["model"], s=t,
-                          tb=len([f for f in os.listdir(out)
-                                  if f.startswith("events.out.tfevents")]))
-    lr = 5e-4
 
     def cli_against_one(label, ranks, one, steps):
-        d = torch.cat([(ranks["model"][k] - v).abs().reshape(-1)
-                       for k, v in one["model"].items()])
-        moves = dict(max=float(d.max()), share=float((d > 1e-2 * lr).float()
-                                                     .mean()),
-                     mean=float(d.mean()))
-        losses = [(a["train_loss"], b["train_loss"])
-                  for a, b in zip(ranks["log"], one["log"])]
-        rel = [abs(a - b) / abs(b) for a, b in losses]
+        losses, rel, moves = cli_gap(torch, ranks, one)
         ok = (len(ranks["log"]) == len(one["log"]) == 2 and ranks["tb"] == 1
               and all(r <= 1e-5 for r in rel)
               and moves["max"] <= 2 * lr * steps and moves["share"] <= 5e-3
@@ -3603,7 +3687,8 @@ def _variant_forwards(torch, name, model, data_root, want):
     return out, first
 
 
-def _against_cpu(torch, name, make, weights, x1, pred_bf16, fp32=True):
+def _against_cpu(torch, name, make, weights, x1, pred_bf16, fp32=True,
+                 phase="variants"):
     """The batch-1 bf16 (and fp32) cuda preds against the fp32 CPU plain
     path on the same weights: 3e-2 / 1e-3 of max|ref|."""
     from tulip_tpu_torch.models.tulip import apply_model
@@ -3617,10 +3702,10 @@ def _against_cpu(torch, name, make, weights, x1, pred_bf16, fp32=True):
         errs["fp32"] = rel_err(torch, apply_model(m32, x1, mc_drop=True).cpu(),
                                ref)
         del m32
-    print(f"variants {name}: batch-1 pred vs the fp32 cpu plain path: "
+    print(f"{phase} {name}: batch-1 pred vs the fp32 cpu plain path: "
           f"err/max|ref| {errs} (limits bf16 3e-2, fp32 1e-3)", flush=True)
     if errs["bf16"] > 3e-2 or errs.get("fp32", 0.0) > 1e-3:
-        raise SystemExit(f"variants {name}: pred check failed")
+        raise SystemExit(f"{phase} {name}: pred check failed")
     return errs
 
 
@@ -3920,6 +4005,324 @@ def variants_only(torch, dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the Swin-v2 classifier at SwinV2-T width; TULIP with in_chans 2
+# and with a bias-free qkv
+# ---------------------------------------------------------------------------
+
+# SwinV2-T, the JAX package's build_swin_v2 defaults (224 x 224, patch 4,
+# C 96, depths 2 / 2 / 6 / 2, window 7): (grid, C, heads) of its stages
+CLS_STAGES = [((56, 56), 96, 3), ((28, 28), 192, 6), ((14, 14), 384, 12),
+              ((7, 7), 768, 24)]
+CLS_BATCHES = (1, 128)   # 128: the reference Swin config's eval batch
+# a classifier forward: K3 in each of the 12 blocks' MLP; K14 in the
+# patch embed's norm, the blocks' 24 post-norms, the 3 merges' norms and
+# the final norm
+CLS_PER_FORWARD = {"window_msa": 0, "window_msa_many_heads": 0,
+                   "ln_linear": 0, "two_matmul": 12, "ln_fwd": 29}
+# TULIP at the flagship geometry, --in_chans 2 with the pixel-shuffle head
+# (K3's folded head at O = 32) and with a bias-free v1 qkv; with the
+# default heads, --in_chans 2 launches what phase 11 (b) does
+FLAGSHIP_PER_FORWARD = {"window_msa": 14, "window_msa_many_heads": 6,
+                        "two_matmul": 15, "ln_linear": 3, "ln_fwd": 0}
+
+
+def classifier_kernel_cases(torch, device):
+    """K3 (the v2 MLP: no LN prologue, GELU, no residual; C 96 / 192 / 384
+    / 768, Hd 4C) and K14 (the norms) at the classifier's token counts
+    (batch x 3,136 / 784 / 196 / 49) for batch 1 and 128, in bf16 and fp32,
+    and K3 at the flagship's folded head with in_chans 2 (O = 32) at batch
+    1.  Off the kernels line's path sums."""
+    from tulip_tpu_torch.ops import mlp
+    g = torch.Generator().manual_seed(13)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        to = lambda t: t.to(device=device, dtype=dtype)
+        e = 2 if dtype == torch.bfloat16 else 4
+        for batch in CLS_BATCHES:
+            for (H, W), C, _ in CLS_STAGES:
+                N = batch * H * W
+                x = to(rn(N, C))
+                args = [None, None, to(rn(4 * C, C, scale=C ** -0.5)),
+                        to(rn(4 * C, scale=0.1)),
+                        to(rn(C, 4 * C, scale=(4 * C) ** -0.5)),
+                        to(rn(C, scale=0.1))]
+                kw = dict(act="gelu", residual=False)
+                nbytes, flops = work_two_matmul(N, C, 4 * C, C, e)
+                cases.append((
+                    "two_matmul", "K3",
+                    f"two_matmul K3 {dn} classifier batch {batch} N={N} "
+                    f"C={C} Hd={4 * C}",
+                    lambda x=x, a=args: mlp.fused_two_matmul(x, *a, **kw),
+                    lambda x=x, a=args: mlp.fused_two_matmul_ref(x, *a,
+                                                                 **kw),
+                    False, dict(work=(nbytes - 2 * C * e, flops))))
+                cases += [c for c in ln_cases(
+                    torch, device, rn, dtype, N, C,
+                    f" classifier batch {batch}", False)
+                    if c[0] == "ln_fwd"]
+        N, C, c_out = 32 * 512, 96, 2
+        rows = torch.arange(C * 16)
+        w2 = torch.zeros(c_out, 16, C * 16)
+        w2[:, rows % 16, rows] = rn(c_out, C, scale=C ** -0.5
+                                    ).repeat_interleave(16, dim=1)
+        x = to(rn(N, C))
+        args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
+                to(rn(16 * C, C, scale=C ** -0.5)), to(rn(16 * C, scale=0.1)),
+                to(w2.reshape(c_out * 16, C * 16)), None]
+        hk = dict(act="leaky", residual=False)
+        cases.append((
+            "two_matmul", "K3",
+            f"two_matmul K3 {dn} head in_chans 2 N={N} C={C} Hd={16 * C} "
+            f"O=32", lambda x=x, a=args: mlp.fused_two_matmul(x, *a, **hk),
+            lambda x=x, a=args: mlp.fused_two_matmul_ref(x, *a, **hk), False,
+            dict(work=work_two_matmul(N, C, 16 * C, 32, e))))
+    return cases
+
+
+def _classifier_split(torch, model, x):
+    """Device ms of the bf16 classifier forward by class (K3, K14, the
+    rest: PyTorch's ops) and of its 12 cosine attentions alone (PyTorch's
+    ops), by torch.profiler."""
+    from tulip_tpu_torch.models.swin import window_partition
+    with torch.no_grad():
+        us = device_us(torch, lambda: model(x), n=3)
+    split = {"K3": 0.0, "K14": 0.0, "PyTorch": 0.0}
+    for k, v in us.items():
+        cls = ("K3" if "two_matmul" in k or "ln_rows" in k else
+               "K14" if "ln_fwd" in k else "PyTorch")
+        split[cls] += v / 1e3
+    calls = []
+    for stage in model.layers:
+        for blk in stage.blocks:
+            H, W = blk.st.grid
+            C = blk.attn.proj.weight.shape[0]
+            xw = window_partition(torch.randn(
+                x.shape[0], H, W, C, device=x.device, dtype=x.dtype),
+                *blk.st.window)
+            mask = None if blk.attn_mask is None else blk.attn_mask.float()
+            calls.append((blk.attn, xw, mask))
+
+    def attention():
+        with torch.no_grad():
+            for attn, xw, mask in calls:
+                attn(xw, mask)
+
+    split["cosine attention (PyTorch ops, alone)"] = sum(
+        device_us(torch, attention, n=3).values()) / 1e3
+    total = split["K3"] + split["K14"] + split["PyTorch"]
+    split["cosine attention share"] = (
+        split["cosine attention (PyTorch ops, alone)"] / total)
+    print(f"classifier: device ms of the batch-{x.shape[0]} bf16 forward by "
+          f"class { {k: round(v, 4) for k, v in split.items()} } (total "
+          f"{total:.3f} ms)", flush=True)
+    return split
+
+
+def _tulip_form(torch, dev, name, make, weights, x1, want, t1=None):
+    """One TULIP form at the flagship geometry, batch 1: the bf16 forward
+    counted (the counts set to 0 just before it), its pred against the
+    fp32 CPU plain path (bf16 3e-2, fp32 1e-3 of max|ref|); with a target
+    ``t1`` also one bf16 train step through make_train_step, counted, and
+    the whole step against the CPU as phase 7 holds it."""
+    from tulip_tpu_torch.models.tulip import apply_model
+    from tulip_tpu_torch.train.step import make_optimizer, make_train_step
+    model = make().to(dev)
+    model.load_state_dict(weights, strict=True)
+    model = model.to(torch.bfloat16)
+    reset_counts()
+    pred = apply_model(model, x1, mc_drop=True, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    per = _launch_check(f"{name} forward", counts(), want)
+    H, W = FLAGSHIP["target_img_size"]
+    if tuple(pred.shape) != (1, x1.shape[1], H, W):
+        raise SystemExit(f"{name}: pred shape {tuple(pred.shape)}")
+    print(f"tulip {name}: bf16 forward batch 1: pred {tuple(pred.shape)}, "
+          f"launches {per}", flush=True)
+    del model
+    out = dict(launches=per, pred_err=_against_cpu(
+        torch, name, make, weights, x1, pred, phase="tulip"))
+    if t1 is None:
+        return out
+    model = make().to(dev)
+    model.load_state_dict(weights, strict=True)
+    step = make_train_step(model, make_optimizer(model, 0.01),
+                           compute_dtype=torch.bfloat16)
+    reset_counts()
+    loss = step(x1, t1, 5e-4)[0].item()
+    torch.cuda.synchronize()
+    out["step_launches"] = _launch_check(f"{name} train step", counts(),
+                                         PER_STEP)
+    if not math.isfinite(loss):
+        raise SystemExit(f"{name}: train loss {loss}")
+    del model, step
+    cpu = torch.device("cpu")
+
+    def loaded(device):
+        m = make().to(device)
+        m.load_state_dict(weights, strict=True)
+        return m
+
+    ref = train_grads(torch, loaded(cpu), x1.cpu(), t1.cpu(), torch.float32)
+    got32 = train_grads(torch, loaded(dev), x1, t1, torch.float32)
+    got16 = train_grads(torch, loaded(dev), x1, t1, torch.bfloat16)
+    rel32, gerrs, _ = grad_check(torch, got32, ref)
+    rel16, _, cos16 = grad_check(torch, got16, ref)
+    worst = max(gerrs, key=gerrs.get)
+    print(f"tulip {name}: one bf16 train step (loss {loss:.5f}, launches "
+          f"{out['step_launches']}); whole step batch 1 vs the fp32 cpu "
+          f"plain path: fp32 loss rel {rel32:.2e} (limit 1e-4), worst "
+          f"gradient {worst} {gerrs[worst]:.2e} (limit 1e-3); bf16 loss rel "
+          f"{rel16:.2e} (limit 3e-2), cosine {cos16:.5f} (limit 0.99)",
+          flush=True)
+    if not (rel32 <= 1e-4 and gerrs[worst] <= 1e-3 and rel16 <= 3e-2
+            and cos16 >= 0.99):
+        raise SystemExit(f"tulip {name}: whole-step check failed")
+    out["whole_step"] = dict(loss=loss, loss_rel_fp32=rel32,
+                             worst_grad=worst, worst_grad_err=gerrs[worst],
+                             loss_rel_bf16=rel16, cos_bf16=cos16)
+    return out
+
+
+def run_classifier_phase(torch, dev, data_root):
+    """Phase 13: (a) the SwinV2-T classifier at full width, random weights
+    from a seeded generator, bf16 forwards at batch 1 and 128 (the counts
+    set to 0 just before each and read just after); (b) its batch-1 logits
+    against the CPU; (c) K3 and K14 at its shapes; (d) TULIP with
+    --in_chans 2 (both heads) and with a bias-free qkv (v1, forward and
+    step) at the flagship geometry against the CPU; (e) the batch-128
+    forward's device ms by class."""
+    import dataclasses
+    from tulip_tpu_torch.config import model_config
+    from tulip_tpu_torch.models.swin_v2_classifier import (
+        build_swin_v2, init_swin_v2_params)
+    from tulip_tpu_torch.models.tulip import TULIP, init_params
+    t_phase = time.perf_counter()
+    report = {}
+    bf16 = torch.bfloat16
+
+    # -- (a) SwinV2-T, bf16, batch 1 and 128 --------------------------------
+    model = build_swin_v2(device=dev)
+    weights = init_swin_v2_params(model, torch.Generator().manual_seed(16))
+    model.load_state_dict(weights, strict=True)
+    model = model.to(bf16)
+    g = torch.Generator().manual_seed(17)
+    xs = {b: torch.randn(b, 3, 224, 224, generator=g) for b in CLS_BATCHES}
+    fwd = {}
+    for bs in CLS_BATCHES:
+        x = xs[bs].to(dev, bf16)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        with torch.no_grad():
+            logits = model(x)
+        torch.cuda.synchronize()
+        per = _launch_check(f"classifier forward batch {bs}", counts(),
+                            CLS_PER_FORWARD)
+        if (tuple(logits.shape) != (bs, 1000) or logits.dtype != bf16
+                or not bool(torch.isfinite(logits).all())):
+            raise SystemExit(f"classifier: bad logits at batch {bs}")
+        times = []
+        with torch.no_grad():
+            for _ in range(2):
+                model(x)
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        fwd[bs] = dict(launches=per, ms=med * 1e3, img_per_s=bs / med,
+                       min_ms=min(times) * 1e3, peak_mib=peak)
+        if bs == 1:
+            first = logits
+        print(f"classifier SwinV2-T 224x224: bf16 forward batch {bs}: logits "
+              f"{tuple(logits.shape)} finite, launches {per}, median "
+              f"{med * 1e3:.2f} ms = {bs / med:.1f} img/s (min "
+              f"{min(times) * 1e3:.2f} ms), peak mem {peak:.0f} MiB",
+              flush=True)
+    report["forward"] = fwd
+
+    # -- (b) batch-1 logits against the fp32 CPU plain path -----------------
+    cpu = build_swin_v2(device="cpu")
+    cpu.load_state_dict(weights, strict=True)
+    with torch.no_grad():
+        ref = cpu(xs[1])
+        m32 = build_swin_v2(device=dev)
+        m32.load_state_dict(weights, strict=True)
+        errs = {"bf16": rel_err(torch, first.cpu(), ref),
+                "fp32": rel_err(torch, m32(xs[1].to(dev)).cpu(), ref)}
+    del m32, cpu
+    print(f"classifier: batch-1 logits vs the fp32 cpu plain path: "
+          f"err/max|ref| {errs} (limits bf16 3e-2, fp32 1e-3)", flush=True)
+    if errs["bf16"] > 3e-2 or errs["fp32"] > 1e-3:
+        raise SystemExit("classifier: logits check failed")
+    report["logits_err"] = errs
+
+    # -- (e) the batch-128 forward's device time by class -------------------
+    report["split_ms"] = _classifier_split(
+        torch, model, xs[CLS_BATCHES[-1]].to(dev, bf16))
+    del model
+    torch.cuda.empty_cache()
+
+    # -- (c) K3 and K14 at the classifier's shapes --------------------------
+    cases = classifier_kernel_cases(torch, dev)
+    table = check_kernel_cases(torch, [c + (5,) for c in cases])
+    check_deterministic(torch, dev, cases)
+    del cases
+    bad = [r["label"] for r in table if not r["ok"]]
+    if bad:
+        raise SystemExit(f"classifier kernels disagree: {bad}")
+    report["table"] = table
+
+    # -- (d) TULIP: --in_chans 2 (both heads), a bias-free qkv --------------
+    low, high = load_batches(data_root, 1, FLAGSHIP["img_size"][1])[0]
+    x1 = torch.from_numpy(low["sample"]).to(dev)
+    t1 = torch.from_numpy(high["sample"]).to(dev)
+    second = torch.rand(x1.shape, generator=torch.Generator().manual_seed(18))
+    x2 = torch.cat([x1, second.to(dev)], dim=1)
+    forms = (
+        ("in_chans 2, pixel-shuffle head", dict(in_chans=2), True, x2,
+         FLAGSHIP_PER_FORWARD, None),
+        ("in_chans 2, default heads", dict(in_chans=2, pixel_shuffle=False,
+                                           patch_unmerging=False), True, x2,
+         DEFAULT_HEADS_PER_FORWARD, None),
+        ("qkv_bias False, v1", {}, False, x1, FLAGSHIP_PER_FORWARD, t1))
+    report["tulip"] = {}
+    for i, (name, kw, qkv_bias, x, want, t) in enumerate(forms):
+        cfg = dataclasses.replace(
+            model_config("tulip_base", drop_path_rate=0.0,
+                         **dict(FLAGSHIP, **kw)), qkv_bias=qkv_bias)
+        make = lambda cfg=cfg: TULIP(cfg)
+        weights = init_params(cfg, torch.Generator().manual_seed(20 + i))
+        report["tulip"][name] = _tulip_form(torch, dev, name, make, weights,
+                                            x, want, t)
+        torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"classifier: phase 13 took {report['seconds']:.1f} s", flush=True)
+    return report
+
+
+def classifier_only(torch, dev) -> int:
+    """``python3 chip_smoke.py --classifier``: phase 13 alone, on a folder
+    as phase 4 writes it (written here); no kernels line."""
+    data_root = os.path.join(REPO, "build", "chip_smoke_durlar")
+    write_durlar(data_root, 8, 2048)
+    report = run_classifier_phase(torch, dev, data_root)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "classifier.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
 def main() -> int:
     import torch
     if "--dp-rank" in sys.argv[1:]:
@@ -3958,14 +4361,19 @@ def main() -> int:
         return time_paths(torch, dev, tree)
     if "--ranks" in sys.argv[1:]:
         build.load()
-        return run_ranks_check(
-            torch, int(sys.argv[sys.argv.index("--ranks") + 1]))
+        n = int(sys.argv[sys.argv.index("--ranks") + 1])
+        if "--drift" in sys.argv[1:]:
+            return run_drift_check(torch, n)
+        return run_ranks_check(torch, n)
     if "--variants" in sys.argv[1:]:
         build.load()
         return variants_only(torch, dev)
     if "--data" in sys.argv[1:]:
         build.load()
         return data_only(torch, dev)
+    if "--classifier" in sys.argv[1:]:
+        build.load()
+        return classifier_only(torch, dev)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4118,6 +4526,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     data_report = run_data_phase(torch, dev, weights, throughput[8])
 
+    # -- 13. the classifier, in_chans 2, a bias-free qkv --------------------
+    torch.cuda.empty_cache()
+    classifier_report = run_classifier_phase(torch, dev, data_root)
+
     # -- summary -----------------------------------------------------------
     # per kernel: the sums over its bf16 (chamfer: fp32) cases on the path
     kernels = []
@@ -4170,6 +4582,7 @@ def main() -> int:
                        eval=eval_report, train=train_report, cli=cli_report,
                        data_parallel=dp_report, sequence_parallel=sp_report,
                        variants=variants_report, data=data_report,
+                       classifier=classifier_report,
                        build=dict(seconds=build_s, nvcc_seconds=nvcc_s),
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)

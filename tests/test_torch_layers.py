@@ -107,7 +107,7 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k in ('jax', 'jaxlib', 'optax', 'tulip_tpu')
              or k.startswith(('tulip_tpu.', 'jax.', 'jaxlib.', 'optax.')))
-print(len(names), 'modules imported')
+print(len(names), 'modules imported:', ' '.join(names))
 sys.exit('imported: %s' % bad if bad else 0)
 """
 
@@ -118,7 +118,10 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", IMPORT_EVERYTHING], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 47
+    assert int(proc.stdout.split()[0]) >= 53
+    for name in ("models.swin_v2_classifier", "utils.lars", "utils.lr_decay",
+                 "utils.pos_embed", "utils.filter", "utils.crop"):
+        assert f"tulip_tpu_torch.{name}" in proc.stdout, name
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -7,7 +7,19 @@ from one JAX ``init_params(PRNGKey(0))`` (loaded into the port with
   XLA path, <= 1e-4 relative (summation order only).
 - bf16: pred against JAX bf16 with attn_impl="grouped" (exact softmax,
   tanh-GELU), <= 2e-2 of max|ref|.
+
+The forms the port took last (FORMS: in_chans 2 with the pixel-shuffle and
+the FinalPatchExpanding head, qkv_bias False with v1 and v2 blocks, set by
+``dataclasses.replace`` on both packages' configs) at the two-stage
+16x256 -> 64x256 config of test_torch_train.py: the init's keys and
+shapes; the fp32 pred and losses within 1e-5 of JAX's (relative to
+max|ref|); bf16 within 3e-2 of max|ref| of JAX's attn_impl="grouped"; and
+the train-mode loss and every gradient of one step against jax.grad
+within test_torch_train.py's limits (loss 1e-5 relative, each gradient
+1e-4 of its max|ref|).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,11 +32,37 @@ from tulip_tpu.models import tulip as JT
 from tulip_tpu_torch.models import tulip as TT
 from tulip_tpu_torch.ops import mlp as TM
 from tulip_tpu_torch.ops import window_msa as TW
-from tulip_tpu_torch.utils.checkpoint import load_jax_params
+from tulip_tpu_torch.config import model_config as port_config
+from tulip_tpu_torch.utils.checkpoint import (jax_params_from_state_dict,
+                                              load_jax_params,
+                                              state_dict_from_jax)
 
 KW = dict(img_size=(32, 256), target_img_size=(128, 256), patch_size=(1, 4),
           window_size=(2, 8), pixel_shuffle=True, circular_padding=True,
           log_transform=True, patch_unmerging=True)
+# the two-stage TULIP-base of test_torch_train.py, 16x256 -> 64x256
+SMALL = dict(KW, img_size=(16, 256), target_img_size=(64, 256),
+             depths=(2, 2), num_heads=(3, 6))
+# the configurations the port refused before: in_chans 2 with both heads,
+# and a bias-free qkv with v1 and v2 blocks
+FORMS = {
+    "in_chans 2, pixel-shuffle head": (dict(SMALL, in_chans=2), True),
+    "in_chans 2, FinalPatchExpanding head": (
+        dict(SMALL, in_chans=2, pixel_shuffle=False, patch_unmerging=False),
+        True),
+    "qkv_bias False, v1": (SMALL, False),
+    "qkv_bias False, v2": (dict(SMALL, swin_v2=True), False),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: several test processes share the machine's cores
+    (as in test_torch_cli.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -97,9 +135,20 @@ def test_apply_model_arity_and_modes(pair):
 
 
 def test_in_chans_other_than_one_raises():
-    """The folded head predicts one channel: in_chans 2 stays refused."""
-    with pytest.raises(NotImplementedError):
-        TT.tulip_base(**dict(KW, in_chans=2))
+    """in_chans 2 builds, and its model takes two channels only: a
+    one-channel scan raises in the patch embed's matmul, a two-channel one
+    gives two channels out (the folded head predicts in_chans)."""
+    kw = dict(SMALL, in_chans=2)
+    model = TT.tulip_base(**kw)
+    model.load_state_dict(TT.init_params(model.cfg,
+                                         torch.Generator().manual_seed(0)),
+                          strict=True)
+    with pytest.raises(RuntimeError):
+        TT.apply_model(model, torch.rand(1, 1, 16, 256), mode="mc",
+                       mc_drop=True)
+    pred = TT.apply_model(model, torch.rand(1, 2, 16, 256), mode="mc",
+                          mc_drop=True)
+    assert pred.shape == (1, 2, 64, 256) and bool(torch.isfinite(pred).all())
 
 
 def test_forward_loss_matches_jax():
@@ -171,3 +220,105 @@ def test_layout_dispatch_follows_the_jax_rules(monkeypatch):
         ["default", "nat", "nat", "nat"]
     monkeypatch.setenv("TULIP_TPU_MSA_MASKED", "0")
     assert [msa_layout(n) for n in (3, 6)] == ["nat", "nat"]
+
+
+# ---------------------------------------------------------------------------
+# in_chans 2 and a bias-free qkv
+# ---------------------------------------------------------------------------
+
+def _form(name, **extra):
+    """(JAX cfg, port model with the JAX weights, JAX params, x, target)
+    of one FORMS entry, batch 2."""
+    kw, qkv_bias = FORMS[name]
+    kw = dict(kw, **extra)
+    jcfg = dataclasses.replace(model_config("tulip_base", **kw),
+                               qkv_bias=qkv_bias)
+    params = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    params = {k: np.asarray(v) for k, v in params.items()}
+    model = TT.TULIP(dataclasses.replace(port_config("tulip_base", **kw),
+                                         qkv_bias=qkv_bias))
+    load_jax_params(model, params)
+    c = jcfg.in_chans
+    rng = np.random.default_rng(1)
+    x = rng.uniform(0, 1, (2, c, 16, 256)).astype(np.float32)
+    t = rng.uniform(0, 1, (2, c, 64, 256)).astype(np.float32)
+    return jcfg, model, params, x, t
+
+
+@pytest.mark.parametrize("name", list(FORMS))
+def test_form_init_matches_jax_keys_and_shapes(name):
+    kw, qkv_bias = FORMS[name]
+    cfg = dataclasses.replace(port_config("tulip_base", **kw),
+                              qkv_bias=qkv_bias)
+    ours = TT.init_params(cfg, torch.Generator().manual_seed(0))
+    theirs = state_dict_from_jax({k: np.asarray(v) for k, v in JT.init_params(
+        jax.random.PRNGKey(0), dataclasses.replace(
+            model_config("tulip_base", **kw), qkv_bias=qkv_bias)).items()})
+    assert set(ours) == set(theirs)
+    for k in ours:
+        assert ours[k].shape == theirs[k].shape, k
+    assert any(k.endswith(("qkv.bias", "q_bias", "v_bias"))
+               for k in ours) == qkv_bias
+    assert ours["decoder_pred.weight"].shape[0] == cfg.in_chans
+    TT.TULIP(cfg).load_state_dict(ours, strict=True)
+
+
+@pytest.mark.parametrize("name", list(FORMS))
+def test_form_fp32_matches_jax(name):
+    jcfg, model, params, x, t = _form(name)
+    jpred, jloss, jploss = JT.apply_model(
+        {k: jnp.asarray(v) for k, v in params.items()}, JT.build_model(jcfg),
+        jnp.asarray(x), jnp.asarray(t), mode="eval",
+        compute_dtype=jnp.float32)
+    before = _launches()
+    pred, loss, ploss = TT.apply_model(model, torch.from_numpy(x),
+                                       torch.from_numpy(t), mode="eval")
+    assert _launches() == before
+    jpred = np.asarray(jpred)
+    assert pred.shape == jpred.shape == t.shape
+    assert np.abs(pred.numpy() - jpred).max() <= 1e-5 * np.abs(jpred).max()
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    assert abs(float(ploss) - float(jploss)) <= 1e-5 * abs(float(jploss))
+
+
+@pytest.mark.parametrize("name", list(FORMS))
+def test_form_bf16_matches_jax_grouped(name):
+    jcfg, model, params, x, _ = _form(name, attn_impl="grouped")
+    jpred = JT.apply_model({k: jnp.asarray(v) for k, v in params.items()},
+                           JT.build_model(jcfg), jnp.asarray(x), mode="mc",
+                           mc_drop=True, compute_dtype=jnp.bfloat16)
+    jpred = np.asarray(jpred.astype(jnp.float32))
+    pred = TT.apply_model(model.to(torch.bfloat16), torch.from_numpy(x),
+                          mode="mc", mc_drop=True,
+                          compute_dtype=torch.bfloat16)
+    assert pred.dtype == torch.bfloat16 and pred.shape == jpred.shape
+    err = np.abs(pred.float().numpy() - jpred).max() / np.abs(jpred).max()
+    assert err <= 3e-2, err
+
+
+@pytest.mark.parametrize("name", ["qkv_bias False, v1",
+                                  "in_chans 2, pixel-shuffle head"])
+def test_form_train_step_gradients_match_jax(name):
+    jcfg, model, params, x, t = _form(name, drop_path_rate=0.0)
+    jmodel = JT.build_model(jcfg)
+
+    def loss_fn(p):
+        _, total, _ = JT.apply_model(p, jmodel, jnp.asarray(x),
+                                     jnp.asarray(t), mode="train",
+                                     rng=jax.random.PRNGKey(1),
+                                     compute_dtype=jnp.float32)
+        return total
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(
+        {k: jnp.asarray(v) for k, v in params.items()})
+    _, total, _ = TT.apply_model(model, torch.from_numpy(x),
+                                 torch.from_numpy(t), mode="train")
+    total.backward()
+    assert abs(total.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
+    grads = jax_params_from_state_dict(
+        {k: p.grad for k, p in model.named_parameters()})
+    assert set(grads) == set(jgrads)
+    errs = {k: float(np.abs(grads[k] - np.asarray(jgrads[k])).max()
+                     / np.abs(np.asarray(jgrads[k])).max()) for k in grads}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-4, (worst, errs[worst])

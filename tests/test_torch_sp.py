@@ -17,6 +17,9 @@ At the small config of test_torch_dp.py (a two-stage TULIP-base,
 - forward: two seq ranks, mode "eval": the joined pred within 1e-5 of the
   port's one-process pred and within test_torch_model.py's 1e-4 of JAX's
   unsharded apply_model;
+- MCdrop: eval/engine.py:MCdrop through make_sp_eval_forward on two seq
+  ranks against one process: the preds within 1e-5 of max|ref|, the
+  results within 1e-5 relative, rank 0 alone writing results_mcdrop.txt;
 - step: two seq ranks against one process, drop_path_rate 0.1 with a row
   dropped: the losses within 1e-5 relative, the first update's gradient
   within 1e-5 of each tensor's max|ref|, then the weights and the later
@@ -179,6 +182,44 @@ def sp_forward(spec, rank, world):
                                   compute_dtype=torch.float32)
     x = torch.from_numpy(np.load(spec["x"]))
     return fwd(x), halo.exchanges()
+
+
+def sp_mcdrop(spec, rank, world):
+    """eval/engine.py:MCdrop (10 iterations, the rate-0 shortcut) on two
+    CARLA samples of test_torch_eval.py, its forward this ring's
+    make_sp_eval_forward(mode "mc") or, in a world of 1, the model's own:
+    (the results, the preds the forward gave, the exchange count)."""
+    from test_torch_eval import _Args, _Loader
+    from tulip_tpu_torch.eval import engine as TE
+    from tulip_tpu_torch.utils.writer import TBWriter
+    model = TT.TULIP(model_config("tulip_base", **KW))
+    model.load_state_dict(torch.load(spec["params"], weights_only=True))
+    out_dir = spec["out_dir"] % rank
+    preds, sp_forward = [], None
+    if world > 1:
+        fwd = SP.make_sp_eval_forward(model, make_mesh(world), mode="mc",
+                                      compute_dtype=torch.float32)
+
+        def sp_forward(low):
+            preds.append(fwd(low))
+            return preds[-1]
+    else:
+        orig = TT.apply_model
+
+        def recording(*a, **k):
+            preds.append(orig(*a, **k))
+            return preds[-1]
+
+        TE.apply_model = recording
+    try:
+        res = TE.MCdrop(_Loader((16, 256), (64, 256)), model,
+                        TBWriter(out_dir + "/tb"),
+                        args=_Args("carla", (16, 256), (64, 256), out_dir),
+                        device=torch.device("cpu"), sp_forward=sp_forward)
+    finally:
+        if world == 1:
+            TE.apply_model = orig
+    return res, preds, halo.exchanges()
 
 
 _RANK = """
@@ -403,6 +444,37 @@ def test_forward_of_two_seq_ranks_equals_one_process_and_jax(data, tmp_path):
         assert np.abs(pred.numpy() - jpred).max() <= 1e-4 * np.abs(
             jpred).max()
     assert torch.equal(out[0][0], out[1][0])
+
+
+def test_mcdrop_of_two_seq_ranks_equals_one_process(data, tmp_path):
+    """MCdrop through make_sp_eval_forward on two seq ranks against one
+    process on the same weights, with the limits of the forward test above
+    (preds 1e-5 of max|ref|) and of test_torch_sp_cli.py's --eval under
+    two ranks (results 1e-5 relative)."""
+    spec = dict(data, out_dir=str(tmp_path / "mc%d"))
+    out = ranks(tmp_path, dict(spec, fn="sp_mcdrop", world=2))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        ref, ref_preds, _ = sp_mcdrop(
+            dict(spec, out_dir=str(tmp_path / "one%d")), 0, 1)
+    finally:
+        torch.set_num_threads(threads)
+    assert len(ref_preds) == 2     # one forward a sample at rate 0
+    for res, preds, n in out:
+        assert n == 7 * len(preds) and len(preds) == 2
+        for p, r in zip(preds, ref_preds):
+            assert p.shape == r.shape == (1, 1, 64, 256)
+            assert float((p - r).abs().max()) <= 1e-5 * float(r.abs().max())
+        assert set(res) == set(ref) == {"mae", "chamfer_dist", "iou",
+                                        "precision", "recall", "f1"}
+        for k, v in ref.items():
+            assert len(res[k]) == len(v) == 2
+            np.testing.assert_allclose(res[k], v, rtol=1e-5, err_msg=k)
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    # rank 0 alone writes the results file
+    assert (tmp_path / "mc0" / "results_mcdrop.txt").exists()
+    assert not (tmp_path / "mc1" / "results_mcdrop.txt").exists()
 
 
 def _check_step(got, ref, spec, n_steps):

@@ -119,7 +119,9 @@ def make_block_static(stage: StageConfig, block_idx: int,
 
 class WindowAttention(nn.Module):
     """Parameter container for reference ``attn.*`` keys plus the static
-    relative-position index (non-persistent buffer)."""
+    relative-position index (non-persistent buffer).  Without ``qkv_bias``
+    there is no ``qkv.bias``; the attention kernels then get a zero bias,
+    as the JAX package gives its own (swin.py:311-313, :477-478)."""
 
     def __init__(self, dim: int, st: BlockStatic, config_window,
                  qkv_bias: bool, *, device=None, dtype=None):
@@ -271,8 +273,10 @@ class SwinBlockV1(nn.Module):
         names; the three compute the same function."""
         a, st = self.attn, self.st
         mask = block_mask(self, self.attn_mask)
+        bqkv = (a.qkv.weight.new_zeros(a.qkv.weight.shape[0])
+                if a.qkv.bias is None else a.qkv.bias)
         args = (cast(self.norm1.weight), cast(self.norm1.bias),
-                cast(a.qkv.weight), cast(a.qkv.bias), cast(a.proj.weight),
+                cast(a.qkv.weight), cast(bqkv), cast(a.proj.weight),
                 cast(a.proj.bias), a.gathered_bias(),
                 None if mask is None else mask.float())
         layout = msa_layout(st.num_heads)
@@ -366,18 +370,19 @@ LOGIT_SCALE_MAX = math.log(1.0 / 0.01)
 
 class WindowAttentionV2(nn.Module):
     """Parameter container for the reference's v2 ``attn.*`` keys (a
-    bias-free qkv weight, q / v biases, the per-head logit scale, the
-    continuous-position-bias MLP ``cpb_mlp.0`` / ``cpb_mlp.2``, proj), the
-    static relative index and log-spaced coordinates of the stage's
-    window (non-persistent buffers), and the cosine attention itself."""
+    bias-free qkv weight, q / v biases unless ``qkv_bias`` is False, the
+    per-head logit scale, the continuous-position-bias MLP ``cpb_mlp.0`` /
+    ``cpb_mlp.2``, proj), the static relative index and log-spaced
+    coordinates of the stage's window (non-persistent buffers), and the
+    cosine attention itself."""
 
-    def __init__(self, dim: int, st: BlockStatic, *, device=None,
-                 dtype=None):
+    def __init__(self, dim: int, st: BlockStatic, qkv_bias: bool = True, *,
+                 device=None, dtype=None):
         super().__init__()
         nh = st.num_heads
         self.qkv = L.Linear(dim, 3 * dim, False, device=device, dtype=dtype)
-        self.q_bias = L._empty((dim,), device, dtype)
-        self.v_bias = L._empty((dim,), device, dtype)
+        self.q_bias = L._empty((dim,), device, dtype) if qkv_bias else None
+        self.v_bias = L._empty((dim,), device, dtype) if qkv_bias else None
         self.logit_scale = L._empty((nh, 1, 1), device, dtype)
         self.cpb_mlp = nn.ModuleDict({
             "0": L.Linear(2, CPB_HIDDEN, True, device=device, dtype=dtype),
@@ -417,8 +422,8 @@ class WindowAttentionV2(nn.Module):
         Bn, Lw, C = xw.shape
         nh = self.logit_scale.shape[0]
         hd, d = C // nh, xw.dtype
-        bias = torch.cat([self.q_bias, torch.zeros_like(self.v_bias),
-                          self.v_bias])
+        bias = (None if self.q_bias is None else torch.cat(
+            [self.q_bias, torch.zeros_like(self.v_bias), self.v_bias]))
         qkv = L.linear(xw, self.qkv.weight, bias)
         qkv = qkv.reshape(Bn, Lw, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
@@ -444,11 +449,13 @@ class SwinBlockV2(nn.Module):
     on the LayerNorm kernels (K14 / K15)."""
 
     def __init__(self, dim: int, st: BlockStatic, mlp_ratio: float,
-                 eps: float, *, device=None, dtype=None):
+                 eps: float, qkv_bias: bool = True, *, device=None,
+                 dtype=None):
         super().__init__()
         self.st = st
         self.eps = eps
-        self.attn = WindowAttentionV2(dim, st, device=device, dtype=dtype)
+        self.attn = WindowAttentionV2(dim, st, qkv_bias, device=device,
+                                      dtype=dtype)
         self.norm1 = L.LayerNorm(dim, eps, device=device, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device, dtype=dtype)
         self.norm2 = L.LayerNorm(dim, eps, device=device, dtype=dtype)

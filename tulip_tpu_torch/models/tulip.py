@@ -4,7 +4,7 @@ Architecture (base, DurLAR config): (B,1,32,2048) -> circular patch embed
 (1,4) -> token grid 32x512x96 -> 4 encoder stages with patch merging ->
 4x64x768 -> patch unmerging -> 3 decoder stages with concat + linear skip
 fuse -> 32x512x96 -> norm_up + pixel-shuffle head (x4) + 1x1 prediction
-conv, folded into one fused two-matmul -> (B,1,128,2048).
+conv, folded into one fused two-matmul -> (B,in_chans,128,2048).
 
 Parameter names are the reference state-dict keys, in torch layouts, so
 ``load_state_dict(strict=True)`` takes a reference checkpoint or the JAX
@@ -24,9 +24,12 @@ pixel-shuffle or FinalPatchExpanding head (``pixel_shuffle``), and
 dropout at the config's ``drop_rate`` / ``attn_drop_rate`` in the modes
 'train' and 'mc' (:func:`apply_model`).  The new norms (v2's post-norms,
 PatchMergingV2's, PatchExpanding's, FinalPatchExpanding's and ``norm_up``
-before it) run on the LayerNorm kernels.  Only ``in_chans != 1`` (the
-folded head) and ``qkv_bias=False`` (the window-MSA kernel) raise
-NotImplementedError.
+before it) run on the LayerNorm kernels.  ``in_chans`` channels in and
+out: the patch embed's im2col takes them, and the folded head predicts
+them (K3 with 16 x in_chans outputs at upscale 4).  ``qkv_bias=False``
+(set with ``dataclasses.replace`` on the config) drops ``qkv.bias`` (v1)
+or ``q_bias`` / ``v_bias`` (v2); the attention kernels then take a zero
+bias, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -43,13 +46,6 @@ from ..parallel.halo import circular_pad_w
 from . import layers as L
 from .swin import (CPB_HIDDEN, SwinBlockV1, SwinBlockV2, layer_norm_tokens,
                    make_block_static)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.in_chans != 1:
-        raise NotImplementedError("the fused head takes in_chans == 1")
-    if not cfg.qkv_bias:
-        raise NotImplementedError("the window-MSA kernel takes a qkv bias")
 
 
 def _space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -212,7 +208,8 @@ class Stage(nn.Module):
             self.blocks = nn.ModuleList(
                 SwinBlockV2(stage.dim, make_block_static(stage, j,
                                                          stage.window),
-                            cfg.mlp_ratio, cfg.layer_norm_eps, **kw)
+                            cfg.mlp_ratio, cfg.layer_norm_eps, cfg.qkv_bias,
+                            **kw)
                 for j in range(stage.depth))
             return
         self.blocks = nn.ModuleList(
@@ -237,7 +234,6 @@ class TULIP(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         n = cfg.num_layers
@@ -276,10 +272,11 @@ class TULIP(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """norm_up + ps_head + decoder_pred as one fused two-matmul: the 1x1
         prediction conv commutes with PixelShuffle, so it folds into a dense
-        (r^2, C*r^2) second weight whose row s reads the expanded channels
-        {c*r^2 + s}; the (tokens, C*r^2) expansion never reaches memory.
-        Without the pixel-shuffle head: norm_up, FinalPatchExpanding and
-        the 1x1 prediction conv."""
+        (c*r^2, C*r^2) second weight (c = in_chans output channels) whose
+        row (k, s) reads the expanded channels {c'*r^2 + s} with weight
+        decoder_pred[k, c']; the (tokens, C*r^2) expansion never reaches
+        memory.  Without the pixel-shuffle head: norm_up,
+        FinalPatchExpanding and the 1x1 prediction conv."""
         if not self.cfg.pixel_shuffle:
             x = self.final_patch_expanding(layer_norm_tokens(self.norm_up, x))
             return L.conv1x1(x, self.decoder_pred.weight)
@@ -289,16 +286,18 @@ class TULIP(nn.Module):
         d = x.dtype
         conv = self.ps_head.conv_expand[0]
         w1 = conv.weight.reshape(C * r2, C).to(d)
-        wpred = self.decoder_pred.weight.reshape(C).to(d)
+        wpred = self.decoder_pred.weight.reshape(-1, C).to(d)   # (c, C)
+        c = wpred.shape[0]
         rows = torch.arange(C * r2, device=x.device)
-        w2 = torch.zeros(r2, C * r2, device=x.device, dtype=d)
-        w2[rows % r2, rows] = wpred.repeat_interleave(r2)
+        w2 = torch.zeros(c, r2, C * r2, device=x.device, dtype=d)
+        w2[:, rows % r2, rows] = wpred.repeat_interleave(r2, dim=1)
         out = two_matmul(
             x.reshape(-1, C), self.norm_up.weight.to(d),
-            self.norm_up.bias.to(d), w1, conv.bias.to(d), w2, None,
-            act="leaky", residual=False, eps=self.cfg.layer_norm_eps)
-        out = out.reshape(B, H, W, s, s).permute(0, 1, 3, 2, 4)
-        return out.reshape(B, H * s, W * s, 1)
+            self.norm_up.bias.to(d), w1, conv.bias.to(d),
+            w2.reshape(c * r2, C * r2), None, act="leaky", residual=False,
+            eps=self.cfg.layer_norm_eps)
+        out = out.reshape(B, H, W, c, s, s).permute(0, 1, 4, 2, 5, 3)
+        return out.reshape(B, H * s, W * s, c)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 dropout: bool = False,
@@ -371,34 +370,46 @@ def apply_model(model: TULIP, x: torch.Tensor,
 # Parameter initialization (torch defaults, explicit generator)
 # ---------------------------------------------------------------------------
 
-def _block_params(dim: int, nh: int, cfg: ModelConfig,
-                  g: torch.Generator) -> Dict[str, torch.Tensor]:
-    wh, ww = cfg.window_size
-    hidden = int(dim * cfg.mlp_ratio)
+def _block_params(dim: int, nh: int, g: torch.Generator, *,
+                  mlp_ratio: float, qkv_bias: bool, swin_v2: bool,
+                  window=None) -> Dict[str, torch.Tensor]:
+    """One block's weights; ``window`` sizes v1's bias table."""
+    hidden = int(dim * mlp_ratio)
     p = {}
     for k in ("norm1", "norm2"):
         p.update({f"{k}.{n}": t for n, t in L.layer_norm_init(dim).items()})
-    if cfg.swin_v2:   # tulip_tpu/models/tulip.py:_attn_params
+    if swin_v2:   # tulip_tpu/models/tulip.py:_attn_params
         sub = {"attn.qkv": L.torch_linear_trunc_init(dim, 3 * dim, False, g),
                "attn.cpb_mlp.0": L.torch_linear_trunc_init(2, CPB_HIDDEN,
                                                            True, g),
                "attn.cpb_mlp.2": L.torch_linear_trunc_init(CPB_HIDDEN, nh,
                                                            False, g)}
-        p["attn.q_bias"] = torch.zeros(dim)
-        p["attn.v_bias"] = torch.zeros(dim)
+        if qkv_bias:
+            p["attn.q_bias"] = torch.zeros(dim)
+            p["attn.v_bias"] = torch.zeros(dim)
         p["attn.logit_scale"] = torch.full((nh, 1, 1), math.log(10.0))
     else:
         sub = {"attn.qkv": L.torch_linear_trunc_init(dim, 3 * dim,
-                                                     cfg.qkv_bias, g)}
+                                                     qkv_bias, g)}
     sub.update({"attn.proj": L.torch_linear_trunc_init(dim, dim, True, g),
                 "mlp.fc1": L.torch_linear_trunc_init(dim, hidden, True, g),
                 "mlp.fc2": L.torch_linear_trunc_init(hidden, dim, True, g)})
     for k, d in sub.items():
         p.update({f"{k}.{n}": t for n, t in d.items()})
-    if not cfg.swin_v2:   # drawn last, so a seed gives v1 the same weights
+    if not swin_v2:   # drawn last, so a seed gives v1 the same weights
+        wh, ww = window
         p["attn.relative_position_bias_table"] = L.trunc_normal(
             ((2 * wh - 1) * (2 * ww - 1), nh), 0.02, g)
     return p
+
+
+def _merge_params(dim: int, swin_v2: bool,
+                  g: torch.Generator) -> Dict[str, torch.Tensor]:
+    """PatchMergingV2 norms the 2C output, v1's merge the 4C input."""
+    return {**{f"norm.{n}": t for n, t in L.layer_norm_init(
+                (2 if swin_v2 else 4) * dim).items()},
+            **{f"reduction.{n}": t for n, t in L.torch_linear_trunc_init(
+                4 * dim, 2 * dim, False, g).items()}}
 
 
 def _upsample_params(dim: int, cfg: ModelConfig,
@@ -416,13 +427,15 @@ def init_params(cfg: ModelConfig,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Full fp32 CPU state dict for :class:`TULIP` (reference init:
     TULIP.init_weights + torch module defaults, tulip.py:586-594)."""
-    _check_supported(cfg)
     g = generator
     n = cfg.num_layers
     out: Dict[str, torch.Tensor] = {}
 
     def put(prefix, d):
         out.update({f"{prefix}.{k}": v for k, v in d.items()})
+
+    blk = dict(mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
+               swin_v2=cfg.swin_v2, window=cfg.window_size)
 
     kw = 8 if cfg.circular_padding else cfg.patch_size[1]
     put("patch_embed.proj", L.torch_conv_init(
@@ -431,20 +444,17 @@ def init_params(cfg: ModelConfig,
         put("patch_embed.norm", L.layer_norm_init(cfg.embed_dim))
     for i, st in enumerate(cfg.encoder_stages):
         for j in range(st.depth):
-            put(f"layers.{i}.blocks.{j}", _block_params(st.dim, st.num_heads,
-                                                        cfg, g))
+            put(f"layers.{i}.blocks.{j}", _block_params(
+                st.dim, st.num_heads, g, **blk))
         if i < n - 1:
-            # PatchMergingV2 norms the 2C output, v1 the 4C input
-            put(f"layers.{i}.downsample.norm", L.layer_norm_init(
-                (2 if cfg.swin_v2 else 4) * st.dim))
-            put(f"layers.{i}.downsample.reduction",
-                L.torch_linear_trunc_init(4 * st.dim, 2 * st.dim, False, g))
+            put(f"layers.{i}.downsample", _merge_params(st.dim, cfg.swin_v2,
+                                                        g))
     put("first_patch_expanding",
         _upsample_params(cfg.embed_dim * 2 ** (n - 1), cfg, g))
     for i, st in enumerate(cfg.decoder_stages):
         for j in range(st.depth):
             put(f"layers_up.{i}.blocks.{j}", _block_params(
-                st.dim, st.num_heads, cfg, g))
+                st.dim, st.num_heads, g, **blk))
         if i < n - 2:
             put(f"layers_up.{i}.upsample", _upsample_params(st.dim, cfg, g))
     for i, st in enumerate(cfg.decoder_stages):

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --ranks N    (run_ranks_check: data parallel and
         W-axis sequence parallel over N GPUs under NCCL, on a machine with
         N cards)
+    python3 chip_smoke.py --sp    (phase 10 alone)
     python3 chip_smoke.py --variants    (phase 11 alone)
     python3 chip_smoke.py --data    (phase 12 alone)
     python3 chip_smoke.py --classifier    (phase 13 alone)
@@ -50,7 +51,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    same engine with the plain chamfer (chamfer_impl "xla") and with K7
    ("pallas") must agree; the MC full loop must equal its shortcut; K6
    through the metric API (chamfer_distance without pad_to: two K6
-   launches, ms per call); forward and metric ms per sample; K5 and K6
+   launches, ms per call; given numpy clouds and no device, it sweeps on
+   the card: two K6 launches); forward and metric ms per sample; K5 and K6
    checked and timed as in phase 3 on the clouds the metric step gives K5
    (sample 0's gt against the random-weight pred).
 7. training: a synthetic DurLAR train split, TULIP-base 32x2048 ->
@@ -114,7 +116,16 @@ Phases, one line or more each; any failure raises and exits non-zero:
    columns through host memory: the times are host-staged exchanges, not
    a multi-GPU time): the bf16 forward's ms at batch 1 and 8 against one
    process, the device ms of the exchanges (there: the staging copies) a
-   forward and a step, and of the step.
+   forward and a step, and of the step; (e) dropout 0.1 / 0.1 (phase
+   11(d)'s rates) on the two W shards, each rank keeping its columns of
+   the masks one process draws (check_sp_dropout): the fp32 and bf16 "mc"
+   forwards at batch 1 and 8 against one process on the same generator
+   seeds (1e-4 / 3e-2 of max|ref|; K3 1 and K4 3 launches a forward on
+   each rank, the elements drawn one process's), one fp32 and three bf16
+   train steps at batch 4 (the limits of (b); K3 / K10 1, K4 / K11 3 a
+   step), and three bf16 steps with TULIP_TPU_LN_PALLAS=1 (K14 / K15 14 a
+   step on each shard, bf16 limits of (b)); the "mc" forward's ms, the
+   draws' device ms at batch 8 and the steps' ms against one process.
 
 11. the model variants (run_variants_phase), full width, DurLAR 32x2048
    -> 128x2048, random weights from seeded generators, each run with the
@@ -1613,6 +1624,16 @@ def run_eval_phase(torch, dev, data_root, model16, model32):
         cd5 = float(dm["stats"][1])
         if abs(cd - cd5) > 1e-5 * abs(cd5):
             raise SystemExit(f"chamfer_distance {cd} (K6) vs {cd5} (K5)")
+        # host arrays and no device: the sweep runs on the card too
+        reset_counts()
+        cd_np = chamfer_distance(pcd_gt.cpu().numpy(),
+                                 pcd_pred.cpu().numpy())
+        got = counts()
+        print(f"eval chamfer_distance of numpy clouds, no device: "
+              f"{cd_np:.6f}, K6 launches {got['nn_h']} (want 2)", flush=True)
+        if got["nn_h"] != 2 or abs(cd_np - cd) > 1e-6 * abs(cd):
+            raise SystemExit("chamfer_distance of host arrays did not sweep "
+                             "on the card")
         cd_ms = cuda_ms(torch, lambda: chamfer_distance(pcd_gt, pcd_pred),
                         iters=10, warmup=2)
         print(f"eval chamfer_distance (K6 x2) {cd:.6f} vs the K5 stats "
@@ -2359,19 +2380,23 @@ def run_cli_phase(torch, dev, weights):
 DP_GLOBAL_BATCH, DP_STEPS = 8, 3
 
 
-def dp_steps(torch, dev, root, rank, world, profile=False, mesh=None):
+def dp_steps(torch, dev, root, rank, world, profile=False, mesh=None,
+             rates=None, dtypes=("fp32", "bf16"), ln_kernels=False):
     """Phase 9(b)'s training, as rank ``rank`` of ``world`` (1: one process,
     no group): the flagship with drop_path_rate 0.1 from root/weights.pt,
     on rows [rank * b, (rank + 1) * b) of the batch in root/batch.npz, the
     drop-path draws of the whole batch from one generator seeded 0; one
-    fp32 step and DP_STEPS bf16 steps.  Under a sequence-parallel ``mesh``
-    (phase 10) the rows are the data index's and the rank takes its W
-    shard of them through make_sp_train_step.  Returns, for each type, the
-    first update's gradient (fp32, on the CPU), the losses, the step ms
-    and, for bf16, the weights after the last step and (under a mesh) the
-    kernel launches and halo exchanges a step; with ``profile``, the
-    device us by kernel name of one more bf16 step and of one average_ of
-    the step's gradients (every rank runs them: they hold collectives)."""
+    fp32 step and DP_STEPS bf16 steps (of ``dtypes``).  Under a
+    sequence-parallel ``mesh`` (phase 10) the rows are the data index's and
+    the rank takes its W shard of them through make_sp_train_step.
+    ``rates``: the model's (drop_rate, attn_drop_rate), drawn from the same
+    generator; ``ln_kernels``: TULIP_TPU_LN_PALLAS=1 around the steps.
+    Returns, for each type, the first update's gradient (fp32, on the CPU),
+    the losses, the step ms and, for bf16, the weights after the last step
+    and the kernel launches and halo exchanges a step; with ``profile``,
+    the device us by kernel name of one more bf16 step and of one average_
+    of the step's gradients (every rank runs them: they hold
+    collectives)."""
     from tulip_tpu_torch.models.layers import RankDraws
     from tulip_tpu_torch.models.tulip import tulip_base
     from tulip_tpu_torch.parallel import dist, halo
@@ -2387,9 +2412,16 @@ def dp_steps(torch, dev, root, rank, world, profile=False, mesh=None):
     if mesh is not None:
         low, high = shard_w(low, mesh), shard_w(high, mesh)
     out = {}
+    drop = {} if rates is None else dict(drop_rate=rates[0],
+                                         attn_drop_rate=rates[1])
+    saved_ln = os.environ.pop("TULIP_TPU_LN_PALLAS", None)
+    if ln_kernels:
+        os.environ["TULIP_TPU_LN_PALLAS"] = "1"
     for name, dtype, steps in (("fp32", torch.float32, 1),
                                ("bf16", torch.bfloat16, DP_STEPS)):
-        model = tulip_base(drop_path_rate=0.1, **FLAGSHIP)
+        if name not in dtypes:
+            continue
+        model = tulip_base(drop_path_rate=0.1, **drop, **FLAGSHIP)
         model.load_state_dict(weights, strict=True)
         model = model.to(dev)
         replicate(model)
@@ -2433,6 +2465,9 @@ def dp_steps(torch, dev, root, rank, world, profile=False, mesh=None):
                     average=device_us(torch, lambda: dist.average_(g), n=5))
         del model, opt, step
         torch.cuda.empty_cache()
+    os.environ.pop("TULIP_TPU_LN_PALLAS", None)
+    if saved_ln is not None:
+        os.environ["TULIP_TPU_LN_PALLAS"] = saved_ln
     return out
 
 
@@ -2507,11 +2542,99 @@ def sp_forwards(torch, dev, root, mesh, profile=False):
     return out
 
 
+# phase 10 (e): dropout on the flagship at phase 11(d)'s rates
+SP_RATES = (0.1, 0.1)
+
+
+def sp_dropout_forwards(torch, dev, root, mesh, profile=False):
+    """Phase 10 (e) on this rank of ``mesh`` (None: one process on the
+    whole scans): the flagship from root/weights.pt with dropout SP_RATES,
+    mode "mc", in fp32 and bf16, on this rank's W shard of the batches
+    SP_TIMED in root/forward.npz; each forward's masks from a generator on
+    the card seeded by its batch, alike on every rank.  Returns the local
+    preds (on the CPU), the kernel launches of each forward (the counts set
+    to 0 just before it), the elements its dropout sites draw and the
+    elements they keep (the shard's), the bf16 forward's median ms (host
+    clock around synchronised forwards, every rank in step) and, with
+    ``profile``, the device us by kernel name of one bf16 forward at the
+    largest batch."""
+    from tulip_tpu_torch.models import layers as L
+    from tulip_tpu_torch.models.tulip import apply_model, tulip_base
+    from tulip_tpu_torch.parallel.sp import make_sp_forward, shard_w
+    weights = torch.load(os.path.join(root, "weights.pt"), weights_only=True)
+    with np.load(os.path.join(root, "forward.npz")) as f:
+        xs = {b: f[f"x{b}"] for b in SP_TIMED}
+    out = dict(preds={}, launches={}, drawn={}, ms={}, profile={})
+    dropout, drawn = L.dropout, [0, 0]
+
+    def counting(x, rate, draws, active, grid=None):
+        if active and rate > 0 and draws is not None:
+            drawn[0] += x.numel() * getattr(draws, "n_seq", 1)
+            drawn[1] += x.numel()
+        return dropout(x, rate, draws, active, grid)
+
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = tulip_base(drop_rate=SP_RATES[0], attn_drop_rate=SP_RATES[1],
+                           **FLAGSHIP)
+        model.load_state_dict(weights, strict=True)
+        model = model.to(device=dev, dtype=dtype)
+        if mesh is None:
+            def run(x, g):
+                return apply_model(model, x, mode="mc", mc_drop=True,
+                                   compute_dtype=dtype, generator=g)
+        else:
+            fwd = make_sp_forward(model, mesh, mode="mc",
+                                  compute_dtype=dtype)
+
+            def run(x, g):
+                return fwd(x, generator=g)
+        for b, x in sorted(xs.items()):
+            xl = torch.from_numpy(x).to(dev)
+            if mesh is not None:
+                xl = shard_w(xl, mesh)
+            key = f"{name} batch {b}"
+            reset_counts()
+            drawn[:] = [0, 0]
+            L.dropout = counting
+            try:
+                pred = run(xl, torch.Generator(device=dev).manual_seed(b))
+                torch.cuda.synchronize()
+            finally:
+                L.dropout = dropout
+            out["launches"][key] = {k: v for k, v in counts().items() if v}
+            out["drawn"][key] = tuple(drawn)
+            out["preds"][key] = pred.float().cpu()
+            if name != "bf16":
+                continue
+            g = torch.Generator(device=dev).manual_seed(b)
+            for _ in range(3):
+                run(xl, g)
+            times = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(xl, g)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["ms"][b] = statistics.median(times)
+            if profile and b == max(SP_TIMED):
+                out["profile"][b] = device_us(torch, lambda: run(xl, g), n=3)
+        del model, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def draw_ms(prof):
+    """The device ms of a profile's random draws (PyTorch's uniform
+    kernel, distribution_elementwise_grid_stride_kernel)."""
+    return sum(v for k, v in prof.items() if "distribution" in k) / 1e3
+
+
 def dp_rank_main(rank, root):
     """``chip_smoke.py --dp-rank R DIR``: rank R of the group that
     DIR/spec.json describes ({"backend", "devices": one per rank,
-    "profile", "sp": the seq degree, 1 for data parallel alone}); the
-    result goes to DIR/rank{R}.pt."""
+    "profile", "sp": the seq degree, 1 for data parallel alone, "dropout":
+    phase 10 (e) too}); the result goes to DIR/rank{R}.pt."""
     import torch
     import torch.distributed as td
     from tulip_tpu_torch.parallel.mesh import make_mesh
@@ -2529,6 +2652,14 @@ def dp_rank_main(rank, root):
         out = dp_steps(torch, dev, root, rank, world, spec["profile"], mesh)
         if mesh is not None:
             out["sp"] = sp_forwards(torch, dev, root, mesh, spec["profile"])
+        if spec.get("dropout"):
+            out["dropout"] = dict(
+                forwards=sp_dropout_forwards(torch, dev, root, mesh,
+                                             spec["profile"]),
+                steps=dp_steps(torch, dev, root, rank, world, mesh=mesh,
+                               rates=SP_RATES),
+                ln=dp_steps(torch, dev, root, rank, world, mesh=mesh,
+                            dtypes=("bf16",), ln_kernels=True))
     finally:
         td.destroy_process_group()
     torch.save(out, os.path.join(root, f"rank{rank}.pt"))
@@ -2657,8 +2788,142 @@ def exchange_us(prof):
                or "memcpy" in k.lower())
 
 
+def steps_against_one(torch, ranks, ref, weights):
+    """The ranks' first-update gradients and last weights (dp_steps
+    results) against one process's: (the worst fp32 gradient and its
+    err / max|ref| or None without fp32, the bf16 gradient cosine, every
+    rank's gradients bit-equal, its weights bit-equal, the largest move)."""
+    worst = err = None
+    if "fp32" in ref:
+        g32 = ranks[0]["fp32"]["grads"]
+        errs = {k: rel_err(torch, g32[k], v)
+                for k, v in ref["fp32"]["grads"].items()}
+        worst = max(errs, key=errs.get)
+        err = errs[worst]
+    _, _, cos = grad_check(torch, (0.0, ranks[0]["bf16"]["grads"]),
+                           (1.0, ref["bf16"]["grads"]))
+    same = all(torch.equal(v, r[name]["grads"][k]) for r in ranks[1:]
+               for name in ref for k, v in ranks[0][name]["grads"].items())
+    w0 = ranks[0]["bf16"]["weights"]
+    same_w = all(torch.equal(v, r["bf16"]["weights"][k])
+                 for r in ranks[1:] for k, v in w0.items())
+    moved = max(float((w0[k] - weights[k]).abs().max()) for k in w0)
+    return worst, err, cos, same, same_w, moved
+
+
+def check_sp_dropout(torch, dev, root, ranks, sp, label, weights,
+                     want_step_ex):
+    """Phase 10 (e), the ranks' dropout results (sp_dropout_forwards and
+    the two extra dp_steps of dp_rank_main) against one process on ``dev``:
+    the "mc" forwards' joined preds within 1e-4 (fp32) / 3e-2 (bf16) of
+    max|ref| on the same generator seeds, each rank's launches a forward
+    those of one process (MC_PER_FORWARD) and the elements drawn one
+    process's (the shard keeps 1 / sp of them); the dropout train steps
+    (fp32 gradients within 1e-4 of each parameter's max|ref|, the bf16
+    cosine >= 0.999, the ranks bit-equal, DROPOUT_PER_STEP launches and
+    the exchanges of a step as without dropout); the bf16 steps with
+    TULIP_TPU_LN_PALLAS=1 (K14 / K15 on the shards, PER_STEP_CLI launches)
+    with the same bf16 limits.  Prints the forward's and the step's ms
+    against one process and the draws' device ms."""
+    world = len(ranks)
+    ref_fwd = sp_dropout_forwards(torch, dev, root, None, profile=True)
+    ref_steps = dp_steps(torch, dev, root, 0, 1, rates=SP_RATES)
+    ref_ln = dp_steps(torch, dev, root, 0, 1, dtypes=("bf16",),
+                      ln_kernels=True)
+    fwds = [r["dropout"]["forwards"] for r in ranks]
+    errs = {}
+    for key, want in ref_fwd["preds"].items():
+        errs[key] = max(
+            rel_err(torch, torch.cat([fwds[d * sp + s]["preds"][key]
+                                      for s in range(sp)], dim=-1), want)
+            for d in range(world // sp))
+    fwd_ok = all(v <= (1e-4 if k.startswith("fp32") else 3e-2)
+                 for k, v in errs.items())
+    kernels = set(SOURCES)
+    launches = [{k: {n: c for n, c in v.items() if n in kernels}
+                 for k, v in f["launches"].items()} for f in fwds]
+    ref_launches = {k: {n: c for n, c in v.items() if n in kernels}
+                    for k, v in ref_fwd["launches"].items()}
+    want_fwd = {k: v for k, v in MC_PER_FORWARD.items() if v}
+    launch_ok = all(x == ref_launches for x in launches) and all(
+        v == want_fwd for v in ref_launches.values())
+    drawn_ok = all(f["drawn"][k][0] == ref_fwd["drawn"][k][0]
+                   and f["drawn"][k][1] * sp == f["drawn"][k][0]
+                   for f in fwds for k in ref_fwd["drawn"])
+    steps = [r["dropout"]["steps"] for r in ranks]
+    worst, err, cos, same, same_w, moved = steps_against_one(
+        torch, steps, ref_steps, weights)
+    step_launches = [{k: s["bf16"]["launches"][k] for k in DROPOUT_PER_STEP}
+                     for s in steps]
+    step_ex = {s["bf16"]["exchanges"] for s in steps}
+    ln = [r["dropout"]["ln"] for r in ranks]
+    _, _, ln_cos, ln_same, ln_same_w, ln_moved = steps_against_one(
+        torch, ln, ref_ln, weights)
+    ln_launches = [{k: s["bf16"]["launches"][k] for k in PER_STEP_CLI}
+                   for s in ln]
+    big = max(SP_TIMED)
+    rank_draw = draw_ms(fwds[0]["profile"][big])
+    one_draw = draw_ms(ref_fwd["profile"][big])
+    rank_dev = sum(fwds[0]["profile"][big].values()) / 1e3
+    one_dev = sum(ref_fwd["profile"][big].values()) / 1e3
+    step_ms = statistics.median(steps[0]["bf16"]["ms"][1:])
+    one_step_ms = statistics.median(ref_steps["bf16"]["ms"][1:])
+    ln_ms = statistics.median(ln[0]["bf16"]["ms"][1:])
+    one_ln_ms = statistics.median(ref_ln["bf16"]["ms"][1:])
+    print(f"sp {label} (e) dropout {SP_RATES[0]} / {SP_RATES[1]}: 'mc' "
+          f"forwards against one process on the same seeds, err/max|ref| "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (limits fp32 1e-4, "
+          f"bf16 3e-2); kernel launches a forward on each rank "
+          f"{launches[0]} (one process's: "
+          f"{all(x == ref_launches for x in launches)}); elements drawn / "
+          f"kept a forward {fwds[0]['drawn']} (one process draws "
+          f"{ref_fwd['drawn']})", flush=True)
+    print(f"sp {label} (e) dropout train steps at batch {SP_BATCH}, "
+          f"drop_path_rate 0.1: fp32 gradient worst {worst} err/max|ref| "
+          f"{err:.2e} (limit 1e-4), bf16 gradient cosine {cos:.6f} (limit "
+          f"0.999); every rank's gradients bit-equal {same}, weights after "
+          f"{DP_STEPS} bf16 steps bit-equal {same_w} (moved {moved:.2e}); "
+          f"launches a step {step_launches[0]}, exchanges a step "
+          f"{sorted(step_ex)} (want {want_step_ex})", flush=True)
+    print(f"sp {label} (e) TULIP_TPU_LN_PALLAS=1 bf16 steps: gradient "
+          f"cosine {ln_cos:.6f} (limit 0.999), gradients bit-equal "
+          f"{ln_same}, weights bit-equal {ln_same_w} (moved {ln_moved:.2e}); "
+          f"launches a step {ln_launches[0]} (want {PER_STEP_CLI})",
+          flush=True)
+    print(f"sp {label} (e) times: bf16 'mc' forward ms (host clock, median "
+          f"of 20) { {b: round(v, 3) for b, v in fwds[0]['ms'].items()} } "
+          f"against one process "
+          f"{ {b: round(v, 3) for b, v in ref_fwd['ms'].items()} }; batch "
+          f"{big}: rank 0's device ms a forward {rank_dev:.3f}, of it the "
+          f"draws {rank_draw:.4f}; one process {one_dev:.3f}, of it the "
+          f"draws {one_draw:.4f}; bf16 dropout step ms (host clock) rank 0 "
+          f"{step_ms:.2f}, one process {one_step_ms:.2f}; LN-switch step "
+          f"rank 0 {ln_ms:.2f}, one process {one_ln_ms:.2f}", flush=True)
+    ok = (fwd_ok and launch_ok and drawn_ok and err <= 1e-4
+          and cos >= 0.999 and same and same_w and moved > 0
+          and all(x == DROPOUT_PER_STEP for x in step_launches)
+          and step_ex == {want_step_ex} and ln_cos >= 0.999 and ln_same
+          and ln_same_w and ln_moved > 0
+          and all(x == PER_STEP_CLI for x in ln_launches))
+    if not ok:
+        raise SystemExit(f"sp {label} (e): dropout or the LN switch "
+                         "disagrees with one process, with the other ranks "
+                         "or with the counts")
+    return dict(rates=SP_RATES, forward_err=errs,
+                launches_per_forward=launches[0], drawn=fwds[0]["drawn"],
+                one_drawn=ref_fwd["drawn"], forward_ms=fwds[0]["ms"],
+                one_forward_ms=ref_fwd["ms"], forward_device_ms=rank_dev,
+                one_forward_device_ms=one_dev, draw_device_ms=rank_draw,
+                one_draw_device_ms=one_draw, fp32_worst_grad=worst,
+                fp32_worst_grad_err=err, bf16_grad_cos=cos,
+                step_launches=step_launches[0], step_ms=steps[0]["bf16"]["ms"],
+                one_step_ms=ref_steps["bf16"]["ms"], ln_grad_cos=ln_cos,
+                ln_step_launches=ln_launches[0], ln_step_ms=ln[0]["bf16"]["ms"],
+                one_ln_step_ms=ref_ln["bf16"]["ms"])
+
+
 def run_sp_ranks(torch, dev, weights, data_root, root, backend, devices, sp,
-                 label):
+                 label, dropout=False):
     """Phase 10 and ``--ranks N``'s sequence parallel: len(devices) ranks of
     ``backend`` as (world // sp) x sp, processes of their own, against one
     process on ``dev``, the flagship from the same weights.  (a) the
@@ -2673,7 +2938,8 @@ def run_sp_ranks(torch, dev, weights, data_root, root, backend, devices, sp,
     (d) two halo exchanges a shifted block and one for the patch embed's
     pad a forward (15), the rolls' again backward (29 a step).  Times: the
     bf16 forward's ms at batch 1 and 8 against one process, and rank 0's
-    device time of the step and of the exchanges (profiler)."""
+    device time of the step and of the exchanges (profiler).  With
+    ``dropout``: (e), check_sp_dropout."""
     from tulip_tpu_torch.config import model_config
     world = len(devices)
     cfg = model_config("tulip_base", **FLAGSHIP)
@@ -2685,7 +2951,7 @@ def run_sp_ranks(torch, dev, weights, data_root, root, backend, devices, sp,
     os.makedirs(root, exist_ok=True)
     with open(os.path.join(root, "spec.json"), "w") as f:
         json.dump(dict(backend=backend, devices=devices, profile=True,
-                       sp=sp), f)
+                       sp=sp, dropout=dropout), f)
     torch.save(weights, os.path.join(root, "weights.pt"))
     width = FLAGSHIP["img_size"][1]
     low, high = load_batches(data_root, SP_BATCH, width, split="train")[0]
@@ -2779,7 +3045,11 @@ def run_sp_ranks(torch, dev, weights, data_root, root, backend, devices, sp,
     if not ok:
         raise SystemExit(f"sp {label}: the ranks disagree with one process, "
                          "with each other or with the counts")
+    drop_report = (check_sp_dropout(torch, dev, root, ranks, sp, label,
+                                    weights, want_step_ex)
+                   if dropout else None)
     return dict(backend=backend, devices=devices, sp=sp, dp=world // sp,
+                dropout=drop_report,
                 transport=transport, forward_err=fwd,
                 launches_per_forward=[dict(v) for v in want_l],
                 shifted_blocks=shifted,
@@ -2795,6 +3065,23 @@ def run_sp_ranks(torch, dev, weights, data_root, root, backend, devices, sp,
                 one_step_ms=ref["bf16"]["ms"], wall_s=wall)
 
 
+def sp_only(torch, dev) -> int:
+    """``python3 chip_smoke.py --sp``: phase 10 alone, with (e), on the
+    folder phase 8 writes (written here) and phase 4's weights; the report
+    goes to chiprun_out/sp.json."""
+    from tulip_tpu_torch.models.tulip import init_params, tulip_base
+    cli_root = os.path.join(REPO, "build", "chip_smoke_cli", "durlar")
+    write_durlar(cli_root, CLI_TRAIN, FLAGSHIP["img_size"][1], split="train")
+    weights = init_params(tulip_base(**FLAGSHIP).cfg,
+                          torch.Generator().manual_seed(0))
+    report = run_sp_phase(torch, dev, weights)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "sp.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def run_sp_phase(torch, dev, weights):
     """Phase 10: W-axis sequence parallel on the one card, two gloo ranks
     (NCCL refuses two ranks on one GPU), against one process
@@ -2805,19 +3092,43 @@ def run_sp_phase(torch, dev, weights):
     data_root = os.path.join(REPO, "build", "chip_smoke_cli", "durlar")
     return run_sp_ranks(
         torch, dev, weights, data_root, root, "gloo", [str(dev)] * 2, 2,
-        "(one card, gloo: host-staged exchanges, not a multi-GPU time)")
+        "(one card, gloo: host-staged exchanges, not a multi-GPU time)",
+        dropout=True)
 
 
 CLI_LR = 5e-4   # the --lr of cli_flags
 
 
+def cli_with_rates(drop, attn_drop, argv):
+    """``chip_smoke.py --cli-rates D A FLAGS``: the port's command line on
+    FLAGS with the model's dropout rates set to (D, A), as phase 11(d) sets
+    them on the config (no flag sets a dropout rate, in either package)."""
+    import dataclasses
+    from tulip_tpu_torch import config
+    from tulip_tpu_torch.main_lidar_upsampling import cli
+    from_args = config.model_config_from_args
+    config.model_config_from_args = lambda args: dataclasses.replace(
+        from_args(args), drop_rate=drop, attn_drop_rate=attn_drop)
+    cli(argv)
+    return 0
+
+
+def cli_command(launcher, flags, rates=None):
+    """The argv of the port's command line on ``flags`` under ``launcher``
+    (torchrun's, or none), through cli_with_rates where ``rates``."""
+    entry = (["-m", "tulip_tpu_torch.main_lidar_upsampling"] if rates is None
+             else [os.path.abspath(__file__), "--cli-rates",
+                   *map(str, rates)])
+    return [sys.executable, *launcher, *entry, *flags]
+
+
 def ranks_cli_runs(torch, root, n, specs):
     """The command line's fp32 training, 2 epochs, once for each (name,
-    batch, ranks, extra flags, data folder) of ``specs``: through torchrun
-    over that many ranks, or in one process where ranks is 0.  Returns
-    {name: {log, model (checkpoint-1.pth's weights), s, tb}}."""
+    batch, ranks, extra flags, data folder[, dropout rates]) of ``specs``:
+    through torchrun over that many ranks, or in one process where ranks is
+    0.  Returns {name: {log, model (checkpoint-1.pth's weights), s, tb}}."""
     runs = {}
-    for name, batch, ranks, extra, data in specs:
+    for name, batch, ranks, extra, data, *rates in specs:
         out = os.path.join(root, name)
         flags = cli_flags(data, out, "--epochs", "2", "--warmup_epochs",
                           "1", "--save_frequency", "1", "--precision", "fp32",
@@ -2827,8 +3138,7 @@ def ranks_cli_runs(torch, root, n, specs):
                     f"--nproc_per_node={ranks}"] if ranks else []
         os.makedirs(out)
         env = dict(os.environ, OMP_NUM_THREADS="1")
-        t = run_processes([[sys.executable, *launcher, "-m",
-                            "tulip_tpu_torch.main_lidar_upsampling", *flags]],
+        t = run_processes([cli_command(launcher, flags, *rates)],
                           timeout=900, cwd=out, env=env)
         ckpt = torch.load(os.path.join(out, "checkpoint-1.pth"),
                           weights_only=True)
@@ -2917,7 +3227,11 @@ def run_ranks_check(torch, n):
     index, against one process at batch N / 2, as (i) and over (i)'s
     steps (a folder of half the scans), beside data parallel alone over
     N / 2 ranks on the same steps (a control of how far the ranks drift
-    from one process without W shards); (v) phase 10's
+    from one process without W shards); (vi) ``--eval --mc_drop
+    --sp_degree N`` with dropout SP_RATES (cli_with_rates) through
+    torchrun against one process at the same rates, on (iii)'s
+    checkpoint, with (iii)'s limits; (vii) (iv) with dropout SP_RATES;
+    (v) phase 10's
     forwards and steps at sp 2 (N / 2 data indices) and at sp N
     (run_sp_ranks), with their times."""
     import shutil
@@ -3016,6 +3330,49 @@ def run_ranks_check(torch, n):
         except SystemExit as e:
             print(e, flush=True)
             failed.append(eval_label)
+    # (vi) --eval --mc_drop --sp_degree n with dropout SP_RATES through
+    # torchrun against one process at the same rates, on the same
+    # checkpoint: the masks are one process's, each rank keeps its columns
+    for name, launcher, extra in (("mc_sp", torchrun,
+                                   ["--sp_degree", str(n)]),
+                                  ("mc_one", [], [])):
+        out = os.path.join(root, name)
+        os.makedirs(out)
+        shutil.copy(os.path.join(root, "one", "checkpoint-1.pth"), out)
+        t = run_processes([cli_command(launcher, cli_flags(
+            data_root, out, "--eval", "--mc_drop", *extra), SP_RATES)],
+                          timeout=600, cwd=out,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+        with open(os.path.join(out, "results_mcdrop.txt")) as f:
+            results[name] = dict(results=json.load(f), s=t)
+    got, want = results["mc_sp"]["results"], results["mc_one"]["results"]
+    mc_label = (f"(vi) --eval --mc_drop --sp_degree {n} (torchrun, nccl), "
+                f"dropout {SP_RATES[0]} / {SP_RATES[1]}")
+    mc_worst = None
+    if {len(v) for v in got.values()} != {CLI_VAL}:
+        print(f"{mc_label}: results of "
+              f"{ {k: len(v) for k, v in got.items()} } scans, expected "
+              f"{CLI_VAL}", flush=True)
+        failed.append(mc_label)
+    else:
+        try:
+            mc_worst = compare_results(
+                f"{mc_label} against one process, {CLI_VAL} scans, wall "
+                f"{results['mc_sp']['s']:.1f} / "
+                f"{results['mc_one']['s']:.1f} s", got, want, 1e-4, 1e-3)
+        except SystemExit as e:
+            print(e, flush=True)
+            failed.append(mc_label)
+    # (vii) (iv) with dropout SP_RATES: 2 data x 2 seq against one process
+    drop_runs = ranks_cli_runs(torch, root, n, (
+        ("sp_drop_ranks", 1, n, ["--sp_degree", "2"], data_half, SP_RATES),
+        ("sp_drop_one", n // 2, 0, [], data_half, SP_RATES)))
+    cli_sp_drop = cli_against_one(
+        f"(vii) torchrun --nproc_per_node={n} --sp_degree 2 (nccl, {n // 2} "
+        f"data x 2 seq), dropout {SP_RATES[0]} / {SP_RATES[1]}, fp32, batch "
+        f"1 a data index, against one process at batch {n // 2}",
+        drop_runs["sp_drop_ranks"], drop_runs["sp_drop_one"],
+        2 * (CLI_TRAIN // 2 // (n // 2)))
     cfg = tulip_base(**FLAGSHIP).cfg
     weights = init_params(cfg, torch.Generator().manual_seed(0))
     dp_root = os.path.join(root, "steps")
@@ -3027,6 +3384,8 @@ def run_ranks_check(torch, n):
     report["cli_sp"] = cli_sp
     report["cli_dp_half"] = cli_dp_half
     report["eval_sp"] = dict(worst=eval_worst, results=results)
+    report["mc_sp"] = dict(worst=mc_worst, rates=SP_RATES)
+    report["cli_sp_dropout"] = cli_sp_drop
     report["sp"] = {}
     for sp in (2, n):
         label = f"(v) nccl over {n} GPUs, sp {sp}"
@@ -4328,6 +4687,9 @@ def main() -> int:
     if "--dp-rank" in sys.argv[1:]:
         i = sys.argv.index("--dp-rank")
         return dp_rank_main(int(sys.argv[i + 1]), sys.argv[i + 2])
+    if sys.argv[1:2] == ["--cli-rates"]:
+        return cli_with_rates(float(sys.argv[2]), float(sys.argv[3]),
+                              sys.argv[4:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4368,6 +4730,9 @@ def main() -> int:
     if "--variants" in sys.argv[1:]:
         build.load()
         return variants_only(torch, dev)
+    if "--sp" in sys.argv[1:]:
+        build.load()
+        return sp_only(torch, dev)
     if "--data" in sys.argv[1:]:
         build.load()
         return data_only(torch, dev)

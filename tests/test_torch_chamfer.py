@@ -540,11 +540,51 @@ def test_chamfer_distance_matches_jax(pad_to):
     rng = np.random.default_rng(6)
     gt = _clustered(rng, 3000)
     pred = (gt[:2700] + rng.normal(0, 0.03, (2700, 3))).astype(np.float32)
-    ours = TMET.chamfer_distance_async(gt, pred, pad_to=pad_to)()
+    ours = TMET.chamfer_distance_async(gt, pred, pad_to=pad_to,
+                                       device="cpu")()
     ref = JM.chamfer_distance_async(gt, pred, pad_to=pad_to)()
     a, b = _brute(gt, pred)
     assert abs(ours - (a.mean() + b.mean())) <= 1e-5 * ours
     assert abs(ours - ref) <= 1e-4 * ref
+
+
+def test_host_arrays_sweep_on_the_card_and_raise_without_one():
+    """numpy clouds and no ``device``: the sweep's device is the GPU, and
+    without one the entry raises; nothing falls back to the CPU."""
+    rng = np.random.default_rng(7)
+    a = rng.uniform(0, 1, (300, 3)).astype(np.float32)
+    b = rng.uniform(0, 1, (200, 3)).astype(np.float32)
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TMET.chamfer_distance(a, b)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TMET.chamfer_distance_async(a, b, pad_to=512)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "current_device", lambda: 0)
+        assert TMET._sweep_device(a, None) == torch.device("cuda", 0)
+        assert TMET._sweep_device(a, "cpu") == torch.device("cpu")
+        assert TMET._sweep_device(torch.from_numpy(a), None) == \
+            torch.device("cpu")
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_on_the_cpu_when_asked_or_given_cpu_tensors(as_tensor):
+    """device="cpu" with host arrays, or CPU tensors (which keep their
+    device), run the plain version: the brute-force means."""
+    rng = np.random.default_rng(8)
+    a = rng.uniform(0, 1, (300, 3)).astype(np.float32)
+    b = rng.uniform(0, 1, (200, 3)).astype(np.float32)
+    before = (C.min_sq_dists_brute.launches, C.min_sq_dists_h.launches,
+              C.min_sq_dists_h2.launches)
+    if as_tensor:
+        got = TMET.chamfer_distance(torch.from_numpy(a), torch.from_numpy(b))
+    else:
+        got = TMET.chamfer_distance(a, b, device="cpu")
+    d1, d2 = _brute(a, b)
+    assert abs(got - (d1.mean() + d2.mean())) <= 1e-5 * got
+    assert (C.min_sq_dists_brute.launches, C.min_sq_dists_h.launches,
+            C.min_sq_dists_h2.launches) == before
 
 
 def test_cpu_path_launches_nothing_and_other_devices_raise():

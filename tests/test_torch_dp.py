@@ -70,8 +70,12 @@ def train_steps(spec, rank=0, world=1):
     equal row blocks and this rank takes block ``rank``; the drop-path
     draws come from one generator seeded ``spec["seed"]``.  Returns
     (per step: (total, pixel) losses and the weights; the gradients AdamW
-    was handed, one dict a weight update; rows drop-path zeroed)."""
-    cfg = model_config("tulip_base", drop_path_rate=spec["rate"], **KW)
+    was handed, one dict a weight update; rows drop-path zeroed).  The
+    dropout rates are spec["drop_rate"] / spec["attn_drop_rate"] (0 when
+    absent)."""
+    cfg = model_config("tulip_base", drop_path_rate=spec["rate"],
+                       drop_rate=spec.get("drop_rate", 0.0),
+                       attn_drop_rate=spec.get("attn_drop_rate", 0.0), **KW)
     model = TT.TULIP(cfg)
     model.load_state_dict(torch.load(spec["params"], weights_only=True))
     if rank > 0:

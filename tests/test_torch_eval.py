@@ -174,7 +174,7 @@ def _stand_ins(low, high, seed=3):
     def jax_fwd(params, x, rng=None):
         return jnp.repeat(x, f, axis=2) + nj
 
-    def torch_fwd(x):
+    def torch_fwd(x, generator=None):
         return torch.repeat_interleave(x, f, dim=2) + nt
 
     _KEEP.append(jax_fwd)
@@ -223,7 +223,7 @@ def test_mc_shortcut_equals_full_loop(tmp_path, monkeypatch):
     writer = TBWriter(str(tmp_path / "tb"))
     calls = []
 
-    def counted(x):
+    def counted(x, generator=None):
         calls.append(x.shape[0])
         return tfwd(x)
 

@@ -116,7 +116,9 @@ def sp_train_steps(spec, rank=0, world=1):
     mesh = make_mesh(sp)
     assert (mesh.dp, mesh.sp) == (world // sp, sp)
     dtype = getattr(torch, spec.get("dtype", "float32"))
-    cfg = model_config("tulip_base", drop_path_rate=spec["rate"], **KW)
+    cfg = model_config("tulip_base", drop_path_rate=spec["rate"],
+                       drop_rate=spec.get("drop_rate", 0.0),
+                       attn_drop_rate=spec.get("attn_drop_rate", 0.0), **KW)
     model = TT.TULIP(cfg)
     model.load_state_dict(torch.load(spec["params"], weights_only=True))
     model = model.to(dtype)
@@ -185,14 +187,17 @@ def sp_forward(spec, rank, world):
 
 
 def sp_mcdrop(spec, rank, world):
-    """eval/engine.py:MCdrop (10 iterations, the rate-0 shortcut) on two
-    CARLA samples of test_torch_eval.py, its forward this ring's
+    """eval/engine.py:MCdrop (10 iterations: at rate 0 the shortcut, at
+    spec's dropout rates the full loop) on two CARLA samples of
+    test_torch_eval.py, its forward this ring's
     make_sp_eval_forward(mode "mc") or, in a world of 1, the model's own:
     (the results, the preds the forward gave, the exchange count)."""
     from test_torch_eval import _Args, _Loader
     from tulip_tpu_torch.eval import engine as TE
     from tulip_tpu_torch.utils.writer import TBWriter
-    model = TT.TULIP(model_config("tulip_base", **KW))
+    model = TT.TULIP(model_config(
+        "tulip_base", drop_rate=spec.get("drop_rate", 0.0),
+        attn_drop_rate=spec.get("attn_drop_rate", 0.0), **KW))
     model.load_state_dict(torch.load(spec["params"], weights_only=True))
     out_dir = spec["out_dir"] % rank
     preds, sp_forward = [], None
@@ -200,8 +205,8 @@ def sp_mcdrop(spec, rank, world):
         fwd = SP.make_sp_eval_forward(model, make_mesh(world), mode="mc",
                                       compute_dtype=torch.float32)
 
-        def sp_forward(low):
-            preds.append(fwd(low))
+        def sp_forward(low, generator=None):
+            preds.append(fwd(low, generator))
             return preds[-1]
     else:
         orig = TT.apply_model
@@ -223,13 +228,13 @@ def sp_mcdrop(spec, rank, world):
 
 
 _RANK = """
-import json, sys
+import importlib, json, sys
 import torch
 import torch.distributed as td
 torch.set_num_threads(1)
 sys.path.insert(0, sys.argv[3])
-import test_torch_sp as T
 rank, spec = int(sys.argv[1]), json.load(open(sys.argv[2]))
+T = importlib.import_module(spec.get("module", "test_torch_sp"))
 world = spec["world"]
 td.init_process_group("gloo", store=td.FileStore(spec["store"], world),
                       rank=rank, world_size=world)
@@ -239,6 +244,8 @@ td.destroy_process_group()
 
 
 def ranks(tmp_path, spec):
+    """spec["world"] ranks, each running spec["fn"] of spec["module"]
+    (this file by default): their results, in rank order."""
     spec = dict(spec, store=str(tmp_path / "store"),
                 out=str(tmp_path / "rank%d.pt"))
     path = tmp_path / "spec.json"

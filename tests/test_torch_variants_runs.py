@@ -9,8 +9,8 @@ parallel, MC dropout at a non-zero rate, and the command line.
   the port's one process and within 1e-4 of the JAX package's unsharded
   apply_model; one fp32 train step at drop_path_rate 0.1 against one
   process: the losses within 1e-5 relative, each gradient within 1e-5 of
-  its max|ref| (test_torch_sp.py's limits for a first update); a non-zero
-  dropout rate in "train" or "mc" under sp > 1 raises;
+  its max|ref| (test_torch_sp.py's limits for a first update); dropout
+  at a non-zero rate under sp > 1 is test_torch_sp_dropout.py's;
 - MCdrop on two CARLA samples with dropout 0.1 (10 iterations, chunks of
   8): the iterations differ and their std is > 0; a second run with the
   same seed draws the same iterations and writes the same
@@ -41,7 +41,7 @@ from tulip_tpu_torch.eval import engine as TE
 from tulip_tpu_torch.models import layers as TL
 from tulip_tpu_torch.models import tulip as TT
 from tulip_tpu_torch.parallel import sp as SP
-from tulip_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate
+from tulip_tpu_torch.parallel.mesh import make_mesh, replicate
 from tulip_tpu_torch.train import step as TS
 from tulip_tpu_torch.utils.writer import TBWriter
 
@@ -157,15 +157,6 @@ def test_sp2_with_v2_and_the_default_heads(tmp_path):
         np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
         _within(grads, ref_grads, 1e-5)
 
-
-@pytest.mark.parametrize("mode", ["train", "mc"])
-def test_sp_with_a_non_zero_dropout_rate_raises(mode):
-    model = TT.TULIP(port_config("tulip_base", **dict(SP_KW, drop_rate=0.1)))
-    with pytest.raises(NotImplementedError):
-        SP.make_sp_forward(model, Mesh(1, 2, 0), mode=mode)
-    with pytest.raises(NotImplementedError):
-        SP.make_sp_train_step(model, TS.make_optimizer(model, 0.01),
-                              Mesh(1, 2, 0))
 # ---------------------------------------------------------------------------
 # MC dropout
 # ---------------------------------------------------------------------------

@@ -119,13 +119,13 @@ def _record(module, calls, inject=None):
     draws; ``inject(x, rate, index)`` may replace the draw of a call."""
     orig = module.dropout
 
-    def wrapped(x, rate, draws, active):
+    def wrapped(x, rate, draws, active, *grid):
         if not (active and rate > 0 and draws is not None):
-            return orig(x, rate, draws, active)
+            return orig(x, rate, draws, active, *grid)
         calls.append((int(np.prod(x.shape)), rate))
         if inject is not None:
             return inject(x, rate, len(calls) - 1)
-        return orig(x, rate, draws, active)
+        return orig(x, rate, draws, active, *grid)
 
     return orig, wrapped
 
@@ -196,8 +196,8 @@ def test_every_site_drops_its_rate_and_scales_the_survivors(monkeypatch):
     orig = TL.dropout
     seen = []
 
-    def checked(x, rate, draws, active):
-        y = orig(x, rate, draws, active)
+    def checked(x, rate, draws, active, *grid):
+        y = orig(x, rate, draws, active, *grid)
         if active and rate > 0 and draws is not None:
             live = x != 0
             n = int(live.sum())

@@ -21,7 +21,9 @@ sample).  Metric-order parity quirks preserved:
   cover rank 0's share.  No two ranks write the same file.  Under W-axis
   sequence parallel (``sp_forward``: parallel/sp.py:make_sp_eval_forward)
   every rank of a data index runs each scan's forward on its W shard and
-  receives the joined pred; rank 0 alone goes on to the metrics.
+  receives the joined pred; rank 0 alone goes on to the metrics.  MCdrop's
+  chunk generators are seeded alike on every rank, and each shard keeps
+  its columns of the masks, so the ranks draw what one process draws.
 - keep_close_scan zeroes ranges > 0.25 for durlar in evaluate and for
   kitti in MCdrop only.
 
@@ -109,13 +111,14 @@ def _make_eval_forward(model, dataset: str, log_transform: bool, gates,
 def _make_mc_forward(model, compute_dtype, sp_forward=None):
     """One batch of dropout-active forwards (engine:409-421; model called
     with mc_drop=True, tulip.py:733-734), the dropout drawn from
-    ``generator``.  ``sp_forward(low_tiled) -> pred`` optionally replaces
-    the model forward (sequence parallel takes no non-zero dropout rate,
-    so it draws nothing)."""
+    ``generator``.  ``sp_forward(low_tiled, generator) -> pred``
+    optionally replaces the model forward (sequence parallel: each W shard
+    keeps its columns of the masks ``generator`` draws for the whole
+    scans)."""
 
     def fwd(low_tiled, generator=None):
         if sp_forward is not None:
-            return sp_forward(low_tiled).float()
+            return sp_forward(low_tiled, generator).float()
         return apply_model(model, low_tiled, None, mode="mc", mc_drop=True,
                            compute_dtype=compute_dtype,
                            generator=generator).float()

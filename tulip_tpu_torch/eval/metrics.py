@@ -37,10 +37,26 @@ def _chunk_for(impl, size: int) -> int:
     return pref if size >= pref else 512
 
 
+def _sweep_device(points1, device) -> torch.device:
+    """``device``, else points1's device if it is a tensor, else the GPU:
+    host arrays sweep on the card unless the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if torch.is_tensor(points1):
+        return points1.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "device cuda (the default for host arrays), but "
+            "torch.cuda.is_available() is false; pass device='cpu' to run "
+            "the plain version on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def chamfer_distance(points1, points2, num_points: Optional[int] = None,
                      device=None) -> float:
     """Bidirectional squared-NN chamfer, mean(d1) + mean(d2) (reference:
-    evaluation.py:125-134).  points: (N, 3) / (M, 3) numpy or tensors."""
+    evaluation.py:125-134).  points: (N, 3) / (M, 3) numpy or tensors;
+    ``device`` as :func:`chamfer_distance_async`."""
     return chamfer_distance_async(points1, points2, num_points,
                                   device=device)()
 
@@ -52,14 +68,15 @@ def chamfer_distance_async(points1, points2,
     eval loop reads it one sample later.
 
     ``device``: where the sweep runs (default: points1's device if it is a
-    tensor, else the CPU).  ``pad_to``: pad BOTH clouds with sentinels to
-    this size (rounded up to the chunk) and take masked means over the true
-    counts, so every call of an eval loop sweeps one shape (the JAX version
-    does this to share one compiled executable; the port keeps the same
-    sizes, and with them the ``P % chunk`` branch).  Sentinel rows never win
-    a real row's minimum (their distances are ~1e16)."""
-    if device is None:
-        device = points1.device if torch.is_tensor(points1) else "cpu"
+    tensor, else the GPU, which must be there: nothing falls back to the
+    CPU; ``device="cpu"`` runs the plain version).  ``pad_to``: pad BOTH
+    clouds with sentinels to this size (rounded up to the chunk) and take
+    masked means over the true counts, so every call of an eval loop
+    sweeps one shape (the JAX version does this to share one compiled
+    executable; the port keeps the same sizes, and with them the
+    ``P % chunk`` branch).  Sentinel rows never win a real row's minimum
+    (their distances are ~1e16)."""
+    device = _sweep_device(points1, device)
     p1 = _as_points(points1, device)
     p2 = _as_points(points2, device)
     impl = get_chamfer_impl()

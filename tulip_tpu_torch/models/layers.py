@@ -18,7 +18,7 @@ autograd in float64.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,33 +63,57 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
 
 
 class RankDraws(NamedTuple):
-    """The drop-path and dropout draws of one rank of ``world`` under data
-    parallel: each draw is the keep mask of the global batch (``world``
-    ranks of equal batch, joined in rank order) from ``generator``, which
-    every rank seeds alike; the rank keeps its own rows.  So the ranks'
-    generators stay in step and N ranks draw what one process draws on the
-    joined batch, as the JAX package's one key for the global batch does."""
+    """The drop-path and dropout draws of one rank of a dp x sp layout:
+    each draw is the keep mask of the whole global tensor from
+    ``generator``, which every rank seeds alike, and the rank keeps its
+    part of it.  Along the batch that is data rank ``rank`` of ``world``
+    (ranks of equal batch, joined in rank order); along W, under W-axis
+    sequence parallel, seq shard ``seq`` of ``n_seq`` (equal W shards,
+    joined in seq order).  So the ranks' generators stay in step and the
+    ranks draw what one process draws on the joined batch and the whole
+    scan.  (The JAX package keeps one key for the global batch, and under
+    sequence parallel draws a local mask on each shard.)"""
     generator: torch.Generator
     rank: int
     world: int
+    seq: int = 0
+    n_seq: int = 1
 
 
 Draws = Union[torch.Generator, RankDraws]
 
 
-def _keep_mask(x: torch.Tensor, shape, keep: float,
-               generator: Draws) -> torch.Tensor:
-    """The keep mask of x's rows: ``shape`` (x's first axis first) drawn
-    for the global batch, this rank's block of rows kept.  x's first axis
-    is batch-major at every site (samples, or windows / tokens ordered by
-    sample), so a rank's rows are one contiguous block of it."""
-    rank, world = 0, 1
+def _keep_mask(x: torch.Tensor, shape, keep: float, generator: Draws,
+               grid: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """The keep mask of x (``shape``, x's first axis first), drawn for the
+    global tensor and cut to this rank's part.
+
+    Without ``grid`` the mask has no W axis (drop-path's per-sample
+    mask): the global batch is drawn and the rank's block of rows kept;
+    x's first axis is batch-major at every site, so that block is
+    contiguous.  With ``grid`` = (B, rows, cols), x's elements in order
+    are (B, rows, cols, rest) with W along ``cols`` (tokens (B, H, W, C):
+    (B, H, W); windows (B·nWh·nWw, ...): (B, nWh, nWw)); the mask is
+    drawn as (B·world, rows, cols·n_seq, rest) and the rank's rows and
+    W columns kept."""
+    rank, world, seq, n_seq = 0, 1, 0, 1
     if isinstance(generator, RankDraws):
-        generator, rank, world = generator
-    n = x.shape[0]
-    u = torch.rand((n * world,) + tuple(shape[1:]), generator=generator,
-                   device=x.device)
-    return u[rank * n:(rank + 1) * n] < keep
+        generator, rank, world, seq, n_seq = generator
+    if grid is None:
+        if n_seq > 1 and math.prod(shape[1:]) > 1:
+            raise ValueError(
+                f"a mask of shape {tuple(shape)} drawn across {n_seq} W "
+                "shards needs its site's grid")
+        n = x.shape[0]
+        u = torch.rand((n * world,) + tuple(shape[1:]), generator=generator,
+                       device=x.device)
+        return u[rank * n:(rank + 1) * n] < keep
+    b, rows, cols = grid
+    rest = x.numel() // (b * rows * cols)
+    u = torch.rand((b * world, rows, cols * n_seq, rest),
+                   generator=generator, device=x.device)
+    u = u[rank * b:(rank + 1) * b, :, seq * cols:(seq + 1) * cols]
+    return (u < keep).reshape(x.shape)
 
 
 def drop_path(x: torch.Tensor, rate: float,
@@ -100,7 +124,8 @@ def drop_path(x: torch.Tensor, rate: float,
     with probability 1 - rate and scaled by 1 / (1 - rate), or zeroed.  The
     draw comes from ``generator``, which lives on x's device: a
     ``torch.Generator`` where x is the whole batch, a :class:`RankDraws`
-    where x is one rank's rows of it."""
+    where x is one rank's rows of it (the W shards of a data index draw
+    alike)."""
     if not active or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
@@ -111,15 +136,18 @@ def drop_path(x: torch.Tensor, rate: float,
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[Draws],
-            active: bool) -> torch.Tensor:
+            active: bool,
+            grid: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Element-wise dropout (tulip_tpu/models/layers.py:dropout): each
     element is kept with probability 1 - rate and scaled by 1 / (1 - rate),
     or zeroed.  Drawn as :func:`drop_path` draws, from the same
-    ``generator`` (a :class:`RankDraws` draws the global batch's mask)."""
+    ``generator`` (a :class:`RankDraws` draws the global tensor's mask).
+    ``grid`` = (B, rows, cols) says where W lies in x (see
+    :func:`_keep_mask`); a draw across W shards needs it."""
     if not active or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = _keep_mask(x, x.shape, keep, generator)
+    mask = _keep_mask(x, x.shape, keep, generator, grid)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

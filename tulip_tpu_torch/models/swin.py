@@ -46,7 +46,11 @@ shard: a shifted block rolls it by -sw across the shards
 (sh, 0) and the shard's mask (``halo.block_mask``), and rolls the result
 back by +sw.  In training the roll takes LN1(x), C wide, not qkv, 3C wide
 (LN1 and the linear are token-wise, so the orders agree), and the attention
-core's output, before proj.
+core's output, before proj.  The dropout composition rolls LN1(x) the same
+way (``halo.roll_hw``: H in place, W across the shards), and each of its
+sites names its grid, so that a :class:`~.layers.RankDraws` of the shard
+keeps the shard's W columns of the whole scan's mask.  The v2 block has no
+dropout site: under sequence parallel its model's one is pos_drop.
 """
 
 from __future__ import annotations
@@ -195,11 +199,18 @@ def _window_attention_dropout(a: WindowAttention, y: torch.Tensor,
     output (B, H, W, C); the logits and the softmax are fp32, the softmax
     output is cast to y's dtype before its dropout (rate ``attn_drop``),
     and proj's output gets ``proj_drop``.  Both draw per window, in the
-    window-major layout."""
+    window-major layout (b, wh, ww).
+
+    Under a W-sharded ring y is this rank's shard: it is rolled by -sw
+    across the shards (``roll_w``) and by -sh in place, so that its
+    windows are the global windows of the rolled scan at window columns
+    [s·nWw, (s+1)·nWw), which the masks' grid names; ``mask`` is then the
+    shard's local mask."""
     B, H, W, C = y.shape
     (wh, ww), (sh, sw) = st.window, st.shift
     nh = st.num_heads
     hd, Lw = C // nh, wh * ww
+    grid = (B, H // wh, W // ww)
     y = roll_hw(y, -sh, -sw)
     xw = window_partition(y, wh, ww)
     Bn = xw.shape[0]
@@ -209,21 +220,22 @@ def _window_attention_dropout(a: WindowAttention, y: torch.Tensor,
     attn = L.wide(q * hd ** -0.5) @ L.wide(k).transpose(-1, -2)
     attn = _add_mask(attn + a.gathered_bias()[None], mask)
     attn = torch.softmax(attn, dim=-1).to(y.dtype)
-    attn = L.dropout(attn, attn_drop, generator, True)
+    attn = L.dropout(attn, attn_drop, generator, True, grid)
     out = (attn @ v).transpose(1, 2).reshape(Bn, Lw, C)
     out = L.linear(out, a.proj.weight, a.proj.bias)
-    out = L.dropout(out, proj_drop, generator, True)
+    out = L.dropout(out, proj_drop, generator, True, grid)
     return roll_hw(window_reverse(out, wh, ww, H, W), sh, sw)
 
 
 def _mlp_dropout(m: Mlp, y: torch.Tensor, drop: float,
                  generator) -> torch.Tensor:
     """fc1 -> GELU -> dropout -> fc2 -> dropout (tulip_tpu/models/swin.py:
-    mlp), both at rate ``drop``."""
+    mlp), both at rate ``drop``, on tokens (B, H, W, C)."""
+    grid = tuple(y.shape[:3])
     h = L.gelu(L.linear(y, m.fc1.weight, m.fc1.bias))
-    h = L.dropout(h, drop, generator, True)
+    h = L.dropout(h, drop, generator, True, grid)
     return L.dropout(L.linear(h, m.fc2.weight, m.fc2.bias), drop, generator,
-                     True)
+                     True, grid)
 
 
 class SwinBlockV1(nn.Module):

@@ -310,7 +310,8 @@ class TULIP(nn.Module):
         n = self.cfg.num_layers
         kw = dict(train=train, dropout=dropout, generator=generator)
         x = self.patch_embed(x)
-        x = L.dropout(x, self.cfg.drop_rate, generator, dropout)  # pos_drop
+        x = L.dropout(x, self.cfg.drop_rate, generator, dropout,  # pos_drop
+                      tuple(x.shape[:3]))
         x_save = []
         for i, stage in enumerate(self.layers):
             x_save.append(x)

@@ -15,11 +15,6 @@ token-local or a local 2 x 2 space-to-depth: the merges (v1 and v2), the
 unmerging or PatchExpanding, the skip concats and either head run
 unchanged on the shard.
 
-Dropout at a non-zero rate raises NotImplementedError under sharding: the
-JAX package's shard_map draws one local mask for every shard, which is
-not the unsharded model's draw, and the port keeps to the unsharded
-semantics.
-
 Masks.  The reference's shifted-window mask marks the boundary regions
 of the *globally last* window column along W only (tulip/model/
 tulip.py:254-280).  Each shifted block therefore has two local variants
@@ -42,10 +37,18 @@ the global loss: the mean over the data indices of their scans' means.
 No subgroup is needed for it.  A run that skipped the backward exchange
 would lose the neighbours' terms and fail the tests against one process.
 
-Drop-path drops the same samples in every W shard: the seq ranks of a data
-index keep the same rows of the global draw (``layers.RankDraws(generator,
-data_index, dp)``), as the JAX package folds only the data index into its
-key.
+Draws.  A run on dp x sp ranks draws what one process draws on the whole
+batch and the whole scan.  Drop-path drops the same samples in every W
+shard: the seq ranks of a data index keep the same rows of the global draw
+(``layers.RankDraws(generator, data_index, dp)``), as the JAX package folds
+only the data index into its key.  Dropout, in modes 'train' and 'mc' at a
+non-zero ``drop_rate`` / ``attn_drop_rate``, draws the keep mask of the
+whole global tensor at every site and keeps the rank's rows and its shard's
+W columns (``RankDraws`` with the ring's ``seq`` / ``n_seq``; each site
+names where W lies in its tensor, tokens or windows): the mask of one
+process, at up to sp times the local draw's cost.  The JAX package draws
+a local mask on every shard instead (one key across the shards in 'train',
+the seq index folded in in 'mc'), which is not the unsharded model's draw.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as td
 
+from ..models.layers import RankDraws
 from ..models.swin import BlockStatic, make_block_static
 from ..models.tulip import TULIP, apply_model
 from ..train.step import make_train_step
@@ -154,17 +158,13 @@ def make_sp_forward(model: TULIP, mesh: Mesh, *, mode: str = "train",
     ``run(x, target=None, generator=None)`` with x (and target) this rank's
     W shard in NCHW, as :func:`~tulip_tpu_torch.models.tulip.apply_model`:
     pred alone without a target, else (pred, total_loss, pixel_loss) of the
-    shard.  ``mode`` as there: 'train' (autograd on, drop-path from
-    ``generator``, a ``layers.RankDraws`` of the data index), 'mc', 'eval'.
-    Every rank of the ring calls it in step: the exchanges are
-    collective.  A non-zero dropout rate in 'train' or 'mc' raises."""
-    cfg = model.cfg
-    if (mesh.sp > 1 and mode != "eval"
-            and (cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0)):
-        raise NotImplementedError(
-            f"dropout (drop_rate {cfg.drop_rate}, attn_drop_rate "
-            f"{cfg.attn_drop_rate}) under sequence parallel: one mask for "
-            f"the whole scan is not drawn across W shards")
+    shard.  ``mode`` as there: 'train' (autograd on, drop-path and
+    dropout), 'mc' (dropout), 'eval'.  ``generator`` draws them: a
+    ``torch.Generator`` where this ring holds the whole batch, a
+    ``layers.RankDraws`` of the data index where it holds a data index's
+    rows; the forward adds the ring's seq index to it, so that every shard
+    keeps its columns of the whole scan's masks.  Every rank of the ring
+    calls it in step: the exchanges are collective."""
     statics = build_sp_statics(model, mesh.sp)
     ring = mesh.ring()
     pairs = _local_masks(model, statics, ring.index == ring.size - 1)
@@ -178,10 +178,21 @@ def make_sp_forward(model: TULIP, mesh: Mesh, *, mode: str = "train",
             return apply_model(model, x, target, mode=mode,
                                mc_drop=target is None,
                                compute_dtype=compute_dtype,
-                               generator=generator)
+                               generator=seq_draws(generator, ring))
 
     run.mesh = mesh
     return run
+
+
+def seq_draws(generator, ring: halo.SeqRing):
+    """``generator`` (None, a ``torch.Generator`` of the whole batch or a
+    ``layers.RankDraws`` of a data index) as the draws of this rank's W
+    shard: seq shard ``ring.index`` of ``ring.size``."""
+    if generator is None:
+        return None
+    if not isinstance(generator, RankDraws):
+        generator = RankDraws(generator, 0, 1)
+    return generator._replace(seq=ring.index, n_seq=ring.size)
 
 
 def shard_w(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -204,13 +215,16 @@ def gather_w(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def make_sp_eval_forward(model: TULIP, mesh: Mesh, *, mode: str = "eval",
                          compute_dtype=torch.float32):
-    """``fwd(low) -> pred`` on whole NCHW scans, for ``evaluate`` /
-    ``MCdrop``'s ``sp_forward``: every rank of the ring runs its shard, and
-    the shards are gathered in seq order."""
+    """``fwd(low, generator=None) -> pred`` on whole NCHW scans, for
+    ``evaluate`` / ``MCdrop``'s ``sp_forward``: every rank of the ring runs
+    its shard, and the shards are gathered in seq order.  In mode 'mc' the
+    dropout comes from ``generator``, which every rank of the ring seeds
+    alike (MCdrop's chunk generator): each shard keeps its columns of the
+    masks one process draws on the whole scans."""
     run = make_sp_forward(model, mesh, mode=mode, compute_dtype=compute_dtype)
 
-    def fwd(low):
-        return gather_w(run(shard_w(low, mesh)), mesh)
+    def fwd(low, generator=None):
+        return gather_w(run(shard_w(low, mesh), generator=generator), mesh)
 
     fwd.mesh = mesh
     return fwd
@@ -222,7 +236,9 @@ def make_sp_train_step(model: TULIP, opt: torch.optim.Optimizer, mesh: Mesh,
     high this rank's W shard of its data index's batch, as
     ``train.step.make_train_step`` (its accumulation, its ``state_dict``,
     losses averaged over the world, which here is the global loss);
-    ``step.mesh`` is the layout the train loop draws drop-path by."""
+    ``step.mesh`` is the layout the train loop draws drop-path and dropout
+    by (``RankDraws(generator, data_index, dp)``; the forward adds the seq
+    shard)."""
     fwd = make_sp_forward(model, mesh, mode="train",
                           compute_dtype=compute_dtype)
     step = make_train_step(model, opt, accum_iter=accum_iter,

@@ -11,7 +11,8 @@ launched, so the host waits on the card once per step at most.
 Under data parallel each rank draws the drop-path and dropout masks of the
 global batch from the same (seed, epoch) generator and keeps its own rows
 (``layers.RankDraws``); under W-axis sequence parallel the rows of its
-data index, which its seq ranks share (``train_step.mesh``).  The step
+data index, which its seq ranks share (``train_step.mesh``), and the
+sharded forward keeps its W shard's columns of the dropout masks.  The step
 returns losses already averaged over the ranks, so the NaN abort fires on
 every rank at the same step.
 """

@@ -6,6 +6,9 @@
         the time goes, in this checkout or in the one at DIR)
     python3 chip_smoke.py --paths [--tree DIR]    (time_paths: the forward's
         and the train step's wall ms, of this checkout or of the one at DIR)
+    python3 chip_smoke.py --k3-forms [--tree DIR]    (k3_f32_forms: the
+        fp32 K3's error against float64 and device time, fused against
+        two-pass, of this checkout or of the one at DIR)
     python3 chip_smoke.py --ranks N    (run_ranks_check: data parallel and
         W-axis sequence parallel over N GPUs under NCCL, on a machine with
         N cards)
@@ -24,11 +27,18 @@ Phases, one line or more each; any failure raises and exits non-zero:
    half-block of K1, K2, K12, K13) must hold HGMMA instructions in their
    SASS, the bf16 training attention core (K8, K9) HMMA (mma.sync), the
    bf16 LayerNorm kernels (K14, K15) 128-bit global loads and stores
-   (LDG.E.128 / STG.E.128).
+   (LDG.E.128 / STG.E.128), and the fp32 split-TF32 kernels (K3's
+   two_matmul_tf32_kernel and linear_tf32_kernel, the half-block's
+   window_msa_tf32_kernel) HGMMA with TF32 operands, the half-block also
+   HMMA with TF32 operands.
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
-   median kernel and plain times from CUDA events.  Then the three chamfer
+   median kernel and plain times from CUDA events; every fp32 case bound
+   at 494.7 / 3 TFLOP/s (split TF32, fp32-accurate products on the tensor
+   cores, whether its kernel runs them there or not), and K3 with O = 12
+   and K1 with 4 x 8 windows refused on the card in fp32.  Then the
+   three chamfer
    kernels (K5, K6, K7; fp32) on 262,144-point clouds of a synthetic DurLAR
    scan and a perturbed copy, and on a ragged, a uniform, a degenerate and
    two sentinel-padded clouds (sentinels in a and in b): each against its
@@ -191,15 +201,17 @@ Phases, one line or more each; any failure raises and exits non-zero:
    device ms by class (K3, K14, PyTorch's ops) and of its cosine
    attentions alone (torch.profiler).  Its seconds end the phase.
 
-Phase 3 also holds K1 / K2 in bf16 at batch 1 and 8 (the tensor-core
-kernel's head splits differ by batch) and at token counts that leave a last
+Phase 3 also holds K1 / K2 in bf16 and fp32 at batch 1 and 8 (the
+tensor-core kernels' head splits differ by batch) and at token counts
+that leave a last
 tile of 16, 32 or 48 rows, with shifts that wrap inside one tile; K12 (the
 grouped window-major entry, four stages, shifted and not) and K13 (the
 natural row-strip entry, the stages with more than 8 heads) at batch 2 and,
 in bf16, batch 8; K4 at batch 1 and 8 (the bf16 kernel splits K over CTAs
 at batch 1-4), at a ragged token count and at TULIP-large's deepest merge
 (K 3,072); every bf16 case of K1, K2, K3, K4, K8, K9, K10, K11, K12, K13
-twice for the same bits; and K14 / K15 (LayerNorm forward and backward: y,
+twice for the same bits, and every fp32 case of K1, K2, K3, K12, K13
+(split TF32) too; and K14 / K15 (LayerNorm forward and backward: y,
 dx, dw, db) at the four norm1 shapes of the batch-8 train step, at the
 batch-1 step's, at a ragged token count, at TULIP-large's C 1,536 and at
 widths whose chunks do not split evenly over a row's lanes, in bf16 and
@@ -231,7 +243,9 @@ K15 the kernels line also gives the sums per train step (each batch-8
 shape's time x its launches in a step).
 
 Then one JSON line with the per-kernel results of all fifteen kernels
-(launches on the main paths, error, kernel / plain / library ms, bound) and,
+(launches on the main paths, error, kernel / plain / library ms, bound;
+beside them, where a kernel has fp32 cases on the path, fp32_launches on
+phase 6's fp32 evaluate and fp32_* error, ms, plain ms and bound) and,
 last, the device line
 {"ok": true, "device": {...}}.  The card's machine has no JAX: nothing here
 imports it.
@@ -315,6 +329,19 @@ MMA_SYNC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_tc_kernel")
 # the bf16 LayerNorm kernels (K14, K15), whose rows must move in 16-byte
 # global loads and stores (LDG.E.128 / STG.E.128 in the SASS)
 WIDE_ACCESS_KERNELS = ("ln_fwd_reg_kernel", "ln_bwd_reg_kernel")
+# the fp32 kernels of K3 (fused, and the two passes of its wide form) and
+# of the attention half-block (K1, K2, K12, K13): split TF32 on the tensor
+# cores, so HGMMA with TF32 operands in the SASS (HGMMA.64xNx8.F32.TF32),
+# and in the half-block its 16 x 16 products as HMMA.1688.F32.TF32
+TF32_KERNELS = ("two_matmul_tf32_kernel", "linear_tf32_kernel",
+                "window_msa_tf32_kernel")
+# the ops/ wrappers whose fp32 cases run those kernels (checked for equal
+# bits over two runs).  Every fp32 case's bound, theirs and the FMA
+# kernels' alike, is taken at the split-TF32 rate: the least time for
+# fp32-accurate products on this card is three dense TF32 products a
+# product, whichever kernel the port runs today
+SPLIT_TF32 = ("window_msa", "window_msa_grouped", "window_msa_nat",
+              "two_matmul")
 # fp32 instructions per point pair of a nearest-neighbour sweep: both
 # directions (K5: 3 sub, mul, 2 fma, 2 min), one direction (K6, K7: one min)
 PAIR_OPS, PAIR_OPS_ONE = 8, 7
@@ -344,7 +371,10 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
 
 # published peaks of one H100 SXM: dense bf16 tensor cores, fp32 outside
 # them, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              # fp32-accurate products on the tensor cores: dense TF32
+              # (494.7 TFLOP/s) over the three products of split TF32
+              "split_tf32": 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # fp32 instructions per second outside the tensor cores (an FMA is 2 FLOP)
 FP32_ISSUE = PEAK_FLOPS["float32"] / 2
@@ -475,29 +505,33 @@ def window_msa_case(torch, device, to, rn, dn, e, batch, H, W, C, nh, shifted,
 
 
 def more_window_msa_cases(torch, device):
-    """K1 / K2 in bf16 beyond batch 2: the batch-1 and batch-8 forwards'
-    shapes (the tensor-core kernel's head splits differ by batch), then
-    shapes the flagship never gives: last tiles of 16, 32 and 48 tokens (a
-    256-wide input's stage 3 is a 4 x 8 or 2 x 8 grid), a tile that ends
-    inside an image, and shifts that wrap both axes inside one 64-row
-    tile."""
+    """K1 / K2 beyond batch 2, in bf16 and fp32: the batch-1 and batch-8
+    forwards' shapes (the tensor-core kernels' head splits differ by
+    batch), then shapes the flagship never gives: last tiles of 16, 32 and
+    48 tokens (a 256-wide input's stage 3 is a 4 x 8 or 2 x 8 grid), a
+    tile that ends inside an image, and shifts that wrap both axes inside
+    one 64-row tile."""
     g = torch.Generator().manual_seed(5)
 
     def rn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=g) * scale + shift
 
-    to = lambda t: t.to(device=device, dtype=torch.bfloat16)
-    cases = [window_msa_case(torch, device, to, rn, "bfloat16", 2, batch, H,
-                             W, C, nh, shifted, True)
-             for batch in (8, 1) for (H, W), C, nh in STAGES
-             for shifted in (False, True)]
-    for batch, H, W, C, nh, shifted in (
-            (1, 2, 8, 768, 24, False), (1, 4, 8, 768, 24, True),
-            (3, 2, 8, 768, 24, False), (5, 2, 8, 96, 3, False),
-            (1, 4, 16, 384, 12, True), (2, 4, 32, 192, 6, True)):
-        cases.append(window_msa_case(
-            torch, device, to, rn, "bfloat16", 2, batch, H, W, C, nh,
-            shifted, False, what=f"T%64={batch * H * W % 64} "))
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        e = 2 if dtype == torch.bfloat16 else 4
+        to = lambda t, dtype=dtype: t.to(device=device, dtype=dtype)
+        cases += [window_msa_case(torch, device, to, rn, dn, e, batch, H, W,
+                                  C, nh, shifted, True)
+                  for batch in (8, 1) for (H, W), C, nh in STAGES
+                  for shifted in (False, True)]
+        for batch, H, W, C, nh, shifted in (
+                (1, 2, 8, 768, 24, False), (1, 4, 8, 768, 24, True),
+                (3, 2, 8, 768, 24, False), (5, 2, 8, 96, 3, False),
+                (1, 4, 16, 384, 12, True), (2, 4, 32, 192, 6, True)):
+            cases.append(window_msa_case(
+                torch, device, to, rn, dn, e, batch, H, W, C, nh, shifted,
+                False, what=f"T%64={batch * H * W % 64} "))
     return cases
 
 
@@ -673,9 +707,10 @@ def check_deterministic(torch, device, cases):
     and column sums), the attention half-block through its three entries
     (K1, K2, K12, K13), the training attention core (K8, K9 with its
     d(bias) column sum), the LayerNorm kernels (K14, K15 with dw / db
-    summed inside its launch) and tn_gemm on their own: two runs on the
-    same inputs must give the same bits (no atomic sums, every cross-block
-    sum in a fixed order)."""
+    summed inside its launch) and tn_gemm on their own, bf16; and the
+    fp32 split-TF32 kernels (K1, K2, K12, K13, K3 with their sum passes):
+    two runs on the same inputs must give the same bits (no atomic sums,
+    every cross-block sum in a fixed order)."""
     from tulip_tpu_torch.ops import reduce as R
     runs = [(label, kfn) for kernel, _, label, kfn, *_ in cases
             if kernel in ("two_matmul", "two_matmul_bwd", "ln_linear",
@@ -683,7 +718,8 @@ def check_deterministic(torch, device, cases):
                           "window_msa_grouped", "window_msa_nat",
                           "attn_core_fwd", "attn_core_bwd", "ln_fwd",
                           "ln_bwd")
-            and "bfloat16" in label]
+            and ("bfloat16" in label
+                 or ("float32" in label and kernel in SPLIT_TF32))]
     g = torch.Generator().manual_seed(4)
     for T, M, N in ((131072, 384, 96), (2048, 3072, 768), (1000, 16, 1536)):
         a = torch.randn(T, M, generator=g).to(device, torch.bfloat16)
@@ -701,26 +737,31 @@ def check_deterministic(torch, device, cases):
             differ.append(label)
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
           f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / K8 / K9 / K14 / K15 "
-          f"/ tn_gemm cases bit-identical over two runs", flush=True)
+          f"/ tn_gemm and fp32 K1 / K2 / K12 / K13 / K3 cases bit-identical "
+          f"over two runs", flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
 
 
 def sass_counts(build):
     """({kernel: HGMMA instructions}, {kernel: HMMA}, {kernel: (128-bit
-    global loads, 128-bit global stores)}) that cuobjdump -sass finds in
-    the bf16 tensor-core kernels (TENSOR_CORE_KERNELS, MMA_SYNC_KERNELS)
-    and the LayerNorm kernels (WIDE_ACCESS_KERNELS) of the built library,
-    every instantiation of a template counted together."""
+    global loads, 128-bit global stores)}, {kernel: (HGMMA, HMMA with TF32
+    operands)}) that cuobjdump -sass finds in the bf16 tensor-core kernels
+    (TENSOR_CORE_KERNELS, MMA_SYNC_KERNELS), the LayerNorm kernels
+    (WIDE_ACCESS_KERNELS) and the fp32 split-TF32 kernels (TF32_KERNELS)
+    of the built library, every instantiation of a template counted
+    together."""
     import re
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    names = TENSOR_CORE_KERNELS + MMA_SYNC_KERNELS + WIDE_ACCESS_KERNELS
+    names = (TENSOR_CORE_KERNELS + MMA_SYNC_KERNELS + WIDE_ACCESS_KERNELS
+             + TF32_KERNELS)
     counts = dict.fromkeys(names, 0)
     warp_level = dict.fromkeys(names, 0)
     wide = {k: [0, 0] for k in names}
+    tf32 = {k: [0, 0] for k in names}
     ldg = re.compile(r"\bLDG\.E[\w.]*\.128\b")
     stg = re.compile(r"\bSTG\.E[\w.]*\.128\b")
     current = None
@@ -729,14 +770,17 @@ def sass_counts(build):
             current = next((k for k in names if k in line), None)
         elif current and "HGMMA" in line:
             counts[current] += 1
+            tf32[current][0] += "TF32" in line
         elif current and "HMMA" in line:
             warp_level[current] += 1
+            tf32[current][1] += "TF32" in line
         elif current and ldg.search(line):
             wide[current][0] += 1
         elif current and stg.search(line):
             wide[current][1] += 1
     return (counts, warp_level,
-            {k: tuple(wide[k]) for k in WIDE_ACCESS_KERNELS})
+            {k: tuple(wide[k]) for k in WIDE_ACCESS_KERNELS},
+            {k: tuple(tf32[k]) for k in TF32_KERNELS})
 
 
 def kink_guard(torch, x, args, gr, to, rn):
@@ -1051,6 +1095,31 @@ def check_ln_launches(torch, device):
         raise SystemExit("K14 / K15 launch or refusal check failed")
 
 
+def check_f32_refusals(torch, device):
+    """On the card a width outside the fp32 plans is refused, as in bf16,
+    with nothing falling back: K3 with O % 8 != 0 and the half-block with
+    windows of other than 16 tokens raise NotImplementedError."""
+    from tulip_tpu_torch.ops import mlp, window_msa as wm
+    z = lambda *s: torch.zeros(*s, device=device)
+    refused = []
+    for fn in (lambda: mlp.fused_two_matmul(
+                   z(64, 96), None, None, z(384, 96), z(384), z(12, 384),
+                   None, act="gelu", residual=False),
+               lambda: wm.window_msa(
+                   z(1, 4, 16, 96), z(96), z(96), z(288, 96), z(288),
+                   z(96, 96), z(96), z(3, 32, 32), None, window=(4, 8),
+                   shift=(0, 0), eps=1e-6)):
+        try:
+            fn()
+            refused.append(False)
+        except NotImplementedError:
+            refused.append(True)
+    print(f"fp32 refusals (K3 O=12, K1 4 x 8 windows): {refused}",
+          flush=True)
+    if refused != [True, True]:
+        raise SystemExit("an fp32 kernel took a width outside its plan")
+
+
 def check_kernel_cases(torch, cases):
     """Run each case's kernel and plain version once and compare, then time
     both (and the library call, where the case has one) with CUDA events.
@@ -1070,7 +1139,8 @@ def check_kernel_cases(torch, cases):
         lib = extra.get("library")
         library_ms = None if lib is None else cuda_ms(torch, lib, iters=iters)
         nbytes, flops = extra["work"]
-        b_ms, b_by = bound_ms(nbytes, flops, dn)
+        b_ms, b_by = bound_ms(nbytes, flops,
+                              "split_tf32" if dn == "float32" else dn)
         ok = err <= TOL[dn]
         table.append(dict(kernel=kernel, knum=knum, label=label, dtype=dn,
                           on_path=on_path, per_step=extra.get("per_step"),
@@ -3560,7 +3630,8 @@ def run_dp_phase(torch, dev, weights):
 # matches none is PyTorch's own
 PROFILE_CLASSES = {
     "window_msa": "K1/K2 attention half-block (its sum pass included)",
-    "two_matmul": "K3", "ln_linear_bwd": "K11 token pass (LN, dy, finish)",
+    "two_matmul": "K3", "linear_tf32": "K3",
+    "ln_linear_bwd": "K11 token pass (LN, dy, finish)",
     "ln_linear": "K4 (LN pass, product, sum pass)",
     "attn_fwd_tc": "K8 attention core forward (mma.sync)",
     "attn_bwd_tc": "K9 attention core backward (mma.sync)",
@@ -3573,7 +3644,8 @@ PROFILE_CLASSES = {
 
 def profile_paths(torch, dev, tree):
     """``python3 chip_smoke.py --profile``: torch.profiler over the bf16
-    inference forward (batch 1 and 8, 5 forwards each) and 3 bf16 train
+    inference forward (batch 1 and 8, 5 forwards each), the fp32 eval
+    forward of the default evaluation (batch 1 and 8, 3 each) and 3 bf16 train
     steps of batch 8, without and with TULIP_TPU_LN_PALLAS=1, all at the
     flagship size after a warm-up: per path
     the wall ms per iteration, the device's busy share and the device ms
@@ -3645,6 +3717,22 @@ def profile_paths(torch, dev, tree):
         run(f"forward batch {bs}",
             lambda: apply_model(model, x, t, compute_dtype=torch.bfloat16), 5)
     del model
+    # the default evaluation's forward (--eval_precision fp32): the eval
+    # engine's forward with its de-log, gate and loss map
+    from tulip_tpu_torch.eval import engine as E
+    model32 = tulip_base(**FLAGSHIP)
+    model32.load_state_dict(weights, strict=True)
+    model32 = model32.to(dev)
+    fwd32 = E._make_eval_forward(model32, "durlar", True, E._GATES,
+                                 torch.float32)
+    for bs in (1, 8):
+        low, high = load_batches(data_root, bs, 2048)[0]
+        x = torch.from_numpy(low["sample"]).to(dev)
+        t = torch.from_numpy(high["sample"]).to(dev)
+        with torch.no_grad():
+            run(f"eval forward fp32 batch {bs}", lambda: fwd32(x, t), 3)
+    del model32, fwd32
+    torch.cuda.empty_cache()
     write_durlar(data_root, TRAIN_BATCH, 2048, split="train")
     low, high = load_batches(data_root, TRAIN_BATCH, 2048, split="train")[0]
     x = torch.from_numpy(low["sample"]).to(dev)
@@ -3906,11 +3994,77 @@ def k3_plan_ab(torch, dev):
     return out
 
 
+def k3_f32_forms(torch, dev, tree):
+    """``python3 chip_smoke.py --k3-forms [--tree DIR]``: the fp32 K3
+    (split TF32) at the flagship's shapes of batch 1 and 8, of this
+    checkout or of the one at DIR.  Each case's error against float64
+    (max / max|ref|, rms / rms ref, and the sign bias mean(err sign(ref))
+    / mean |err|: -1 for sums that only shrink, 0 for unbiased ones) and
+    its device time by the profiler; where the plan takes the fused kernel
+    (C 96 / 192, the head), the same for the two-pass form with the plan
+    forced, timed in turns fused, two-pass, two-pass, fused.  Lands in
+    chiprun_out/k3_forms.json, or k3_forms_<DIR's name>.json."""
+    from tulip_tpu_torch.ops import mlp
+    plan = getattr(mlp, "two_matmul_plan_f32", None)   # None: FMA K3
+
+    def two_pass(N, C, Hd, O):
+        hs = -(-min(640, Hd) // 32) * 32
+        return dict(rows=64, two_pass=True, bo=64, chunks=-(-O // 64),
+                    hs=hs, splits=-(-Hd // hs), stages=3, smem=mlp.SMEM_F32)
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    rows = []
+    for _, _, label, kfn, pfn, on_path, *_ in more_two_matmul_cases(torch,
+                                                                    dev):
+        if "float32" not in label or not on_path:
+            continue
+        x, a = kfn.__defaults__
+        ref = pfn(f64(x), [f64(t) for t in a])
+        fused = plan is not None and not plan(
+            x.shape[0], x.shape[1], a[2].shape[0], a[4].shape[0])["two_pass"]
+        forms = {"fused": plan, "two-pass": two_pass} if fused else {
+            "plan": plan}
+        row = dict(label=label)
+        try:
+            for name, form in forms.items():
+                mlp.two_matmul_plan_f32 = form
+                err = kfn().double() - ref
+                row[name] = dict(
+                    max_rel=(err.abs().max() / ref.abs().max()).item(),
+                    rms_rel=(err.square().mean().sqrt()
+                             / ref.square().mean().sqrt()).item(),
+                    sign_bias=((err * ref.sign()).mean()
+                               / err.abs().mean()).item(), us=[])
+            for name in list(forms) + list(forms)[::-1]:
+                mlp.two_matmul_plan_f32 = forms[name]
+                row[name]["us"].append(sum(device_us(torch, kfn).values()))
+        finally:
+            mlp.two_matmul_plan_f32 = plan
+        del ref
+        torch.cuda.empty_cache()
+        print(f"K3 fp32 forms {label.split('float32 ')[1]}: " + "; ".join(
+            f"{n} device {r['us']} us, err/max|ref| {r['max_rel']:.3e}, rms "
+            f"{r['rms_rel']:.3e}, sign bias {r['sign_bias']:+.3f}"
+            for n, r in row.items() if n != "label"), flush=True)
+        rows.append(row)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    name = ("k3_forms.json" if tree == "this checkout" else
+            f"k3_forms_{os.path.basename(os.path.abspath(tree))}.json")
+    with open(os.path.join(out_dir, name), "w") as f:
+        json.dump(dict(tree=tree, rows=rows), f, indent=1)
+    return 0
+
+
 def time_paths(torch, dev, tree):
     """``python3 chip_smoke.py --paths [--tree DIR]``: the wall ms of the
     bf16 inference forward at batch 1, 4 and 8 (median and least of 40
-    synchronised forwards, twice over), K5, K6 and the eval metric step
-    (time_paths_nn) and the bf16 batch-8 train step (timed_steps, twice),
+    synchronised forwards, twice over), the default evaluation's fp32
+    forward and evaluate / MCdrop (time_paths_eval), K5, K6 and the eval
+    metric step (time_paths_nn) and the bf16 batch-8 train step
+    (timed_steps, twice),
     at the flagship size, for the package of this
     checkout or of the checkout at DIR.  Two commits are compared inside
     one call, on one card and one host, in the order parent, change,
@@ -3944,6 +4098,7 @@ def time_paths(torch, dev, tree):
                   f"ms = {bs / med:.2f} img/s (min {min(times) * 1e3:.3f} "
                   f"ms)", flush=True)
     del model
+    time_paths_eval(torch, dev, tree, data_root, weights)
     time_paths_nn(torch, dev, tree, data_root, weights)
     batches = load_batches(data_root, TRAIN_BATCH, 2048, split="train")
     for _ in range(2):
@@ -3951,6 +4106,56 @@ def time_paths(torch, dev, tree):
         print(f"paths {tree}: train step batch {TRAIN_BATCH} median of 12 "
               f"{ms:.2f} ms", flush=True)
     return 0
+
+
+def time_paths_eval(torch, dev, tree, data_root, weights):
+    """Part of --paths: the default evaluation (--eval_precision fp32) of
+    this checkout or of the one at DIR: the eval engine's fp32 forward at
+    batch 1 and 8 (median and least of 20 synchronised calls, twice over)
+    and evaluate / MCdrop over phase 6's NUM_EVAL samples (wall ms a
+    sample, twice)."""
+    from tulip_tpu_torch.eval import engine as E
+    from tulip_tpu_torch.models.tulip import tulip_base
+    from tulip_tpu_torch.utils.writer import TBWriter
+    model32 = tulip_base(**FLAGSHIP)
+    model32.load_state_dict(weights, strict=True)
+    model32 = model32.to(dev)
+    fwd = E._make_eval_forward(model32, "durlar", True, E._GATES,
+                               torch.float32)
+    with torch.no_grad():
+        for _ in range(2):
+            for bs in (1, 8):
+                low, high = load_batches(data_root, bs, 2048)[0]
+                x = torch.from_numpy(low["sample"]).to(dev)
+                t = torch.from_numpy(high["sample"]).to(dev)
+                for _ in range(3):
+                    fwd(x, t)
+                torch.cuda.synchronize()
+                times = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    fwd(x, t)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                med = statistics.median(times)
+                print(f"paths {tree}: eval forward fp32 batch {bs} median "
+                      f"{med * 1e3:.3f} ms = {med * 1e3 / bs:.3f} ms a sample "
+                      f"(min {min(times) * 1e3:.3f} ms)", flush=True)
+    out_dir = os.path.join(REPO, "build", "chip_smoke_paths_eval")
+    os.makedirs(out_dir, exist_ok=True)
+    samples = load_batches(data_root, 1, 2048)[:NUM_EVAL]
+    writer = TBWriter(os.path.join(out_dir, "tb"))
+    for _ in range(2):
+        for engine in ("evaluate", "MCdrop"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(E, engine)(samples, model32, writer,
+                               args=eval_args(out_dir), device=dev,
+                               compute_dtype=torch.float32)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / len(samples) * 1e3
+            print(f"paths {tree}: {engine} fp32 {ms:.2f} ms a sample wall "
+                  f"({len(samples)} samples)", flush=True)
 
 
 def time_paths_nn(torch, dev, tree, data_root, weights):
@@ -4721,6 +4926,9 @@ def main() -> int:
     if "--paths" in sys.argv[1:]:
         build.load()
         return time_paths(torch, dev, tree)
+    if "--k3-forms" in sys.argv[1:]:
+        build.load()
+        return k3_f32_forms(torch, dev, tree)
     if "--ranks" in sys.argv[1:]:
         build.load()
         n = int(sys.argv[sys.argv.index("--ranks") + 1])
@@ -4751,13 +4959,19 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    hgmma, hmma, wide = sass_counts(build)
+    hgmma, hmma, wide, tf32 = sass_counts(build)
     hgmma = {k: hgmma[k] for k in TENSOR_CORE_KERNELS}
     hmma = {k: hmma[k] for k in MMA_SYNC_KERNELS}
     print(f"build: tensor-core instructions in the bf16 kernels: HGMMA "
           f"{hgmma}, HMMA (mma.sync) {hmma}; 128-bit global loads / stores "
-          f"(LDG.E.128 / STG.E.128) of the bf16 LayerNorm kernels {wide}",
-          flush=True)
+          f"(LDG.E.128 / STG.E.128) of the bf16 LayerNorm kernels {wide}; "
+          f"(HGMMA, HMMA with TF32 operands) of the fp32 split-TF32 "
+          f"kernels {tf32}", flush=True)
+    if not (tf32["two_matmul_tf32_kernel"][0]
+            and tf32["linear_tf32_kernel"][0]
+            and all(tf32["window_msa_tf32_kernel"])):
+        raise SystemExit(f"an fp32 split-TF32 kernel lacks its TF32 "
+                         f"tensor-core instructions: {tf32}")
     if not all(hgmma.values()):
         raise SystemExit(f"a bf16 tensor-core kernel holds no HGMMA: {hgmma}")
     if not all(hmma.values()):
@@ -4781,6 +4995,7 @@ def main() -> int:
     layouts += more_ln_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (10,) for c in layouts])
     check_ln_launches(torch, dev)
+    check_f32_refusals(torch, dev)
     check_deterministic(torch, dev, cases + more + train_cases + layouts)
     del cases, more, train_cases, layouts
     table += chamfer_checks(torch, dev)
@@ -4923,6 +5138,28 @@ def main() -> int:
                 bound_by=max(by, key=by.get),
                 library_ms=None if None in libs else sum(libs),
                 cases=len(rows)))
+            # beside them the fp32 cases on the path (the default
+            # evaluation's type), and the launches of phase 6's fp32
+            # evaluate (NUM_EVAL forwards)
+            f32 = [r for r in table if r["knum"] == knum
+                   and r["dtype"] == "float32" and r["on_path"]]
+            if f32 and dtype == "bfloat16":
+                by32 = {w: sum(r["bound_ms"] for r in f32
+                               if r["bound_by"] == w)
+                        for w in ("bytes", "operations")}
+                ev = eval_report["runs"]["evaluate fp32"]["launches"]
+                n32 = ev.get(kernel, 0)
+                if kernel == "window_msa":
+                    many = ev["window_msa_many_heads"]
+                    n32 = many if knum == "K2" else n32 - many
+                kernels[-1].update(
+                    fp32_launches=n32,
+                    fp32_max_abs_err=max(r["max_abs_err"] for r in f32),
+                    fp32_ms=sum(r["ms"] for r in f32),
+                    fp32_plain_ms=sum(r["plain_ms"] for r in f32),
+                    fp32_bound_ms=sum(by32.values()),
+                    fp32_bound_by=max(by32, key=by32.get),
+                    fp32_cases=len(f32))
             if all(r.get("per_step") for r in rows):
                 # a train step's launches: each shape's time x its launches
                 step = {k: sum(r[k] * r["per_step"] for r in rows)

@@ -314,7 +314,8 @@ def test_plan_has_room_at_every_width(nh):
 def test_the_three_entries_take_one_plan(B, H, W, C, nh):
     """window_msa, window_msa_grouped and window_msa_nat hand _plan_args
     the same (T, C, nh) for the same tokens, so their split sums run in the
-    same order; in bf16 the scratch is what the plan says, in fp32 none."""
+    same order; the scratch is what the plan says (bf16: window_msa_plan,
+    fp32: window_msa_plan_f32, which streams y and takes no y scratch)."""
     x = torch.zeros(B, H, W, C, dtype=torch.bfloat16)
     params = [torch.zeros(s, dtype=torch.bfloat16)
               for s in ((C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,))]
@@ -336,9 +337,16 @@ def test_the_three_entries_take_one_plan(B, H, W, C, nh):
             assert partial.dtype == torch.float32
         else:
             assert partial is None
-    assert TW._plan_args(x.float(), B * H * W, C, nh,
-                         [p.float() for p in params]) == (None, None,
-                                                          (0, 0, 0, 0))
+    p32 = TW.window_msa_plan_f32(B * H * W, C, nh)
+    y, partial, ints = TW._plan_args(x.float(), B * H * W, C, nh,
+                                     [p.float() for p in params])
+    assert y is None and ints == (p32["hs"], p32["splits"], p32["stages"],
+                                  p32["smem"])
+    if p32["sum_launch"]:
+        assert partial.shape == (p32["splits"], B * H * W, C)
+        assert partial.dtype == torch.float32
+    else:
+        assert partial is None
 
 
 def test_plan_args_streams_a_wide_y_and_wants_aligned_operands():

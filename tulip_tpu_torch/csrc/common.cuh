@@ -10,10 +10,11 @@
 // probabilities, hidden activations) are rounded with round_to<T>() at the
 // same points.
 // The bf16 MLP and patch-merging kernels (K3, K4, K10, K11 and the
-// weight-gradient product) and the bf16 attention half-block (K1, K2, K12,
-// K13) do not use this product core: theirs is mma.cuh, 64 rows per CTA on
-// the tensor cores with prefetched tiles.  Every fp32 instantiation runs on
-// the core below.
+// weight-gradient product), the attention half-block (K1, K2, K12, K13)
+// in both types and K3 in fp32 do not use this product core: theirs is
+// mma.cuh, 64 rows per CTA on the tensor cores with prefetched tiles (in
+// fp32 as split TF32).  The other fp32 kernels (K4, K10, K11 and the
+// fp32 weight-gradient product) run on the core below.
 #pragma once
 
 #include <cuda_bf16.h>

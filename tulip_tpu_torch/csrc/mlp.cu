@@ -72,52 +72,49 @@
 // row, three passes over the row) reaches 1.3 TB/s and is half of the
 // first merge's time at batch 8.
 //
-// fp32: two_matmul_kernel and ln_linear_kernel, the FMA kernels on the CUDA
-// cores (16 rows per CTA, common.cuh), the parity path.
+// fp32 K3 (--eval_precision fp32, the default evaluation): split TF32 on
+// the tensor cores (mma.cuh), fp32's accuracy; the bound restates as 4 N
+// C Hd + 4 N Hd O operations at 494.7 / 3 = 165 TFLOP/s.
+//   - two_matmul_tf32_kernel (O <= 96, or 192): two_matmul_tc_kernel's
+//     shape, 64 rows a CTA, 64 hidden units a tile.  Phase A streams
+//     32-column tiles of W1 and of the CTA's x rows (LN applied as
+//     split_rows splits them, from row_stats' fp32 statistics); the 64 x
+//     64 sums, + b1, act, split into hi / lo, are the second product's
+//     A fragments in registers (a sum
+//     fragment is mma.sync's A layout once each 8-column group is taken in
+//     the order 0 2 4 6 1 3 5 7, so W2's tile is stored so); phase B adds
+//     a W2[bo columns, 64 units]^T into the CTA's bo output columns (bo
+//     16 or 32 for the folded head, else 96).  Each tensor-core sum spans
+//     one 32-deep tile (phase A) or 64 units (phase B) and is then added
+//     to an fp32 total: one chain over all of a split's units had 5-6x
+//     the error (2.1e-6 against 3.7e-7 of max|ref| at C 96; PERF.md).
+//     The hidden axis splits by the widths alone (ops/mlp.py:
+//     two_matmul_plan_f32), so a token's sums run in one order at any
+//     token count; two_matmul_sum_f32_kernel adds the splits in order.
+//   - Wider outputs would make each output chunk recompute the hidden
+//     activation, so they take two launches of linear_tf32_kernel through
+//     an (N, Hd) fp32 scratch (its second pass K-split, with the same sum
+//     kernel).  Where the fused kernel takes the width it is the faster
+//     by device time: 1.9-2.1x at C 96, 2.6-3.2x for the head, even at C
+//     192 (batch 1 and 8, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//   - A ring of three 32 KB stages filled by every thread's 16-byte
+//     cp.async, each tile split to hi and lo in place (split_tile,
+//     stream_split_tiles): 99,840 bytes, two blocks an SM.  Not a TMA /
+//     cp.async.bulk ring: every thread reads and rewrites the landed tile
+//     for the split before wgmma may read it, so one CTA barrier a tile
+//     stays whatever copies the bytes; a ring of raw tiles two ahead of
+//     two split buffers, which takes the copies off that path as a bulk
+//     ring would, measured within 2 % of this one.
+// What holds it back (NVIDIA H100 80GB HBM3, 700 W; PERF.md): not its
+// tensor-core work nor the split's arithmetic (taking two thirds of the
+// products, or the split's conversions, out moved a batch-8 forward's K3
+// time by under 10 %); the latency of one warpgroup's chain of tiles, two
+// barriers a tile, is what is left.
+// fp32 K4: ln_linear_kernel, the FMA kernel on the CUDA cores (16 rows per
+// CTA, common.cuh), the parity path.
 #include "mma.cuh"
 
 namespace tulip {
-
-template <typename T, int ACT>
-__global__ void __launch_bounds__(kThreads) two_matmul_kernel(
-    const T* __restrict__ x, T* __restrict__ out, const T* __restrict__ lnw,
-    const T* __restrict__ lnb, const T* __restrict__ w1,
-    const T* __restrict__ b1, const T* __restrict__ w2,
-    const T* __restrict__ b2, int N, int C, int Hd, int O, int residual,
-    float eps) {
-  extern __shared__ float smem[];
-  float* xn = smem;                       // [16][C]  [LN](x)
-  float* acc = xn + kRows * C;            // [16][O]  second product
-  float* hs = acc + kRows * O;            // [16][64] hidden chunk
-  float* wtile = hs + kRows * kHidChunk;
-
-  const long long r0 = (long long)blockIdx.x * kRows;
-  load_rows(x, xn, r0, N, C);
-  for (int i = threadIdx.x; i < kRows * O; i += kThreads) acc[i] = 0.f;
-  __syncthreads();
-  if (lnw) layer_norm_rows<T>(xn, C, C, lnw, lnb, eps);
-
-  for (int h0 = 0; h0 < Hd; h0 += kHidChunk) {
-    const int nh = min(kHidChunk, Hd - h0);
-    gemm_rows<T>(xn, C, C, w1 + (size_t)h0 * C, C, identity_rows(), nh, wtile,
-                 [&](int r, int n, float v) {
-                   const float h = round_to<T>(v + to_f(b1[h0 + n]));
-                   hs[r * kHidChunk + n] = round_to<T>(activate<ACT>(h));
-                 });
-    gemm_rows<T>(hs, kHidChunk, nh, w2 + h0, Hd, identity_rows(), O, wtile,
-                 [&](int r, int n, float v) { acc[r * O + n] += v; });
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * O; i += kThreads) {
-    const long long r = r0 + i / O;
-    const int n = i % O;
-    if (r >= N) continue;
-    float v = acc[i];
-    if (b2) v += to_f(b2[n]);
-    if (residual) v += to_f(x[r * C + n]);
-    out[r * O + n] = from_f<T>(v);
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ln_linear_kernel(
@@ -135,28 +132,6 @@ __global__ void __launch_bounds__(kThreads) ln_linear_kernel(
                [&](int r, int n, float v) {
                  if (r0 + r < N) out[(r0 + r) * O + n] = from_f<T>(v);
                });
-}
-
-template <typename T, int ACT>
-cudaError_t launch_two_matmul(const void* x, void* out, const void* lnw,
-                              const void* lnb, const void* w1, const void* b1,
-                              const void* w2, const void* b2, int N, int C,
-                              int Hd, int O, int residual, float eps,
-                              cudaStream_t stream) {
-  if (C % kKC || Hd % kKC || (residual && O != C) || N <= 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (kRows * C + kRows * O +
-                                       kRows * kHidChunk + kWTileFloats);
-  cudaError_t err = prepare_smem(two_matmul_kernel<T, ACT>, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (N + kRows - 1) / kRows;
-  two_matmul_kernel<T, ACT><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<const T*>(lnw), static_cast<const T*>(lnb),
-      static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), N, C, Hd, O,
-      residual, eps);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -575,12 +550,407 @@ cudaError_t launch_ln_linear_tc(const bf16* x, bf16* out, const bf16* lnw,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// fp32 K3: two_matmul_tf32_kernel, split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTmF32Stages = 3;            // ring stages
+constexpr int kTmF32Hid = 64;              // hidden units per tile
+constexpr uint32_t kTmF32Half = 128 * 128;   // W1 + x rows, or W2 rows: hi
+constexpr uint32_t kTmF32Stage = 2 * kTmF32Half;   // + lo
+constexpr uint32_t kTmF32Smem =            // + 64 rows' LN statistics
+    1024 + kTmF32Stages * kTmF32Stage + kBM * 8;
+
+// grid (row tiles of 64, tiles of BO output columns, hidden splits); hs
+// hidden units per split (a multiple of 64).  Per 64 hidden units of the
+// split: h = [LN](x) W1[64 units]^T over 32-column tiles of W1 and of the
+// CTA's x rows (split_rows takes the x rows through the LayerNorm, with
+// row_stats' statistics, as it splits them); then + b1, act, and split
+// into hi / lo A fragments in registers; then out[:, BO columns] += a
+// W2[BO columns, 64 units]^T over two 32-deep tiles of W2 stored in the
+// fragments' column order.  partial non-null: the split's sums go to
+// partial[split][N][O].
+template <int ACT, int BO>
+__global__ void __launch_bounds__(kWg) two_matmul_tf32_kernel(
+    const float* __restrict__ x, float* __restrict__ out,
+    float* __restrict__ partial, const float* __restrict__ lnw,
+    const float* __restrict__ lnb, const float* __restrict__ w1,
+    const float* __restrict__ b1, const float* __restrict__ w2,
+    const float* __restrict__ b2, int N, int C, int Hd, int O, int residual,
+    float eps, int hs) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  float* stat = reinterpret_cast<float*>(sm + kTmF32Stages * kTmF32Stage);
+  const uint32_t ring = smem_u32(sm);
+
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int o0 = blockIdx.y * BO;
+  const int h0 = blockIdx.z * hs;
+  const int hn = min(hs, Hd - h0);                 // this CTA's hidden units
+  const int ktc = C / 32, per = ktc + 2;           // tiles per 64 units
+  const int T = ((hn + kTmF32Hid - 1) / kTmF32Hid) * per;
+  const int row = frag_row();
+  float2 st_ln[2];
+  if (lnw) {
+    row_stats([&](int r) { return r0 + r < N ? x + (r0 + r) * C : nullptr; },
+              C, eps, stat);
+    __syncthreads();
+    thread_stats(stat, st_ln);
+  }
+
+  // Every tensor-core sum is short and ends in an fp32 total, as in the
+  // two-pass form: phase A's products over C one 32-deep tile at a time,
+  // into acc_a / acc_b in turn, each folded into h (mma3_fold); phase B's
+  // 64 units at a time into acc2, folded into out2.  The loops below walk
+  // the ring (split_tile) so that phase A's registers are dead in phase B
+  // and phase B's in phase A.
+  float out2[BO / 2] = {};
+  auto fetch = [&](int t, uint32_t st) {
+    const int i = t / per, j = t % per;
+    if (j < ktc) {   // W1 rows h0 + 64 i .., x rows r0 ..; columns 32 j ..
+      load_tile_f32(st, w1, C, h0 + i * kTmF32Hid, 32, h0 + hn, j * 32, C,
+                    kTmF32Hid);
+      load_tile_f32(st + kBM * 128, x, C, r0, 32, N, j * 32, C, kBM);
+    } else {         // W2 rows o0 .., columns h0 + 64 i + 32 (j - ktc) ..
+      load_tile_f32(st, w2, Hd, o0, 32, O,
+                    h0 + i * kTmF32Hid + 32 * (j - ktc), h0 + hn, BO);
+    }
+  };
+  auto split = [&](int t, uint32_t st_addr) {
+    unsigned char* st = sm + (st_addr - ring);
+    const int j = t % per;
+    if (j < ktc) {
+      split_rows(st, kTmF32Hid, kTmF32Half, false);
+      if (lnw)
+        split_rows_ln(st + kBM * 128, kTmF32Half, st_ln, lnw, lnb, j * 32);
+      else
+        split_rows(st + kBM * 128, kBM, kTmF32Half, false);
+    } else {
+      split_rows(st, BO, kTmF32Half, true);
+    }
+  };
+  ring_start<kTmF32Stages>(ring, kTmF32Stage, T, fetch);
+  for (int i = 0, t = 0; i < T / per; ++i) {
+    // phase A: h = [LN](x) W1[64 units]^T; zeroed here, so that no path
+    // carries these registers into phase B
+    float h[kTmF32Hid / 2], acc_a[kTmF32Hid / 2], acc_b[kTmF32Hid / 2];
+#pragma unroll
+    for (int k = 0; k < kTmF32Hid / 2; ++k) h[k] = acc_a[k] = acc_b[k] = 0.f;
+    for (int j = 0; j < ktc; ++j, ++t) {
+      const uint32_t buf =
+          split_tile<kTmF32Stages>(ring, kTmF32Stage, T, t, fetch, split);
+      const uint32_t a_hi = buf + kBM * 128, a_lo = a_hi + kTmF32Half;
+      if (j & 1)
+        mma3_fold<kTmF32Hid>(h, acc_b, acc_a, a_hi, a_lo, buf,
+                             buf + kTmF32Half, false, j + 1 == ktc);
+      else
+        mma3_fold<kTmF32Hid>(h, acc_a, acc_b, a_hi, a_lo, buf,
+                             buf + kTmF32Half, j == 0, j + 1 == ktc);
+    }
+    // a = act(h + b1) as A fragments: k-step jj is units 8 jj .. 8 jj + 7
+    // of the tile, a0 / a1 / a2 / a3 the sums e = 0 / 2 / 1 / 3
+    uint32_t ahi[8][4], alo[8][4];
+#pragma unroll
+    for (int jj = 0; jj < kTmF32Hid / 8; ++jj) {
+      const int hc = i * kTmF32Hid + frag_col(jj);
+      const bool ok = hc < hn;   // hn % 32 == 0: both columns or neither
+      float2 bb = make_float2(0.f, 0.f);
+      if (ok) bb = *reinterpret_cast<const float2*>(b1 + h0 + hc);
+      float a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        a[e] = ok ? activate<ACT>(h[4 * jj + e] + (e & 1 ? bb.y : bb.x))
+                  : 0.f;
+      split_tf32(a[0], ahi[jj][0], alo[jj][0]);
+      split_tf32(a[2], ahi[jj][1], alo[jj][1]);
+      split_tf32(a[1], ahi[jj][2], alo[jj][2]);
+      split_tf32(a[3], ahi[jj][3], alo[jj][3]);
+    }
+    // phase B: out2 += a W2[BO columns, these 64 units]^T, two 32-deep
+    // tiles of W2
+    float acc2[BO / 2];
+    uint32_t buf =
+        split_tile<kTmF32Stages>(ring, kTmF32Stage, T, t++, fetch, split);
+    mma3_tile_rs<BO, 0>(acc2, ahi, alo, buf, buf + kTmF32Half, true);
+    wgmma_wait<1>();
+    buf = split_tile<kTmF32Stages>(ring, kTmF32Stage, T, t++, fetch, split);
+    mma3_tile_rs<BO, 1>(acc2, ahi, alo, buf, buf + kTmF32Half, false);
+    // the fragments are rewritten by the next 64 units: every product
+    // that reads them ends here
+    wgmma_wait<0>();
+    fence_regs(ahi);
+    fence_regs(alo);
+    fold(out2, acc2);
+  }
+#pragma unroll
+  for (int jj = 0; jj < BO / 8; ++jj) {
+    const int oc = o0 + frag_col(jj);
+    if (oc >= O) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const long long r = r0 + row + 8 * e;
+      if (r >= N) continue;
+      float v0 = out2[4 * jj + 2 * e], v1 = out2[4 * jj + 2 * e + 1];
+      if (partial) {
+        *reinterpret_cast<float2*>(
+            partial + ((size_t)blockIdx.z * N + r) * O + oc) =
+            make_float2(v0, v1);
+        continue;
+      }
+      if (b2) {
+        const float2 bb = *reinterpret_cast<const float2*>(b2 + oc);
+        v0 += bb.x;
+        v1 += bb.y;
+      }
+      if (residual) {
+        const float2 xr = *reinterpret_cast<const float2*>(x + r * C + oc);
+        v0 += xr.x;
+        v1 += xr.y;
+      }
+      *reinterpret_cast<float2*>(out + r * O + oc) = make_float2(v0, v1);
+    }
+  }
+}
+
+// out = sum over splits, in split order, + b2 + x, fp32: two columns per
+// thread.
+__global__ void __launch_bounds__(kThreads) two_matmul_sum_f32_kernel(
+    const float* __restrict__ partial, const float* __restrict__ x,
+    const float* __restrict__ b2, float* __restrict__ out, long long total,
+    int O, int C, int splits, int residual) {
+  const long long idx =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) * 2;
+  if (idx >= total) return;
+  const long long r = idx / O;
+  const int c = (int)(idx % O);
+  float v0 = 0.f, v1 = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 p =
+        *reinterpret_cast<const float2*>(partial + (size_t)s * total + idx);
+    v0 += p.x;
+    v1 += p.y;
+  }
+  if (b2) {
+    v0 += b2[c];
+    v1 += b2[c + 1];
+  }
+  if (residual) {
+    v0 += x[r * C + c];
+    v1 += x[r * C + c + 1];
+  }
+  *reinterpret_cast<float2*>(out + idx) = make_float2(v0, v1);
+}
+
+// The two-pass form, for outputs wider than two chunks of one CTA's
+// register sums (O > 192): each output chunk of the fused kernel would
+// recompute the hidden activation, so instead h = act([LN](x) W1^T + b1)
+// goes to an (N, Hd) scratch and out = h W2^T + b2 [+ x] reads it back,
+// each pass one launch of linear_tf32_kernel, K of the second split over
+// CTAs where the tiles are few.
+// grid (row tiles of 64, tiles of 64 output columns, splits of K); kts
+// 32-deep tiles of K a split (the last may hold fewer).  sum = [LN](a)
+// b^T over the split's tiles (a: N x K rows, LN from row_stats in
+// split_rows as in K3; b: ncols x K, torch layout); HIDDEN: act(sum +
+// bias) to out (N x ncols); else partial non-null: the split's sums to
+// partial[split][N][ncols]; else sum [+ bias] [+ x] to out.
+template <int ACT, bool HIDDEN>
+__global__ void __launch_bounds__(kWg) linear_tf32_kernel(
+    const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ bias, const float* __restrict__ lnw,
+    const float* __restrict__ lnb, const float* __restrict__ x,
+    float* __restrict__ out, float* __restrict__ partial, int N, int K,
+    int ncols, int kts, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  float* stat = reinterpret_cast<float*>(sm + kTmF32Stages * kTmF32Stage);
+  const uint32_t ring = smem_u32(sm);
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * 64, kt0 = blockIdx.z * kts;
+  const int T = min(kts, K / 32 - kt0);
+  const int row = frag_row();
+  float2 st_ln[2];
+  if (lnw) {
+    row_stats([&](int r) { return r0 + r < N ? a + (r0 + r) * K : nullptr; },
+              K, eps, stat);
+    __syncthreads();
+    thread_stats(stat, st_ln);
+  }
+  // each tile's products to a fresh accumulator, one of two that
+  // alternate, folded into sum once they end
+  float acc_a[32], acc_b[32], sum[32];
+  auto fetch = [&](int t, uint32_t st) {
+    const int k0 = (kt0 + t) * 32;
+    load_tile_f32(st, b, K, n0, 32, ncols, k0, K, 64);
+    load_tile_f32(st + kBM * 128, a, K, r0, 32, N, k0, K, kBM);
+  };
+  auto split = [&](int t, uint32_t st_addr) {
+    unsigned char* st = sm + (st_addr - ring);
+    split_rows(st, 64, kTmF32Half, false);
+    if (lnw)
+      split_rows_ln(st + kBM * 128, kTmF32Half, st_ln, lnw, lnb,
+                    (kt0 + t) * 32);
+    else
+      split_rows(st + kBM * 128, kBM, kTmF32Half, false);
+  };
+  auto use = [&](int t, uint32_t st) {
+    const uint32_t a_hi = st + kBM * 128, a_lo = a_hi + kTmF32Half;
+    if (t & 1)
+      mma3_fold<64>(sum, acc_b, acc_a, a_hi, a_lo, st, st + kTmF32Half,
+                    t == 0, t + 1 == T);
+    else
+      mma3_fold<64>(sum, acc_a, acc_b, a_hi, a_lo, st, st + kTmF32Half,
+                    t == 0, t + 1 == T);
+  };
+  stream_split_tiles<kTmF32Stages>(ring, kTmF32Stage, T, fetch, split,
+                                   use);
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int col = n0 + frag_col(jj);
+    if (col >= ncols) continue;
+    float2 bb = make_float2(0.f, 0.f);
+    if (bias && (HIDDEN || !partial))
+      bb = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const long long r = r0 + row + 8 * e;
+      if (r >= N) continue;
+      float v0 = sum[4 * jj + 2 * e], v1 = sum[4 * jj + 2 * e + 1];
+      if (HIDDEN) {
+        v0 = activate<ACT>(v0 + bb.x);
+        v1 = activate<ACT>(v1 + bb.y);
+      } else if (partial) {
+        *reinterpret_cast<float2*>(
+            partial + ((size_t)blockIdx.z * N + r) * ncols + col) =
+            make_float2(v0, v1);
+        continue;
+      } else {
+        v0 += bb.x;
+        v1 += bb.y;
+        if (x) {
+          const float2 xr =
+              *reinterpret_cast<const float2*>(x + r * ncols + col);
+          v0 += xr.x;
+          v1 += xr.y;
+        }
+      }
+      *reinterpret_cast<float2*>(out + r * ncols + col) = make_float2(v0, v1);
+    }
+  }
+}
+
+// The two passes under the plan's two-pass form: h (N x Hd fp32 scratch),
+// hs hidden units per split of the second pass (a multiple of 32), splits.
+template <int ACT>
+cudaError_t launch_two_matmul_tf32_2p(const float* x, float* out,
+                                      const float* lnw, const float* lnb,
+                                      const float* w1, const float* b1,
+                                      const float* w2, const float* b2,
+                                      float* h, float* partial, int N, int C,
+                                      int Hd, int O, int residual, float eps,
+                                      int hs, int splits, int smem,
+                                      cudaStream_t stream) {
+  if (C % kKC || Hd % kKC || O % 8 || (residual && O != C) || N <= 0 ||
+      hs <= 0 || hs % kKC || splits != (Hd + hs - 1) / hs ||
+      splits > 65535 || (splits > 1) != (partial != nullptr) ||
+      (size_t)smem != kTmF32Smem)
+    return cudaErrorInvalidValue;
+  const unsigned rt = (N + kBM - 1) / kBM;
+  cudaError_t err = prepare_smem(linear_tf32_kernel<ACT, true>, kTmF32Smem);
+  if (err != cudaSuccess) return err;
+  linear_tf32_kernel<ACT, true><<<dim3(rt, (Hd + 63) / 64, 1), kWg,
+                                  kTmF32Smem, stream>>>(
+      x, w1, b1, lnw, lnb, nullptr, h, nullptr, N, C, Hd, C / 32, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = prepare_smem(linear_tf32_kernel<kGelu, false>, kTmF32Smem)) !=
+      cudaSuccess)
+    return err;
+  linear_tf32_kernel<kGelu, false><<<dim3(rt, (O + 63) / 64, splits), kWg,
+                                     kTmF32Smem, stream>>>(
+      h, w2, b2, nullptr, nullptr, residual ? x : nullptr, out, partial, N,
+      Hd, O, hs / 32, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long total = (long long)N * O;
+  two_matmul_sum_f32_kernel<<<(unsigned)((total / 2 + kThreads - 1) /
+                                         kThreads),
+                              kThreads, 0, stream>>>(partial, x, b2, out,
+                                                     total, O, C, splits,
+                                                     residual);
+  return cudaGetLastError();
+}
+
+// Plan (ops/mlp.py:two_matmul_plan_f32): hs hidden units per split,
+// splits, bo output columns per CTA, smem bytes.  Refused, not reshaped,
+// where the plan and the kernel's needs differ.
+template <int ACT, int BO>
+cudaError_t launch_two_matmul_tf32(const float* x, float* out,
+                                   const float* lnw, const float* lnb,
+                                   const float* w1, const float* b1,
+                                   const float* w2, const float* b2,
+                                   float* partial, int N, int C, int Hd,
+                                   int O, int residual, float eps, int hs,
+                                   int splits, int smem,
+                                   cudaStream_t stream) {
+  if (C % kKC || Hd % kKC || O % 8 || (residual && O != C) || N <= 0 ||
+      hs <= 0 || hs % kTmF32Hid || splits != (Hd + hs - 1) / hs ||
+      splits > 65535 || (O + BO - 1) / BO > 65535 ||
+      (splits > 1) != (partial != nullptr) || (size_t)smem != kTmF32Smem)
+    return cudaErrorInvalidValue;
+  cudaError_t err = prepare_smem(two_matmul_tf32_kernel<ACT, BO>, kTmF32Smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBM - 1) / kBM, (O + BO - 1) / BO, splits);
+  two_matmul_tf32_kernel<ACT, BO><<<grid, kWg, kTmF32Smem, stream>>>(
+      x, out, partial, lnw, lnb, w1, b1, w2, b2, N, C, Hd, O, residual, eps,
+      hs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long total = (long long)N * O;
+  two_matmul_sum_f32_kernel<<<(unsigned)((total / 2 + kThreads - 1) /
+                                         kThreads),
+                              kThreads, 0, stream>>>(partial, x, b2, out,
+                                                     total, O, C, splits,
+                                                     residual);
+  return cudaGetLastError();
+}
+
+template <int ACT, typename... Args>
+cudaError_t launch_two_matmul_tf32_bo(int bo, Args... args) {
+  if (bo == 16) return launch_two_matmul_tf32<ACT, 16>(args...);
+  if (bo == 32) return launch_two_matmul_tf32<ACT, 32>(args...);
+  if (bo == 96) return launch_two_matmul_tf32<ACT, 96>(args...);
+  return cudaErrorInvalidValue;
+}
+
+// The fused kernel at bo output columns a CTA, or with the (N, Hd) scratch
+// h the two-pass form.
+template <int ACT>
+cudaError_t launch_two_matmul_tf32_plan(int bo, const float* x, float* out,
+                                        const float* lnw, const float* lnb,
+                                        const float* w1, const float* b1,
+                                        const float* w2, const float* b2,
+                                        float* h, float* partial, int N,
+                                        int C, int Hd, int O, int residual,
+                                        float eps, int hs, int splits,
+                                        int smem, cudaStream_t stream) {
+  if (h)
+    return bo == 64 ? launch_two_matmul_tf32_2p<ACT>(
+                          x, out, lnw, lnb, w1, b1, w2, b2, h, partial, N, C,
+                          Hd, O, residual, eps, hs, splits, smem, stream)
+                    : cudaErrorInvalidValue;
+  return launch_two_matmul_tf32_bo<ACT>(bo, x, out, lnw, lnb, w1, b1, w2, b2,
+                                        partial, N, C, Hd, O, residual, eps,
+                                        hs, splits, smem, stream);
+}
+
 }  // namespace tc
 
 }  // namespace tulip
 
-// fp32: the FMA kernel; y, partial and the plan (hs, splits, resident, bn2,
-// smem) are not read.  bf16: the tensor-core kernel under that plan.
+// fp32: the split-TF32 kernels under the plan (hs, splits, bn2 = output
+// columns per CTA, smem); y null: the fused kernel, else y is the (N, Hd)
+// hidden scratch of the two-pass form; resident is not read.  bf16: the
+// tensor-core kernel under that plan.
 extern "C" int tulip_two_matmul(int dtype, int act, const void* x, void* out,
                                 const void* lnw, const void* lnb,
                                 const void* w1, const void* b1,
@@ -593,12 +963,17 @@ extern "C" int tulip_two_matmul(int dtype, int act, const void* x, void* out,
   using tulip::kLeaky;
   using bf16 = __nv_bfloat16;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && act == kGelu)
-    return tulip::launch_two_matmul<float, kGelu>(
-        x, out, lnw, lnb, w1, b1, w2, b2, N, C, Hd, O, residual, eps, s);
-  if (dtype == 0 && act == kLeaky)
-    return tulip::launch_two_matmul<float, kLeaky>(
-        x, out, lnw, lnb, w1, b1, w2, b2, N, C, Hd, O, residual, eps, s);
+#define TULIP_TM_F32(ACT)                                                    \
+  return tulip::tc::launch_two_matmul_tf32_plan<ACT>(                        \
+      bn2, static_cast<const float*>(x), static_cast<float*>(out),           \
+      static_cast<const float*>(lnw), static_cast<const float*>(lnb),        \
+      static_cast<const float*>(w1), static_cast<const float*>(b1),          \
+      static_cast<const float*>(w2), static_cast<const float*>(b2),          \
+      static_cast<float*>(y), static_cast<float*>(partial), N, C, Hd, O,     \
+      residual, eps, hs, splits, smem, s)
+  if (dtype == 0 && act == kGelu) TULIP_TM_F32(kGelu);
+  if (dtype == 0 && act == kLeaky) TULIP_TM_F32(kLeaky);
+#undef TULIP_TM_F32
   if (dtype != 1) return cudaErrorInvalidValue;
 #define TULIP_TM_TC(ACT)                                                     \
   return tulip::tc::launch_two_matmul_tc_bn2<ACT>(                           \

@@ -1,5 +1,6 @@
 // Tensor-core building blocks of the bf16 MLP kernels (mlp.cu, mlp_bwd.cu,
-// reduce.cu) and of the bf16 attention half-block (window_msa.cu): Hopper's
+// reduce.cu), of the bf16 attention half-block (window_msa.cu) and, at the
+// end, of the fp32 ones (split TF32: window_msa.cu, mlp.cu): Hopper's
 // warpgroup product (wgmma) fed from a ring of shared-memory tiles that
 // cp.async fills ahead of the product.  At the end, the warp-level mma.sync
 // products of one 16-token window and head, which the half-block and the
@@ -543,6 +544,464 @@ __device__ __forceinline__ void transpose_a(const uint32_t (&a)[4],
   t[1] = movmatrix_trans(a[2]);
   t[2] = movmatrix_trans(a[1]);
   t[3] = movmatrix_trans(a[3]);
+}
+
+
+// ---------------------------------------------------------------------------
+// Split TF32 (3xTF32): the fp32 kernels' products on the tensor cores.
+// An fp32 operand a is carried as hi = rna_tf32(a) and lo = rna_tf32(a -
+// hi) (cvt.rna: round to nearest, ties away, to TF32's 10-bit mantissa);
+// a product a b is hi_a hi_b + hi_a lo_b + lo_a hi_b, summed on the
+// tensor cores with the two small terms first, each tile's sum then added
+// to an fp32 total (mma3_tile, fold).  The dropped lo_a lo_b and the
+// rounding of lo leave about 2^-21 of |a b|, against 2^-11 for one TF32
+// pass (tests/test_torch_fp32_plans.py): about fp32's accuracy at three
+// times TF32's cost (494.7 / 3 = 165 TFLOP/s dense on an H100 SXM).
+//
+// TF32 wgmma takes both shared-memory operands K-major only (no transpose
+// bits).  A row of 32 fp32 is 128 bytes, so the bf16 tiles' 128-byte
+// swizzle and descriptors carry over unchanged: a k-step of 8 TF32 moves
+// 32 bytes inside the swizzled row, as a k-step of 16 bf16 does.  A tile
+// of R rows x 32 fp32 holds hi where the copy landed and lo at a fixed
+// offset behind it (split_rows).  The A operand may come from registers
+// in the layout of mma.sync m16n8k8 per warp (a0 (g, q), a1 (g + 8, q),
+// a2 (g, q + 4), a3 (g + 8, q + 4) for lane 4 g + q): a sum fragment of a
+// 64 x N product holds columns 2q, 2q + 1 of each 8-column group, so it is
+// that operand as it is when the reduction's 8 columns are taken in the
+// order 0, 2, 4, 6, 1, 3, 5, 7 in both operands (split_rows(perm) stores
+// the B tile so).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// Byte offset of fp32 element (r, c), c < 32, inside a swizzled tile.
+__device__ __forceinline__ uint32_t swz32(int r, int c) {
+  return (uint32_t)(r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2)));
+}
+
+// Start the copy of a tile of `rows` rows x 32 fp32 columns [c0, c0 + 32):
+// tile row tr is matrix row row0 + (tr / 32) slab + tr % 32 of the
+// row-major matrix src (ld elements a row); matrix rows >= rmax, and the
+// whole tile where c0 >= cmax, arrive as zeros.  slab 32 walks consecutive
+// rows.  c0, cmax and ld are multiples of 4 (cmax of 32), src 16-byte
+// aligned.
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* src,
+                                              long long ld, long long row0,
+                                              int slab, long long rmax,
+                                              int c0, int cmax, int rows) {
+  for (int i = threadIdx.x; i < rows * 8; i += kWg) {
+    const int tr = i >> 3, ch = i & 7;
+    const long long gr = row0 + (long long)(tr >> 5) * slab + (tr & 31);
+    const bool ok = gr < rmax && c0 < cmax;
+    cp_async16(dst + tr * 128 + ((ch ^ (tr & 7)) << 4),
+               ok ? src + gr * ld + c0 + ch * 4 : src, ok);
+  }
+}
+
+// Mean and 1/std (fp32, two passes over the row: the mean, then the
+// squared deviations) of the CTA's 64 rows into stat[2 r], stat[2 r + 1];
+// row(r) is the row's address, or null past the last token (stat 0, 0).
+// One warp per row.
+template <typename Row>
+__device__ __forceinline__ void row_stats(Row row, int C, float eps,
+                                          float* stat) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kBM; r += kWg / 32) {
+    const float* p = row(r);
+    float mean = 0.f, rstd = 0.f;
+    if (p) {
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32) s += p[c];
+      mean = warp_sum(s) / C;
+      float q = 0.f;
+      for (int c = lane; c < C; c += 32) q += (p[c] - mean) * (p[c] - mean);
+      rstd = rsqrtf(warp_sum(q) / C + eps);
+    }
+    if (lane == 0) {
+      stat[2 * r] = mean;
+      stat[2 * r + 1] = rstd;
+    }
+  }
+}
+
+// Eight fp32 values of one row (columns 8 q .. 8 q + 7) split into hi at
+// p and lo at p + lo_off, chunks o0 and o1 of the swizzled row; perm:
+// stored as the even columns, then the odd ones (the B operand of a
+// product whose A comes from a sum fragment).
+__device__ __forceinline__ void split_store8(const float (&v)[8],
+                                             unsigned char* p, uint32_t o0,
+                                             uint32_t o1, uint32_t lo_off,
+                                             bool perm) {
+  uint32_t hi[8], lo[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // perm: stored position j holds column 2 j (j < 4) or 2 (j - 4) + 1
+    const int src = perm ? (j < 4 ? 2 * j : 2 * (j - 4) + 1) : j;
+    split_tf32(v[src], hi[j], lo[j]);
+  }
+  *reinterpret_cast<uint4*>(p + o0) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(p + o1) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+  *reinterpret_cast<uint4*>(p + lo_off + o0) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  *reinterpret_cast<uint4*>(p + lo_off + o1) =
+      make_uint4(lo[4], lo[5], lo[6], lo[7]);
+}
+
+// Split the `rows` landed rows of a swizzled fp32 tile at p: hi in place,
+// lo at p + lo_off (the same layout).  Every thread takes two 16-byte
+// chunks (8 columns) at a time.
+__device__ __forceinline__ void split_rows(unsigned char* p, int rows,
+                                           uint32_t lo_off, bool perm) {
+  for (int i = threadIdx.x; i < rows * 4; i += kWg) {
+    const int r = i >> 2, q = i & 3;
+    const uint32_t o0 = r * 128 + (((2 * q) ^ (r & 7)) << 4);
+    const uint32_t o1 = r * 128 + (((2 * q + 1) ^ (r & 7)) << 4);
+    const float4 u = *reinterpret_cast<const float4*>(p + o0);
+    const float4 w = *reinterpret_cast<const float4*>(p + o1);
+    const float v[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+    split_store8(v, p, o0, o1, lo_off, perm);
+  }
+}
+
+// The same for the 64 x rows of a tile, each value first taken through
+// the LayerNorm, (v - mean) 1/std w[c] + b[c] for tile column c of matrix
+// column c0 + c.  A thread takes rows thread / 4 and thread / 4 + 32;
+// st[0], st[1] hold their (mean, 1/std) (row_stats; null rows (0, 0)).
+__device__ __forceinline__ void split_rows_ln(unsigned char* p,
+                                              uint32_t lo_off,
+                                              const float2 (&st)[2],
+                                              const float* __restrict__ lnw,
+                                              const float* __restrict__ lnb,
+                                              int c0) {
+  const int q = threadIdx.x & 3;
+  const float4* gw = reinterpret_cast<const float4*>(lnw + c0 + 8 * q);
+  const float4* gb = reinterpret_cast<const float4*>(lnb + c0 + 8 * q);
+  const float4 w0 = gw[0], w1 = gw[1], b0 = gb[0], b1 = gb[1];
+  const float lw[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  const float lb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int r = (threadIdx.x >> 2) + 32 * m;
+    const uint32_t o0 = r * 128 + (((2 * q) ^ (r & 7)) << 4);
+    const uint32_t o1 = r * 128 + (((2 * q + 1) ^ (r & 7)) << 4);
+    const float4 u = *reinterpret_cast<const float4*>(p + o0);
+    const float4 w = *reinterpret_cast<const float4*>(p + o1);
+    float v[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = (v[j] - st[m].x) * st[m].y * lw[j] + lb[j];
+    split_store8(v, p, o0, o1, lo_off, false);
+  }
+}
+
+// This thread's two rows' (mean, 1/std) for split_rows_ln, from the
+// statistics row_stats wrote to stat (after a barrier).
+__device__ __forceinline__ void thread_stats(const float* stat,
+                                             float2 (&st)[2]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int r = (threadIdx.x >> 2) + 32 * m;
+    st[m] = make_float2(stat[2 * r], stat[2 * r + 1]);
+  }
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a,
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n96(float (&d)[48], uint64_t a,
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n96(float (&d)[48],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t a,
+                                           uint64_t b, int acc) {
+  static_assert(N == 64 || N == 96, "tile width");
+  if constexpr (N == 64) wgmma_tf32_n64(d, a, b, acc);
+  if constexpr (N == 96) wgmma_tf32_n96(d, a, b, acc);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int acc) {
+  static_assert(N == 16 || N == 32 || N == 96, "tile width");
+  if constexpr (N == 16) wgmma_tf32_rs_n16(d, a, b, acc);
+  if constexpr (N == 32) wgmma_tf32_rs_n32(d, a, b, acc);
+  if constexpr (N == 96) wgmma_tf32_rs_n96(d, a, b, acc);
+}
+
+// acc (+)= A B^T over one 32-deep tile, split TF32, started
+// asynchronously: A (64 x 32) and B (N x 32) K-major in shared memory, hi
+// at a_hi / b_hi and lo at a_lo / b_lo.  Per k-step lo_a hi_b, hi_a lo_b,
+// then hi_a hi_b.  fresh: the tile's sum starts from zero (set here, so
+// the registers' old values are dead to the compiler), else it adds to
+// acc.  The tensor cores' fp32 sums do not round to nearest, and a long
+// chain of products into one accumulator drifts; so the callers start a
+// fresh acc every tile or two and add it to their own fp32 total (fold),
+// as fp32 code on the CUDA cores would sum.
+template <int N>
+__device__ __forceinline__ void mma3_tile(float (&acc)[N / 2], uint32_t a_hi,
+                                          uint32_t a_lo, uint32_t b_hi,
+                                          uint32_t b_lo, bool fresh) {
+  const uint64_t ah = make_desc(a_hi, 16, 1024);
+  const uint64_t al = make_desc(a_lo, 16, 1024);
+  const uint64_t bh = make_desc(b_hi, 16, 1024);
+  const uint64_t bl = make_desc(b_lo, 16, 1024);
+  if (fresh) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  }
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    wgmma_tf32<N>(acc, al + 2 * k, bh + 2 * k, 1);
+    wgmma_tf32<N>(acc, ah + 2 * k, bl + 2 * k, 1);
+    wgmma_tf32<N>(acc, ah + 2 * k, bh + 2 * k, 1);
+  }
+  wgmma_commit();
+  fence_acc(acc);
+}
+
+// The same with A from registers: ahi[4 KK + k] / alo[4 KK + k] the A
+// fragments of k-step k (columns in the order split_rows(perm) gives B).
+template <int N, int KK>
+__device__ __forceinline__ void mma3_tile_rs(float (&acc)[N / 2],
+                                             const uint32_t (&ahi)[8][4],
+                                             const uint32_t (&alo)[8][4],
+                                             uint32_t b_hi, uint32_t b_lo,
+                                             bool fresh) {
+  const uint64_t bh = make_desc(b_hi, 16, 1024);
+  const uint64_t bl = make_desc(b_lo, 16, 1024);
+  if (fresh) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  }
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    wgmma_tf32_rs<N>(acc, alo[4 * KK + k], bh + 2 * k, 1);
+    wgmma_tf32_rs<N>(acc, ahi[4 * KK + k], bl + 2 * k, 1);
+    wgmma_tf32_rs<N>(acc, ahi[4 * KK + k], bh + 2 * k, 1);
+  }
+  wgmma_commit();
+  fence_acc(acc);
+}
+
+// total += t in fp32 (round to nearest), after the products into t ended.
+template <int R>
+__device__ __forceinline__ void fold(float (&total)[R], float (&t)[R]) {
+  fence_acc(t);
+#pragma unroll
+  for (int i = 0; i < R; ++i) total[i] += t[i];
+}
+
+// One tile of a sum over tiles, folded tile by tile: its products into
+// cur (fresh), then the previous tile's in prev (the other of two
+// accumulators that alternate) folded into total once they end; first:
+// total starts at zero; last: this tile's are waited for and folded too.
+template <int N>
+__device__ __forceinline__ void mma3_fold(float (&total)[N / 2],
+                                          float (&cur)[N / 2],
+                                          float (&prev)[N / 2],
+                                          uint32_t a_hi, uint32_t a_lo,
+                                          uint32_t b_hi, uint32_t b_lo,
+                                          bool first, bool last) {
+  mma3_tile<N>(cur, a_hi, a_lo, b_hi, b_lo, true);
+  if (first) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) total[i] = 0.f;
+  } else {
+    wgmma_wait<1>();
+    fold(total, prev);
+  }
+  if (last) {
+    wgmma_wait<0>();
+    fold(total, cur);
+  }
+}
+
+// stream_tiles for a split-TF32 kernel, in two parts for a kernel that
+// walks its tiles in loops of its own: ring_start once, then split_tile(t)
+// at each tile t in order, which waits for tile t's copies, starts those
+// of tile t + STAGES - 2, has split(t, st) take its landed rows to hi and
+// lo in place (every thread), and returns its stage.  Registers that one kind of tile
+// needs are then dead across the others, where one use() that branches on
+// the kind keeps them all live.
+template <int STAGES, typename Fetch>
+__device__ __forceinline__ void ring_start(uint32_t ring,
+                                           uint32_t stage_bytes, int T,
+                                           Fetch fetch) {
+  constexpr int kAhead = STAGES - 2;
+  static_assert(kAhead >= 1, "the ring needs at least 3 stages");
+  fence_async_proxy();
+  __syncthreads();
+  for (int t = 0; t < kAhead; ++t) {
+    if (t < T) fetch(t, ring + t * stage_bytes);
+    cp_async_commit();
+  }
+}
+template <int STAGES, typename Fetch, typename Split>
+__device__ __forceinline__ uint32_t split_tile(uint32_t ring,
+                                               uint32_t stage_bytes, int T,
+                                               int t, Fetch fetch,
+                                               Split split) {
+  constexpr int kAhead = STAGES - 2;
+  cp_async_wait<kAhead - 1>();
+  fence_async_proxy();
+  __syncthreads();
+  const int tn = t + kAhead;
+  if (tn < T) fetch(tn, ring + (tn % STAGES) * stage_bytes);
+  cp_async_commit();
+  const uint32_t st = ring + (t % STAGES) * stage_bytes;
+  split(t, st);
+  fence_async_proxy();
+  __syncthreads();
+  return st;
+}
+
+// Both parts for a kernel of one kind of tile: use(t, st) starts tile t's
+// products after its split.
+template <int STAGES, typename Fetch, typename Split, typename Use>
+__device__ __forceinline__ void stream_split_tiles(uint32_t ring,
+                                                   uint32_t stage_bytes,
+                                                   int T, Fetch fetch,
+                                                   Split split, Use use) {
+  ring_start<STAGES>(ring, stage_bytes, T, fetch);
+  for (int t = 0; t < T; ++t)
+    use(t, split_tile<STAGES>(ring, stage_bytes, T, t, fetch, split));
+}
+
+// Keeps registers that an asynchronous product reads allocated and
+// unchanged until the caller has waited for it.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d (16 x 8, fp32) += A (16 x 8) B (8 x 8), TF32 fragments in registers
+// (mma.sync m16n8k8: a as above, b0 row q column g, b1 row q + 4).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B in split TF32 from fp32 operands in registers: a[] in the A
+// fragment order, b0 / b1 as above.
+__device__ __forceinline__ void mma3_sync(float (&d)[4], const float (&a)[4],
+                                          float b0, float b1) {
+  uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
 }
 
 }  // namespace tc

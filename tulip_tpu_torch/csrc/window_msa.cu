@@ -73,122 +73,35 @@
 // ms at batch 8 (14.7 and 27.7 with the FMA kernel in bf16).
 // PERF.md holds the tables.
 //
-// fp32: window_msa_kernel, the FMA kernel on the CUDA cores (one CTA per
-// window, a loop over heads, weights in 64 x 32 tiles through gemm_rows):
-// the parity path, 1e-4 of its plain version.
+// fp32 (--eval_precision fp32, the default evaluation):
+// window_msa_tf32_kernel, the same shape in split TF32 (mma.cuh): three
+// TF32 products a product, fp32's accuracy.  The bound restates as T (8
+// C^2 + 64 C) operations at 494.7 / 3 = 165 TFLOP/s.  Its differences from
+// the bf16 kernel:
+//   - TF32 wgmma takes K-major operands only and an fp32 tile is twice the
+//     bytes, so a stage holds 32 columns: the head's three 32-row Wqkv
+//     slabs (96 x 32) and the CTA's 64 x rows, gathered by cp.async
+//     through the offset table (LN1 needs no y in shared memory: split_rows
+//     takes the rows through it, with row_stats' fp32 statistics, as it
+//     splits them); a ring of three 40 KB stages (raw, then hi and lo).
+//   - qkv and proj on wgmma (m64n96k8, A and B from shared memory), each
+//     32-deep tile's sum in a fresh accumulator folded into an fp32 total.
+//   - The 16 x 16 logits and P V on mma.sync m16n8k8 (TF32): q's and k's
+//     sum fragments are the A and B operands as they are, the head's 32
+//     dimensions taken in the fragment's column order; v goes through a
+//     16 x 36 float copy per warp, read back down the key tokens as the B
+//     operand; the head's output to hi / lo ao tiles (64 x 32 each).
+//   - At most six heads' ao tiles fit beside the ring (227 KB): C 384 and
+//     768 always split the heads, and few row tiles split them further
+//     (ops/window_msa.py:window_msa_plan_f32); window_msa_sum_f32_kernel
+//     adds the splits in split order.
+// What holds it back (NVIDIA H100 80GB HBM3, 700 W; PERF.md): one block of
+// one warpgroup per SM with one tile of copies ahead; taking two thirds of
+// the tensor-core products out, or the split's arithmetic, moved a
+// batch-8 forward's K1 / K2 time by under 10 %.
 #include "mma.cuh"
 
 namespace tulip {
-
-constexpr int kHeadDim = 32;
-constexpr int kQKVStride = 3 * kHeadDim + 1;   // padded: conflict-free k reads
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) window_msa_kernel(
-    const T* __restrict__ x, T* __restrict__ out, const T* __restrict__ lnw,
-    const T* __restrict__ lnb, const T* __restrict__ wqkv,
-    const T* __restrict__ bqkv, const T* __restrict__ wproj,
-    const T* __restrict__ bproj, const float* __restrict__ bias,
-    const float* __restrict__ mask, int H, int W, int C, int nh, int wh,
-    int ww, int sh, int sw, float scale, float eps) {
-  extern __shared__ float smem[];
-  long long* toff = reinterpret_cast<long long*>(smem);   // kRows offsets
-  float* xn = smem + 2 * kRows;                  // [16][C] LN1(x)
-  float* ao = xn + kRows * C;                    // [16][C] head outputs
-  float* qkv = ao + kRows * C;                   // [16][97] one head's q|k|v
-  float* pr = qkv + kRows * kQKVStride;          // [16][16] probabilities
-  float* wtile = pr + kRows * kRows;
-
-  const int tid = threadIdx.x;
-  const int nWw = W / ww, nW = (H / wh) * nWw;
-  const int b = blockIdx.x / nW, win = blockIdx.x % nW;
-  const int wi = win / nWw, wj = win % nWw;
-
-  if (tid < kRows) {
-    const int row = (wi * wh + tid / ww + sh) % H;
-    const int col = (wj * ww + tid % ww + sw) % W;
-    toff[tid] = ((long long)(b * H + row) * W + col) * C;
-  }
-  __syncthreads();
-  for (int i = tid; i < kRows * C; i += kThreads)
-    xn[i] = to_f(x[toff[i / C] + i % C]);
-  __syncthreads();
-  layer_norm_rows<T>(xn, C, C, lnw, lnb, eps);
-
-  const int li = tid >> 4, lj = tid & 15;   // logits / PV thread mapping
-  for (int h = 0; h < nh; ++h) {
-    // q|k|v of head h: weight rows h*32 + d, C + h*32 + d, 2C + h*32 + d
-    const RowMap qkv_rows{h * kHeadDim, kHeadDim, C};
-    gemm_rows<T>(xn, C, C, wqkv, C, qkv_rows, 3 * kHeadDim, wtile,
-                 [&](int r, int n, float v) {
-                   const float b = to_f(bqkv[qkv_rows(n)]);
-                   qkv[r * kQKVStride + n] = round_to<T>(v + b);
-                 });
-    __syncthreads();
-    // logits and softmax: thread (li, lj); a row's 16 lanes share a warp
-    const float* q = qkv + li * kQKVStride;
-    const float* k = qkv + lj * kQKVStride + kHeadDim;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) s += q[d] * k[d];
-    s = s * scale + bias[(h * kRows + li) * kRows + lj];
-    if (mask) s += mask[(win * kRows + li) * kRows + lj];
-    float m = s;
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float e = expf(s - m);
-    float sum = e;
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    pr[li * kRows + lj] = round_to<T>(e / sum);
-    __syncthreads();
-    // PV: thread (li, lj) computes head dims lj and lj + 16 of token li
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int d = lj + 16 * half;
-      float o = 0.f;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j)
-        o += pr[li * kRows + j] * qkv[j * kQKVStride + 2 * kHeadDim + d];
-      ao[li * C + h * kHeadDim + d] = round_to<T>(o);
-    }
-  }
-  // proj + bias + residual, written back to the tokens' own positions
-  gemm_rows<T>(ao, C, C, wproj, C, identity_rows(), C, wtile,
-               [&](int r, int n, float v) {
-                 const long long off = toff[r] + n;
-                 out[off] = from_f<T>(v + to_f(bproj[n]) + to_f(x[off]));
-               });
-}
-
-template <typename T>
-cudaError_t launch_window_msa(const void* x, void* out, const void* lnw,
-                              const void* lnb, const void* wqkv,
-                              const void* bqkv, const void* wproj,
-                              const void* bproj, const void* bias,
-                              const void* mask, int B, int H, int W, int C,
-                              int nh, int wh, int ww, int sh, int sw,
-                              float scale, float eps, cudaStream_t stream) {
-  if (wh * ww != kRows || C != nh * kHeadDim || C % kKC || H % wh || W % ww)
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (2 * kRows + 2 * kRows * C +
-                                       kRows * kQKVStride + kRows * kRows +
-                                       kWTileFloats);
-  cudaError_t err = prepare_smem(window_msa_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = B * (H / wh) * (W / ww);
-  window_msa_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<const T*>(lnw), static_cast<const T*>(lnb),
-      static_cast<const T*>(wqkv), static_cast<const T*>(bqkv),
-      static_cast<const T*>(wproj), static_cast<const T*>(bproj),
-      static_cast<const float*>(bias), static_cast<const float*>(mask), H, W,
-      C, nh, wh, ww, sh, sw, scale, eps);
-  return cudaGetLastError();
-}
-
 
 namespace tc {
 
@@ -652,12 +565,291 @@ cudaError_t launch_window_msa_tc(const bf16* x, bf16* out, bf16* y,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// fp32: window_msa_tf32_kernel, split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMsaF32Stages = 3;             // ring stages
+constexpr uint32_t kMsaF32W = kMsaBN * 128;  // 96 rows x 32 fp32
+constexpr uint32_t kMsaF32Half = kMsaF32W + kBM * 128;   // W + x rows: hi
+constexpr uint32_t kMsaF32Stage = 2 * kMsaF32Half;       // + lo
+constexpr uint32_t kMsaF32Head = 2 * kSub;   // a head's ao tiles, hi + lo
+constexpr int kMsaVStride = 36;              // floats a row of a warp's V
+constexpr uint32_t kMsaF32V = (kWg / 32) * kRows * kMsaVStride * 4;
+constexpr uint32_t kMsaF32Fixed =            // all but the ao tiles
+    1024 + kMsaF32Stages * kMsaF32Stage + kMsaF32V + kBM * 8 + kMsaTable;
+
+// One head of one window in fp32, in the warp that holds the window's 16 x
+// 96 q | k | v sums (acc, wgmma's fragment as in attend_head).  S = q k^T
+// takes q's fragment as the A operand and k's as the B operand as they
+// are, the head's 32 dimensions in the order of a sum fragment (mma.cuh);
+// v goes through the warp's 16 x 36 float buffer vb, read back as the B
+// operand of P V (key tokens down, dimensions across, as mma.sync wants);
+// P's fragment is the A operand as it is, the key tokens taken in the same
+// order in both.  Every product is split TF32 (mma3_sync).  The 16 x 32
+// output goes, as hi and lo, to the warp's rows of the head's ao tiles at
+// ao (hi) and ao + kSub (lo).
+__device__ __forceinline__ void attend_head_f32(
+    const float (&acc)[kMsaBN / 2], const float* __restrict__ bq, int C,
+    const float* __restrict__ bias_h, const float (&mk)[8], float scale,
+    unsigned char* ao, float* vb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+  // f[j][e]: row g + 8 (e / 2), column 8 j + 2 qd + e % 2 of q | k | v
+  float f[kMsaBN / 8][4];
+#pragma unroll
+  for (int j = 0; j < kMsaBN / 8; ++j) {
+    const float2 bb = *reinterpret_cast<const float2*>(
+        bq + (size_t)(j >> 2) * C + 8 * (j & 3) + 2 * qd);
+    f[j][0] = acc[4 * j] + bb.x;
+    f[j][1] = acc[4 * j + 1] + bb.y;
+    f[j][2] = acc[4 * j + 2] + bb.x;
+    f[j][3] = acc[4 * j + 3] + bb.y;
+  }
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    *reinterpret_cast<float2*>(vb + g * kMsaVStride + 8 * dt + 2 * qd) =
+        make_float2(f[8 + dt][0], f[8 + dt][1]);
+    *reinterpret_cast<float2*>(vb + (g + 8) * kMsaVStride + 8 * dt + 2 * qd) =
+        make_float2(f[8 + dt][2], f[8 + dt][3]);
+  }
+  __syncwarp();
+  float s[2][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const float a[4] = {f[ks][0], f[ks][2], f[ks][1], f[ks][3]};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      mma3_sync(s[nt], a, f[4 + ks][2 * nt], f[4 + ks][2 * nt + 1]);
+  }
+  float bh[8];
+  load_frag16(bias_h, bh);
+  window_softmax(s, bh, mk, scale);
+  float o[4][4] = {};
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt) {
+    const float a[4] = {s[kt][0], s[kt][2], s[kt][1], s[kt][3]};
+    const float* v0 = vb + (8 * kt + 2 * qd) * kMsaVStride + g;
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt)
+      mma3_sync(o[dt], a, v0[8 * dt], v0[kMsaVStride + 8 * dt]);
+  }
+  __syncwarp();   // vb is read before the next head writes it
+  const int row = (threadIdx.x >> 5) * 16 + g;
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    const int col = 8 * dt + 2 * qd;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t h0, l0, h1, l1;
+      split_tf32(o[dt][2 * h], h0, l0);
+      split_tf32(o[dt][2 * h + 1], h1, l1);
+      const uint32_t off = swz32(row + 8 * h, col);
+      *reinterpret_cast<uint2*>(ao + off) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(ao + kSub + off) = make_uint2(l0, l1);
+    }
+  }
+}
+
+// grid (row tiles of 64 window-major tokens, head splits); hs heads per
+// split.  The x rows stream through the ring beside the weights (each
+// qkv tile: the head's three 32-row Wqkv slabs and the 64 gathered rows,
+// 32 columns of each), and split_rows takes them through LN1 (statistics
+// from row_stats) while it splits them.  partial non-null: the split's
+// fp32 sums go to partial[split][window-major token][C].
+__global__ void __launch_bounds__(kWg, 1) window_msa_tf32_kernel(
+    const float* __restrict__ x, float* __restrict__ out,
+    float* __restrict__ partial, const float* __restrict__ lnw,
+    const float* __restrict__ lnb, const float* __restrict__ wqkv,
+    const float* __restrict__ bqkv, const float* __restrict__ wproj,
+    const float* __restrict__ bproj, const float* __restrict__ bias,
+    const float* __restrict__ mask, const MsaGeom g, int nh, int hs,
+    float scale, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const int C = g.C;
+  const int ktc = C / 32;
+  unsigned char* ao_p = sm + kMsaF32Stages * kMsaF32Stage;
+  float* vb = reinterpret_cast<float*>(ao_p + hs * kMsaF32Head) +
+              (threadIdx.x >> 5) * kRows * kMsaVStride;
+  float* stat = reinterpret_cast<float*>(ao_p + hs * kMsaF32Head + kMsaF32V);
+  long long* toff = reinterpret_cast<long long*>(stat + 2 * kBM);
+  const uint32_t ring = smem_u32(sm), as = smem_u32(ao_p);
+
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int h0 = blockIdx.y * hs;
+  const int hn = min(hs, nh - h0);                     // this CTA's heads
+  if (threadIdx.x < kBM) {
+    const long long rg = r0 + threadIdx.x;
+    toff[threadIdx.x] = rg < g.T ? msa_token_offset(rg, g) : -1;
+  }
+  __syncthreads();
+  row_stats([&](int r) { return toff[r] >= 0 ? x + toff[r] : nullptr; }, C,
+            eps, stat);
+  __syncthreads();
+  float2 st_ln[2];
+  thread_stats(stat, st_ln);
+  float mk[8] = {};
+  if (mask) {
+    const long long wg = (long long)blockIdx.x * (kBM / kRows) +
+                         (threadIdx.x >> 5);
+    load_frag16(mask + (size_t)(wg % g.nW) * kRows * kRows, mk);
+  }
+
+  const int ntb = (C + kMsaBN - 1) / kMsaBN;
+  const int tiles_a = hn * ktc, T = tiles_a + ntb * hn;
+  const int row = frag_row();
+  const long long off[2] = {toff[row], toff[row + 8]};   // this thread's rows
+  // each tile's products go to a fresh accumulator, one of two that
+  // alternate, added to total once they end (fold)
+  float acc_a[kMsaBN / 2], acc_b[kMsaBN / 2], total[kMsaBN / 2];
+  auto fetch = [&](int t, uint32_t st) {
+    if (t < tiles_a) {   // head t / ktc: Wqkv slabs, x rows; columns 32 j ..
+      const int hl = t / ktc, j = t % ktc;
+      load_tile_f32(st, wqkv, C, (h0 + hl) * 32, C, 3 * C, j * 32, C,
+                    kMsaBN);
+      for (int i = threadIdx.x; i < kBM * 8; i += kWg) {
+        const int r = i >> 3, ch = i & 7;
+        const long long o = toff[r];
+        cp_async16(st + kMsaF32W + r * 128 + ((ch ^ (r & 7)) << 4),
+                   o >= 0 ? x + o + j * 32 + ch * 4 : x, o >= 0);
+      }
+    } else {             // out tile u / hn: Wproj rows 96 i .., head's columns
+      const int u = t - tiles_a, i = u / hn, hl = u % hn;
+      load_tile_f32(st, wproj, C, i * kMsaBN, 32, C, (h0 + hl) * 32, C,
+                    kMsaBN);
+    }
+  };
+  auto split = [&](int t, uint32_t st_addr) {
+    unsigned char* st = sm + (st_addr - ring);
+    split_rows(st, kMsaBN, kMsaF32Half, false);
+    if (t < tiles_a)
+      split_rows_ln(st + kMsaF32W, kMsaF32Half, st_ln, lnw, lnb,
+                    (t % ktc) * 32);
+  };
+  auto use = [&](int t, uint32_t st) {
+    if (t < tiles_a) {
+      const int hl = t / ktc, j = t % ktc;
+      const uint32_t x_hi = st + kMsaF32W, x_lo = x_hi + kMsaF32Half;
+      const bool last = j + 1 == ktc;
+      if (j & 1)
+        mma3_fold<kMsaBN>(total, acc_b, acc_a, x_hi, x_lo, st,
+                          st + kMsaF32Half, j == 0, last);
+      else
+        mma3_fold<kMsaBN>(total, acc_a, acc_b, x_hi, x_lo, st,
+                          st + kMsaF32Half, j == 0, last);
+      if (!last) return;
+      attend_head_f32(total, bqkv + (h0 + hl) * 32, C,
+                      bias + (size_t)(h0 + hl) * kRows * kRows, mk, scale,
+                      ao_p + hl * kMsaF32Head, vb);
+    } else {
+      const int u = t - tiles_a, i = u / hn, hl = u % hn;
+      const uint32_t a_hi = as + hl * kMsaF32Head, a_lo = a_hi + kSub;
+      const bool last = hl + 1 == hn;
+      if (hl & 1)
+        mma3_fold<kMsaBN>(total, acc_b, acc_a, a_hi, a_lo, st,
+                          st + kMsaF32Half, hl == 0, last);
+      else
+        mma3_fold<kMsaBN>(total, acc_a, acc_b, a_hi, a_lo, st,
+                          st + kMsaF32Half, hl == 0, last);
+      if (!last) return;
+#pragma unroll
+      for (int jj = 0; jj < kMsaBN / 8; ++jj) {
+        const int oc = i * kMsaBN + frag_col(jj);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (oc >= C || off[e] < 0) continue;
+          float v0 = total[4 * jj + 2 * e], v1 = total[4 * jj + 2 * e + 1];
+          if (partial) {
+            *reinterpret_cast<float2*>(
+                partial + ((size_t)blockIdx.y * g.T + r0 + row + 8 * e) * C +
+                oc) = make_float2(v0, v1);
+            continue;
+          }
+          const float2 b2 = *reinterpret_cast<const float2*>(bproj + oc);
+          const float2 x2 = *reinterpret_cast<const float2*>(x + off[e] + oc);
+          *reinterpret_cast<float2*>(out + off[e] + oc) =
+              make_float2(v0 + b2.x + x2.x, v1 + b2.y + x2.y);
+        }
+      }
+    }
+  };
+  stream_split_tiles<kMsaF32Stages>(ring, kMsaF32Stage, T, fetch, split,
+                                    use);
+}
+
+// out = sum over splits, in split order, + bproj + x at each token's own
+// position, fp32: four columns per thread.
+__global__ void __launch_bounds__(kThreads) window_msa_sum_f32_kernel(
+    const float* __restrict__ partial, const float* __restrict__ x,
+    const float* __restrict__ bproj, float* __restrict__ out, const MsaGeom g,
+    int splits) {
+  const long long total = g.T * g.C;
+  const long long idx =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;
+  if (idx >= total) return;
+  const int c = (int)(idx % g.C);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float4 p =
+        *reinterpret_cast<const float4*>(partial + (size_t)s * total + idx);
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  const long long off = msa_token_offset(idx / g.C, g) + c;
+  const float4 b = *reinterpret_cast<const float4*>(bproj + c);
+  const float4 xr = *reinterpret_cast<const float4*>(x + off);
+  *reinterpret_cast<float4*>(out + off) =
+      make_float4(v.x + b.x + xr.x, v.y + b.y + xr.y, v.z + b.z + xr.z,
+                  v.w + b.w + xr.w);
+}
+
+// Plan (ops/window_msa.py:window_msa_plan_f32): hs heads per split,
+// splits, ring stages (3), smem bytes.  Refused, not reshaped, where the
+// plan and the kernel's needs differ.
+cudaError_t launch_window_msa_tf32(const float* x, float* out, float* partial,
+                                   const float* lnw, const float* lnb,
+                                   const float* wqkv, const float* bqkv,
+                                   const float* wproj, const float* bproj,
+                                   const float* bias, const float* mask,
+                                   int B, int H, int W, int C, int nh, int wh,
+                                   int ww, int sh, int sw, float scale,
+                                   float eps, int hs, int splits, int stages,
+                                   int smem, cudaStream_t stream) {
+  if (wh * ww != kRows || C != nh * 32 || B <= 0 || H <= 0 || W <= 0 ||
+      H % wh || W % ww || hs <= 0 || splits != (nh + hs - 1) / hs ||
+      splits > 65535 || (splits > 1) != (partial != nullptr) ||
+      stages != kMsaF32Stages)
+    return cudaErrorInvalidValue;
+  const size_t need = kMsaF32Fixed + (size_t)hs * kMsaF32Head;
+  if ((size_t)smem != need) return cudaErrorInvalidValue;
+  MsaGeom g;
+  g.H = H, g.W = W, g.C = C, g.wh = wh, g.ww = ww, g.sh = sh, g.sw = sw;
+  g.nWw = W / ww, g.nW = (H / wh) * g.nWw;
+  g.T = (long long)B * H * W;
+  cudaError_t err = prepare_smem(window_msa_tf32_kernel, need);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((g.T + kBM - 1) / kBM), splits);
+  window_msa_tf32_kernel<<<grid, kWg, need, stream>>>(
+      x, out, partial, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, mask, g, nh,
+      hs, scale, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long quads = g.T * C / 4;
+  window_msa_sum_f32_kernel<<<(unsigned)((quads + kThreads - 1) / kThreads),
+                              kThreads, 0, stream>>>(partial, x, bproj, out,
+                                                     g, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace tulip
 
-// fp32: the FMA kernel; y, partial and the plan (hs, splits, stages, smem)
-// are not read.  bf16: the tensor-core kernel under that plan.
+// fp32: the split-TF32 kernel under the plan (hs, splits, stages, smem);
+// y is not read.  bf16: the tensor-core kernel under that plan.
 extern "C" int tulip_window_msa(int dtype, const void* x, void* out,
                                 const void* lnw, const void* lnb,
                                 const void* wqkv, const void* bqkv,
@@ -670,9 +862,14 @@ extern "C" int tulip_window_msa(int dtype, const void* x, void* out,
   using bf16 = __nv_bfloat16;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tulip::launch_window_msa<float>(x, out, lnw, lnb, wqkv, bqkv, wproj,
-                                           bproj, bias, mask, B, H, W, C, nh,
-                                           wh, ww, sh, sw, scale, eps, s);
+    return tulip::tc::launch_window_msa_tf32(
+        static_cast<const float*>(x), static_cast<float*>(out),
+        static_cast<float*>(partial), static_cast<const float*>(lnw),
+        static_cast<const float*>(lnb), static_cast<const float*>(wqkv),
+        static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
+        static_cast<const float*>(bproj), static_cast<const float*>(bias),
+        static_cast<const float*>(mask), B, H, W, C, nh, wh, ww, sh, sw,
+        scale, eps, hs, splits, stages, smem, s);
   if (dtype == 1)
     return tulip::tc::launch_window_msa_tc(
         static_cast<const bf16*>(x), static_cast<bf16*>(out),

@@ -17,8 +17,10 @@ and launches its kernels for a CUDA tensor; any other device raises.
 In bf16 K3, K4, the token passes of K10 and K11 and the weight-gradient
 products run on the tensor cores (``csrc/mma.cuh``) under the launch plans
 computed here (:func:`two_matmul_plan`, :func:`ln_linear_plan`,
-:func:`dy_splits`, ``reduce.tn_gemm_plan``); in fp32 they run on the FMA
-kernels, the parity path.
+:func:`dy_splits`, ``reduce.tn_gemm_plan``).  In fp32 K3 runs on the
+tensor cores too, in split TF32 (three TF32 products a product, about
+fp32's accuracy) under :func:`two_matmul_plan_f32`; K4, K10 and K11 run on
+the FMA kernels, the parity path.
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ _STAGES = 3            # csrc/mlp.cu kMlpStages
 _SUB = 8192            # bytes of a 64 x 64 bf16 operand tile
 _LN_MM_STAGES = 3      # csrc/mlp.cu kLnMmStages
 PARTIAL_CAP = 32 << 20   # bytes of fp32 partial sums a split launch may write
+_F32_HID = 64          # hidden units per tile of the fp32 K3 (kTmF32Hid)
+# shared bytes of the fp32 K3 (kTmF32Smem): 1 KB alignment room, three
+# ring stages of 128 rows x 32 fp32 as hi and lo, the 64 rows' LN
+# statistics; two blocks share an SM
+SMEM_F32 = 1024 + 3 * 2 * 128 * 128 + _ROWS * 8
 
 
 def check_widths(C: int, Hd: int, O: int, residual: bool, what: str) -> None:
@@ -85,6 +92,50 @@ def two_matmul_plan(N: int, C: int, Hd: int, O: int) -> dict:
     return dict(rows=_ROWS, resident=resident, hs=hs, splits=splits,
                 bn2=16 if O <= 16 else 96 if O % 96 == 0 else 128,
                 stages=_STAGES, smem=fixed + hs * _ROWS * 2)
+
+
+def two_matmul_plan_f32(N: int, C: int, Hd: int, O: int) -> dict:
+    """Launch plan of the fp32 split-TF32 K3 (``csrc/mlp.cu``), from the
+    widths alone: N only sets the row tiles, so each token's sums run in
+    one order whatever the call's token count, and a W shard or a data
+    rank gives a token's output bit for bit as one process does.
+
+    rows      token rows per CTA (64, one warpgroup);
+    two_pass  O > 192, or O above 96 and not a multiple of it: more output
+              columns than one CTA's registers hold in one or two chunks.
+              False: two_matmul_tf32_kernel, grid (row tiles, chunks,
+              splits), the hidden activation kept in registers and summed
+              into the CTA's bo columns.  True: linear_tf32_kernel twice,
+              h = act([LN](x) W1^T + b1) to an (N, Hd) fp32 scratch, then
+              h W2^T + b2 [+ x] over 64-column tiles, K split over CTAs
+              (the fused kernel recomputes h for every chunk: at C 384 /
+              768 three / six times, 1.9 / 3.4x slower at batch 8; at two
+              chunks, C 192, the two forms are even, and in one chunk the
+              fused one is 1.9-2.1x faster at C 96 and 2.6-3.2x for the
+              head, batch 1 and 8, device time; NVIDIA H100 80GB HBM3,
+              700 W);
+    bo        output columns per CTA: 16 or 32 for a narrow O (the folded
+              head of one or two channels), else 96 fused; 64 two-pass;
+    chunks    ceil(O / bo);
+    hs        hidden units per split: fused at bo 96, 384 (six 64-unit
+              tiles: at C 192 two splits, so batch 1's 64 row tiles x 2
+              chunks give 256 CTAs for the 132 SMs); fused at bo <= 32 (the
+              folded head), all of them; two-pass, 640 (twenty 32-deep
+              tiles of the second pass's K); Hd where it is less: TULIP's
+              stages split 1 / 2 / 3 / 5 times and the head once, enough
+              CTAs for the SMs at batch 1.  The kernels add every tile's
+              (fused phase B: 64 units') tensor-core sum to an fp32 total,
+              so hs does not set the accuracy;
+    splits    ceil(Hd / hs) >= 1; above 1 a last launch adds the (splits,
+              N, O) fp32 partial sums in split order;
+    smem      ``SMEM_F32`` for every shape (two blocks share an SM).  The C
+              entry point recomputes it and refuses a plan that differs."""
+    two_pass = O > 192 or (O > 96 and O % 96 != 0)
+    bo = 64 if two_pass else 16 if O <= 16 else 32 if O <= 32 else 96
+    unit, hs = (32, 640) if two_pass else (_F32_HID, 384 if bo > 32 else Hd)
+    hs = -(-min(hs, Hd) // unit) * unit
+    return dict(rows=_ROWS, two_pass=two_pass, bo=bo, chunks=-(-O // bo),
+                hs=hs, splits=-(-Hd // hs), stages=3, smem=SMEM_F32)
 
 
 def dy_splits(N: int, C: int, Hd: int) -> int:
@@ -184,23 +235,29 @@ def fused_two_matmul(x2d, lnw, lnb, w1, b1, w2, b2, *, act: str,
     if lnw is not None:
         build.require(lnw, "lnw", dev, d, (C,))
         build.require(lnb, "lnb", dev, d, (C,))
+    if O % 8:
+        raise NotImplementedError(
+            f"two_matmul kernel takes O % 8 == 0, got O={O}")
+    for name, t in (("x", x2d), ("w1", w1), ("w2", w2), ("lnw", lnw),
+                    ("lnb", lnb)):
+        build.require_aligned(name, t)
     lib = build.load()
     out = torch.empty((N, O), device=dev, dtype=d)
     y = partial = None
-    plan = dict(hs=0, splits=0, resident=0, bn2=0, smem=0)
     if d == torch.bfloat16:
-        if O % 8:
-            raise NotImplementedError(
-                f"bf16 two_matmul kernel takes O % 8 == 0, got O={O}")
-        for name, t in (("x", x2d), ("w1", w1), ("w2", w2), ("lnw", lnw),
-                        ("lnb", lnb)):
-            build.require_aligned(name, t)
         plan = two_matmul_plan(N, C, Hd, O)
         if lnw is not None and not plan["resident"]:
             y = torch.empty_like(x2d)
-        if plan["splits"] > 1:
-            partial = torch.empty((plan["splits"], N, O), device=dev,
-                                  dtype=torch.float32)
+    else:
+        for name, t in (("b1", b1), ("b2", b2)):   # read as float2
+            build.require_aligned(name, t, 8)
+        plan = two_matmul_plan_f32(N, C, Hd, O)
+        plan.update(resident=False, bn2=plan["bo"])
+        if plan["two_pass"]:   # the hidden activation's scratch
+            y = torch.empty((N, Hd), device=dev, dtype=d)
+    if plan["splits"] > 1:
+        partial = torch.empty((plan["splits"], N, O), device=dev,
+                              dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tulip_two_matmul(

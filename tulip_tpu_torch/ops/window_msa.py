@@ -6,13 +6,14 @@ CUDA kernels of ``csrc/window_msa.cu``.  :func:`window_msa` takes the plain
 PyTorch version :func:`window_msa_ref` for a CPU tensor and launches a
 kernel for a CUDA tensor; any other device raises.
 
-The file holds two device kernels and the dtype decides between them: bf16
-runs ``window_msa_tc_kernel`` on the tensor cores (64 token rows = 4
-windows per CTA, the heads split over CTAs where the rows are few) under
-the launch plan :func:`window_msa_plan`, with ``window_msa_sum_kernel``
-adding the splits' partial sums in split order; fp32 runs
-``window_msa_kernel``, one window per CTA on the CUDA cores, the parity
-path.
+The file holds two device kernels and the dtype decides between them, both
+on the tensor cores with 64 token rows = 4 windows per CTA and the heads
+split over CTAs where the rows are few or shared memory forces it: bf16
+runs ``window_msa_tc_kernel`` under the launch plan
+:func:`window_msa_plan`, fp32 ``window_msa_tf32_kernel`` in split TF32
+(three TF32 products a product, about fp32's accuracy) under
+:func:`window_msa_plan_f32`; ``window_msa_sum_kernel`` /
+``window_msa_sum_f32_kernel`` add the splits' partial sums in split order.
 
 The same kernels stand behind the JAX package's two other layouts, which
 its ``TULIP_TPU_MSA_GROUPED`` / ``TULIP_TPU_MSA_NAT`` switches select:
@@ -58,6 +59,43 @@ def plan_smem(C: int, hs: int, stages: int) -> int:
     return (1024 + stages * (_TILE_B + (0 if resident else _SUB))
             + -(-hs // 2) * _SUB + (-(-C // 64) * _SUB if resident else 0)
             + _TABLE)
+
+
+# shared bytes of the fp32 kernel (csrc/window_msa.cu kMsaF32Fixed) beside
+# its ao tiles: 1 KB alignment room, three ring stages (a 96-row weight
+# tile and the 64 x rows, 32 fp32 each, as hi and lo), each warp's 16 x 36
+# float copy of v, the rows' LN statistics and the offset table
+F32_FIXED = (1024 + 3 * 2 * (96 + _ROWS) * 128 + 4 * 16 * 36 * 4 + _ROWS * 8
+             + _TABLE)
+F32_HEAD = 2 * _SUB    # a head's ao tiles (64 x 32 fp32), hi and lo
+
+
+def window_msa_plan_f32(T: int, C: int, nh: int) -> dict:
+    """Launch plan of the fp32 split-TF32 half-block (``csrc/window_msa.cu``
+    window_msa_tf32_kernel), grid (row tiles, splits):
+
+    rows      token rows per CTA (64 = four windows, one warpgroup);
+    hs        heads per split: at most the six whose ao tiles fit one
+              block's shared memory beside the ring; fewer where the row
+              tiles leave SMs idle (one block per SM), for about one CTA
+              per SM; more again while the partial sums exceed
+              ``PARTIAL_CAP`` (unless shared memory forces the split);
+    splits    ceil(nh / hs) >= 1; above 1 the splits' fp32 partial sums
+              (splits, T, C) are added in split order by a second launch
+              (``sum_launch``);
+    stages    ring stages (3);
+    smem      ``F32_FIXED`` + hs x ``F32_HEAD`` <= ``SMEM_MAX``.  The C
+              entry point recomputes it and refuses a plan that differs."""
+    row_tiles = -(-T // _ROWS)
+    hs_fit = min(nh, (SMEM_MAX - F32_FIXED) // F32_HEAD)
+    min_splits = -(-nh // hs_fit)
+    hs = -(-nh // max(min_splits, min(nh, NUM_SMS // row_tiles)))
+    while (-(-nh // hs) > min_splits
+           and -(-nh // hs) * T * C * 4 > PARTIAL_CAP):
+        hs += 1
+    splits = -(-nh // hs)
+    return dict(rows=_ROWS, hs=hs, splits=splits, stages=3,
+                smem=F32_FIXED + hs * F32_HEAD, sum_launch=splits > 1)
 
 
 def window_msa_plan(T: int, C: int, nh: int) -> dict:
@@ -151,16 +189,18 @@ def _check(x, C, nh, L, params, bias, mask, n_mask):
 
 
 def _plan_args(x, T, C, nh, params):
-    """(y scratch, partial sums, the plan's integers) of a launch: zeros
-    and no scratch in fp32, whose kernel takes no plan."""
-    if x.dtype != torch.bfloat16:
-        return None, None, (0, 0, 0, 0)
+    """(y scratch, partial sums, the plan's integers) of a launch: bf16
+    under :func:`window_msa_plan`, fp32 under :func:`window_msa_plan_f32`
+    (no y scratch: its rows stream through the ring)."""
     lnw, lnb, wqkv, bqkv, wproj, bproj = params
     for name, t in (("x", x), ("lnw", lnw), ("lnb", lnb), ("wqkv", wqkv),
                     ("bqkv", bqkv), ("wproj", wproj), ("bproj", bproj)):
         build.require_aligned(name, t)
-    plan = window_msa_plan(T, C, nh)
     y = partial = None
+    if x.dtype == torch.bfloat16:
+        plan = window_msa_plan(T, C, nh)
+    else:
+        plan = dict(window_msa_plan_f32(T, C, nh), resident=True)
     if not plan["resident"]:
         y = torch.empty((T, C), device=x.device, dtype=x.dtype)
     if plan["sum_launch"]:

@@ -9,6 +9,8 @@
     python3 chip_smoke.py --k3-forms [--tree DIR]    (k3_f32_forms: the
         fp32 K3's error against float64 and device time, fused against
         two-pass, of this checkout or of the one at DIR)
+    python3 chip_smoke.py --k4-depths    (k4_f32_depths: the fp32 K4's
+        error against float64 and device time at each depth of K a split)
     python3 chip_smoke.py --ranks N    (run_ranks_check: data parallel and
         W-axis sequence parallel over N GPUs under NCCL, on a machine with
         N cards)
@@ -28,16 +30,20 @@ Phases, one line or more each; any failure raises and exits non-zero:
    SASS, the bf16 training attention core (K8, K9) HMMA (mma.sync), the
    bf16 LayerNorm kernels (K14, K15) 128-bit global loads and stores
    (LDG.E.128 / STG.E.128), and the fp32 split-TF32 kernels (K3's
-   two_matmul_tf32_kernel and linear_tf32_kernel, the half-block's
-   window_msa_tf32_kernel) HGMMA with TF32 operands, the half-block also
-   HMMA with TF32 operands.
+   two_matmul_tf32_kernel and linear_tf32_kernel, K4's
+   ln_linear_tf32_kernel, the half-block's window_msa_tf32_kernel) HGMMA
+   with TF32 operands, the half-block also HMMA with TF32 operands; no
+   fp32 FMA K4 (ln_linear_kernel) is left in the library.
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
    median kernel and plain times from CUDA events; every fp32 case bound
    at 494.7 / 3 TFLOP/s (split TF32, fp32-accurate products on the tensor
    cores, whether its kernel runs them there or not), and K3 with O = 12
-   and K1 with 4 x 8 windows refused on the card in fp32.  Then the
+   and K1 with 4 x 8 windows refused on the card in fp32, K4 with an
+   odd O too; the fp32 K4 at each merge's width gives a token the same
+   bits in one image's rows as in eight images' (and in 1,000 rows).
+   Then the
    three chamfer
    kernels (K5, K6, K7; fp32) on 262,144-point clouds of a synthetic DurLAR
    scan and a perturbed copy, and on a ragged, a uniform, a degenerate and
@@ -210,8 +216,8 @@ natural row-strip entry, the stages with more than 8 heads) at batch 2 and,
 in bf16, batch 8; K4 at batch 1 and 8 (the bf16 kernel splits K over CTAs
 at batch 1-4), at a ragged token count and at TULIP-large's deepest merge
 (K 3,072); every bf16 case of K1, K2, K3, K4, K8, K9, K10, K11, K12, K13
-twice for the same bits, and every fp32 case of K1, K2, K3, K12, K13
-(split TF32) too; and K14 / K15 (LayerNorm forward and backward: y,
+twice for the same bits, and every fp32 case of K1, K2, K3, K4, K12,
+K13 (split TF32) too; and K14 / K15 (LayerNorm forward and backward: y,
 dx, dw, db) at the four norm1 shapes of the batch-8 train step, at the
 batch-1 step's, at a ragged token count, at TULIP-large's C 1,536 and at
 widths whose chunks do not split evenly over a row's lanes, in bf16 and
@@ -329,19 +335,20 @@ MMA_SYNC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_tc_kernel")
 # the bf16 LayerNorm kernels (K14, K15), whose rows must move in 16-byte
 # global loads and stores (LDG.E.128 / STG.E.128 in the SASS)
 WIDE_ACCESS_KERNELS = ("ln_fwd_reg_kernel", "ln_bwd_reg_kernel")
-# the fp32 kernels of K3 (fused, and the two passes of its wide form) and
-# of the attention half-block (K1, K2, K12, K13): split TF32 on the tensor
-# cores, so HGMMA with TF32 operands in the SASS (HGMMA.64xNx8.F32.TF32),
-# and in the half-block its 16 x 16 products as HMMA.1688.F32.TF32
+# the fp32 kernels of K3 (fused, and the two passes of its wide form), of
+# K4 and of the attention half-block (K1, K2, K12, K13): split TF32 on the
+# tensor cores, so HGMMA with TF32 operands in the SASS
+# (HGMMA.64xNx8.F32.TF32), and in the half-block its 16 x 16 products as
+# HMMA.1688.F32.TF32
 TF32_KERNELS = ("two_matmul_tf32_kernel", "linear_tf32_kernel",
-                "window_msa_tf32_kernel")
+                "ln_linear_tf32_kernel", "window_msa_tf32_kernel")
 # the ops/ wrappers whose fp32 cases run those kernels (checked for equal
 # bits over two runs).  Every fp32 case's bound, theirs and the FMA
 # kernels' alike, is taken at the split-TF32 rate: the least time for
 # fp32-accurate products on this card is three dense TF32 products a
 # product, whichever kernel the port runs today
 SPLIT_TF32 = ("window_msa", "window_msa_grouped", "window_msa_nat",
-              "two_matmul")
+              "two_matmul", "ln_linear")
 # fp32 instructions per point pair of a nearest-neighbour sweep: both
 # directions (K5: 3 sub, mul, 2 fma, 2 min), one direction (K6, K7: one min)
 PAIR_OPS, PAIR_OPS_ONE = 8, 7
@@ -708,7 +715,8 @@ def check_deterministic(torch, device, cases):
     (K1, K2, K12, K13), the training attention core (K8, K9 with its
     d(bias) column sum), the LayerNorm kernels (K14, K15 with dw / db
     summed inside its launch) and tn_gemm on their own, bf16; and the
-    fp32 split-TF32 kernels (K1, K2, K12, K13, K3 with their sum passes):
+    fp32 split-TF32 kernels (K1, K2, K12, K13, K3, K4 with their sum
+    passes):
     two runs on the same inputs must give the same bits (no atomic sums,
     every cross-block sum in a fixed order)."""
     from tulip_tpu_torch.ops import reduce as R
@@ -737,7 +745,8 @@ def check_deterministic(torch, device, cases):
             differ.append(label)
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
           f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / K8 / K9 / K14 / K15 "
-          f"/ tn_gemm and fp32 K1 / K2 / K12 / K13 / K3 cases bit-identical "
+          f"/ tn_gemm and fp32 K1 / K2 / K12 / K13 / K3 / K4 cases "
+          f"bit-identical "
           f"over two runs", flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
@@ -750,7 +759,9 @@ def sass_counts(build):
     (TENSOR_CORE_KERNELS, MMA_SYNC_KERNELS), the LayerNorm kernels
     (WIDE_ACCESS_KERNELS) and the fp32 split-TF32 kernels (TF32_KERNELS)
     of the built library, every instantiation of a template counted
-    together."""
+    together (a function is booked to the longest of those names it
+    holds: ln_linear_tf32_kernel holds linear_tf32_kernel); and the names
+    of every function in it."""
     import re
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
@@ -765,9 +776,12 @@ def sass_counts(build):
     ldg = re.compile(r"\bLDG\.E[\w.]*\.128\b")
     stg = re.compile(r"\bSTG\.E[\w.]*\.128\b")
     current = None
+    functions = []
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in names if k in line), None)
+            functions.append(line.split("Function :")[1].strip())
+            current = max((k for k in names if k in line), key=len,
+                          default=None)
         elif current and "HGMMA" in line:
             counts[current] += 1
             tf32[current][0] += "TF32" in line
@@ -780,7 +794,7 @@ def sass_counts(build):
             wide[current][1] += 1
     return (counts, warp_level,
             {k: tuple(wide[k]) for k in WIDE_ACCESS_KERNELS},
-            {k: tuple(tf32[k]) for k in TF32_KERNELS})
+            {k: tuple(tf32[k]) for k in TF32_KERNELS}, functions)
 
 
 def kink_guard(torch, x, args, gr, to, rn):
@@ -1097,8 +1111,9 @@ def check_ln_launches(torch, device):
 
 def check_f32_refusals(torch, device):
     """On the card a width outside the fp32 plans is refused, as in bf16,
-    with nothing falling back: K3 with O % 8 != 0 and the half-block with
-    windows of other than 16 tokens raise NotImplementedError."""
+    with nothing falling back: K3 with O % 8 != 0, K4 with an odd O and
+    the half-block with windows of other than 16 tokens raise
+    NotImplementedError."""
     from tulip_tpu_torch.ops import mlp, window_msa as wm
     z = lambda *s: torch.zeros(*s, device=device)
     refused = []
@@ -1108,16 +1123,56 @@ def check_f32_refusals(torch, device):
                lambda: wm.window_msa(
                    z(1, 4, 16, 96), z(96), z(96), z(288, 96), z(288),
                    z(96, 96), z(96), z(3, 32, 32), None, window=(4, 8),
-                   shift=(0, 0), eps=1e-6)):
+                   shift=(0, 0), eps=1e-6),
+               lambda: mlp.fused_ln_linear(z(64, 384), z(384), z(384),
+                                           z(191, 384))):
         try:
             fn()
             refused.append(False)
         except NotImplementedError:
             refused.append(True)
-    print(f"fp32 refusals (K3 O=12, K1 4 x 8 windows): {refused}",
-          flush=True)
-    if refused != [True, True]:
+    print(f"fp32 refusals (K3 O=12, K1 4 x 8 windows, K4 O=191): "
+          f"{refused}", flush=True)
+    if refused != [True, True, True]:
         raise SystemExit("an fp32 kernel took a width outside its plan")
+
+
+def check_ln_linear_rows(torch, device):
+    """The fp32 K4 gives a token the same bits whatever else its call
+    holds (ops/mlp.py:ln_linear_plan_f32 splits K by the widths alone): at
+    each merge's width fused_ln_linear(x[:n]) equals fused_ln_linear(x)[:n]
+    (torch.equal) for x of eight images' rows and n one image's rows, and
+    n = 1,000; TULIP-large's K 3,072 at 21 images' rows (1,344, more than
+    one launch of its plan's max_rows) also against its plain version
+    (1e-4 of max|ref|)."""
+    from tulip_tpu_torch.ops import mlp
+    g = torch.Generator().manual_seed(7)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g) * scale + shift).to(device)
+
+    shapes = [((H // 2) * (W // 2), 4 * C, 8) for (H, W), C, _ in STAGES[:-1]]
+    shapes.append((64, 3072, 21))
+    same, errs = [], []
+    for n1, K, images in shapes:
+        x = rn(images * n1, K)
+        args = (rn(K, scale=0.1, shift=1.0), rn(K, scale=0.1),
+                rn(K // 2, K, scale=K ** -0.5))
+        full = mlp.fused_ln_linear(x, *args)
+        for n in (n1, 1000):
+            same.append(torch.equal(mlp.fused_ln_linear(x[:n], *args),
+                                    full[:n]))
+        if images == 21:
+            errs.append(rel_err(torch, full,
+                                mlp.fused_ln_linear_ref(x, *args)))
+    torch.cuda.synchronize()
+    chunk = mlp.ln_linear_plan_f32(1344, 3072, 1536)["max_rows"]
+    print(f"fp32 K4 rows alone vs in a batch (one image / 1,000 rows of "
+          f"{[images * n1 for n1, _, images in shapes]}): bit-equal {same}; "
+          f"K 3,072 over {-(-1344 // chunk)} launches err/max|ref| "
+          f"{errs[0]:.3e} (limit 1e-4)", flush=True)
+    if not all(same) or not errs[0] <= TOL["float32"]:
+        raise SystemExit("the fp32 K4's output depends on the call's rows")
 
 
 def check_kernel_cases(torch, cases):
@@ -3626,13 +3681,15 @@ def run_dp_phase(torch, dev, weights):
     return report
 
 
-# kernel-name substring -> class of the profile's summary line; a name that
-# matches none is PyTorch's own
+# kernel-name substring -> class of the profile's summary line, the longest
+# substring a name holds deciding (ln_linear_tf32_kernel holds
+# linear_tf32); a name that matches none is PyTorch's own
 PROFILE_CLASSES = {
     "window_msa": "K1/K2 attention half-block (its sum pass included)",
     "two_matmul": "K3", "linear_tf32": "K3",
     "ln_linear_bwd": "K11 token pass (LN, dy, finish)",
-    "ln_linear": "K4 (LN pass, product, sum pass)",
+    "ln_linear": "K4 (LN / statistics pass, product, sum pass)",
+    "ln_linear_tf32": "K4 (LN / statistics pass, product, sum pass)",
     "attn_fwd_tc": "K8 attention core forward (mma.sync)",
     "attn_bwd_tc": "K9 attention core backward (mma.sync)",
     "attn_": "K8/K9 FMA kernels", "mlp_bwd": "K10 token pass",
@@ -3640,6 +3697,13 @@ PROFILE_CLASSES = {
     "ln_rows": "LN passes of K3 / K10", "ln_fwd": "K14 LayerNorm forward",
     "ln_bwd": "K15 LayerNorm backward",
     "tulip": "other kernels of the port"}
+
+
+def profile_class(key):
+    """PROFILE_CLASSES' class of a kernel name, or "PyTorch"."""
+    sub = max((s for s in PROFILE_CLASSES if s in key), key=len,
+              default=None)
+    return "PyTorch" if sub is None else PROFILE_CLASSES[sub]
 
 
 def profile_paths(torch, dev, tree):
@@ -3656,8 +3720,6 @@ def profile_paths(torch, dev, tree):
     chiprun_out/profile.json, or with --tree DIR (the package at DIR) to
     chiprun_out/profile_<DIR's name>.json.  No check, no kernel table: the
     default run does those."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from tulip_tpu_torch.models.tulip import apply_model, init_params, tulip_base
     from tulip_tpu_torch.train.step import make_optimizer, make_train_step
 
@@ -3665,7 +3727,7 @@ def profile_paths(torch, dev, tree):
     write_durlar(data_root, 8, 2048)
     weights = init_params(tulip_base(**FLAGSHIP).cfg,
                           torch.Generator().manual_seed(0))
-    report = {}
+    report, lags = {}, []
 
     def run(name, fn, iters):
         for _ in range(3):
@@ -3676,16 +3738,9 @@ def profile_paths(torch, dev, tree):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / iters * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
         rows = sorted(((e.key, e.self_device_time_total / iters / 1e3,
-                        e.count / iters) for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and not e.is_user_annotation
-                       and e.self_device_time_total > 0),
+                        e.count / iters)
+                       for e in profiled(torch, fn, iters, lags)),
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
         print(f"profile {name}: wall {wall:.2f} ms per iteration (not "
@@ -3698,8 +3753,7 @@ def profile_paths(torch, dev, tree):
                       f"{key[:100]}", flush=True)
         classes = dict.fromkeys([*PROFILE_CLASSES.values(), "PyTorch"], 0.0)
         for key, ms, n in rows:
-            classes[next((c for sub, c in PROFILE_CLASSES.items()
-                          if sub in key), "PyTorch")] += ms
+            classes[profile_class(key)] += ms
         print(f"  by class, ms per iteration: "
               f"{ {c: round(ms, 3) for c, ms in classes.items() if ms} }",
               flush=True)
@@ -3753,10 +3807,15 @@ def profile_paths(torch, dev, tree):
         os.environ.pop("TULIP_TPU_LN_PALLAS")
     del tm, step
     torch.cuda.empty_cache()
-    report["attn"] = profile_attn(torch, dev)
+    report["attn"] = profile_attn(torch, dev, lags)
     report["k3_plan"] = k3_plan_ab(torch, dev)
-    report["nn"] = profile_nn(torch, dev, data_root, weights)
-    report["ln"] = profile_ln(torch, dev)
+    report["nn"] = profile_nn(torch, dev, data_root, weights, lags)
+    report["ln"] = profile_ln(torch, dev, lags)
+    got = [v for v in lags if v is not None]
+    print(f"profile windows: {len(lags)}, first device kernel less first "
+          f"launch {min(got):.1f} .. {max(got):.1f} us, below 0 in "
+          f"{sum(v < 0 for v in got)}", flush=True)
+    report["window_lags_us"] = lags
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     name = ("profile.json" if tree == "this checkout" else
@@ -3781,31 +3840,74 @@ K6_CLASSES = {"nn2_bound": "bound", "nn2_list": "lists",
               "nn2_unsort": "unsort"}
 
 
-def device_us(torch, fn, n=10):
-    """{kernel name: device us per call of fn} by torch.profiler, the mean
-    of n calls after a warm-up."""
+# host seconds on each side of a profiled window's calls.  The tracer keeps
+# only the device activity whose timestamps, as it converts them to the
+# host's clock, fall inside the host's window.  In 42 of 840 windows of
+# eight runs the first kernel stood before the first launch, in 17 of
+# them by 1.1 to 29.0 ms, at scattered points of a run (NVIDIA H100 80GB
+# HBM3, torch 2.11): enough to put every kernel of a short window before
+# its start.  The pad is above the largest offset seen, and each retry of
+# an empty window takes ten times the last
+PROFILE_PAD_S = 0.05
+
+
+def window_lag_us(prof):
+    """The first device kernel's start less the first kernel launch's on
+    the host, in us (None without either)."""
+    from torch.autograd import DeviceType
+    dev, host = [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev.append(e.time_range.start)
+        elif "LaunchKernel" in e.name:
+            host.append(e.time_range.start)
+    return min(dev) - min(host) if dev and host else None
+
+
+def profiled(torch, fn, n, lags=None):
+    """The device events (torch.profiler's key_averages) of n calls of fn,
+    the calls PROFILE_PAD_S inside the window on each side; lags, where
+    given, gets the window's window_lag_us.  A window with no device time
+    is taken again, twice, with 10 and 100 times the pad; then the run
+    stops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):   # a window whose events the tracer lost is rerun
+    for attempt in range(3):
+        pad = PROFILE_PAD_S * 10 ** attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = {e.key: e.self_device_time_total / n
-              for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation
-              and e.self_device_time_total > 0}
-        if us:
-            return us
+            time.sleep(pad)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation
+                  and e.self_device_time_total > 0]
+        if events:
+            if lags is not None:
+                lags.append(window_lag_us(prof))
+            return events
+        launches = sum(e.count for e in prof.key_averages()
+                       if "LaunchKernel" in e.key)
+        print(f"profiler window {attempt + 1} (pad {pad * 1e3:.0f} ms): no "
+              f"device time, {launches} kernel launches on the host side",
+              flush=True)
     raise SystemExit("the profiler recorded no device time")
 
 
-def profile_attn(torch, dev):
+def device_us(torch, fn, n=10, lags=None):
+    """{kernel name: device us per call of fn} by torch.profiler
+    (profiled), the mean of n calls after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / n
+            for e in profiled(torch, fn, n, lags)}
+
+
+def profile_attn(torch, dev, lags=None):
     """K8 and K9 in bf16 at every shape of the batch-8 and batch-1 train
     steps, by torch.profiler: device us per call (mean of 10; K9 with its
     d(bias) column sum) beside the bound and F.scaled_dot_product_attention's
@@ -3823,8 +3925,9 @@ def profile_attn(torch, dev):
                 for _, knum, label, kfn, _, _, extra in attn_core_cases(
                         torch, dev, rn, torch.bfloat16, batch, H, W, C, nh,
                         shifted, True, per_step=1 if C == 768 else 2):
-                    kern = device_us(torch, kfn)
-                    lib = sum(device_us(torch, extra["library"]).values())
+                    kern = device_us(torch, kfn, lags=lags)
+                    lib = sum(device_us(torch, extra["library"],
+                                        lags=lags).values())
                     bound = bound_ms(*extra["work"], "bfloat16")[0] * 1e3
                     total = sum(kern.values())
                     for key, v in ((knum, total), (knum + " bound", bound),
@@ -3844,7 +3947,7 @@ def profile_attn(torch, dev):
     return dict(rows=rows, per_step_us=step)
 
 
-def profile_ln(torch, dev):
+def profile_ln(torch, dev, lags=None):
     """K14 and K15 in bf16 at the norm1 shapes of the batch-8 and batch-1
     train steps, by torch.profiler: device us per call (mean of 10; K15
     with every kernel it launches) beside F.layer_norm's and its
@@ -3863,8 +3966,9 @@ def profile_ln(torch, dev):
             for _, knum, label, kfn, _, _, extra in ln_cases(
                     torch, dev, rn, torch.bfloat16, batch * H * W, C,
                     f" batch {batch}", True, per_step):
-                kern = device_us(torch, kfn)
-                lib = sum(device_us(torch, extra["library"]).values())
+                kern = device_us(torch, kfn, lags=lags)
+                lib = sum(device_us(torch, extra["library"],
+                                    lags=lags).values())
                 bound = bound_ms(*extra["work"], "bfloat16")[0] * 1e3
                 total = sum(kern.values())
                 for key, v in ((knum, total), (knum + " bound", bound),
@@ -3907,7 +4011,7 @@ def eval_clouds(torch, dev, data_root, weights):
     return gt, pred, metrics_fn, outs
 
 
-def profile_nn(torch, dev, data_root, weights):
+def profile_nn(torch, dev, data_root, weights, lags=None):
     """K5 and K6 on phase 3's scan and perturbed copy, on a cloud pair far
     apart (the scan against the scan scaled by 0.7, as a poor prediction
     is) and on phase 6's eval clouds, by torch.profiler: device ms per call
@@ -3918,8 +4022,6 @@ def profile_nn(torch, dev, data_root, weights):
     clouds and boxes), bound, lists, first pass, sweep, unsort.  Also the
     per-round pair counts (where the wrapper keeps them) and the
     device-to-host copies a call makes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from tulip_tpu_torch.ops import chamfer as C
     label, a, b, _, _ = chamfer_clouds(torch, dev)[0]
     gt, pred, _, _ = eval_clouds(torch, dev, data_root, weights)
@@ -3936,15 +4038,7 @@ def profile_nn(torch, dev, data_root, weights):
             for _ in range(2):
                 fn(x, y, 1024)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fn(x, y, 1024)
-                torch.cuda.synchronize()
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.is_user_annotation
-                      and e.self_device_time_total > 0]
+            events = profiled(torch, lambda: fn(x, y, 1024), 5, lags)
             kernels = {e.key: e.self_device_time_total / 5 / 1e3
                        for e in events}
             dtoh = sum(e.count for e in events if "DtoH" in e.key) / 5
@@ -4055,6 +4149,75 @@ def k3_f32_forms(torch, dev, tree):
             f"k3_forms_{os.path.basename(os.path.abspath(tree))}.json")
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(dict(tree=tree, rows=rows), f, indent=1)
+    return 0
+
+
+def k4_f32_depths(torch, dev):
+    """``python3 chip_smoke.py --k4-depths``: the fp32 K4 (split TF32) at
+    the flagship's merges of batch 1 and 8 and TULIP-large's K 3,072,
+    launched through its C entry point at each depth of K a split (192,
+    384, 768, all of K; the split count each gives, depths that give the
+    same count taken once): each depth's error against float64 (max /
+    max|ref|), whether its bits equal fused_ln_linear's (the plan's
+    depth), and its device time by the profiler, the depths timed in
+    turns (in order, then reversed).  Lands in chiprun_out/k4_depths.json."""
+    from tulip_tpu_torch.ops import build, mlp
+    lib = build.load()
+    g = torch.Generator().manual_seed(4)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g) * scale + shift).to(dev)
+
+    def launch(x, lnw, lnb, w, splits):
+        (N, K), O = x.shape, w.shape[0]
+        out = torch.empty((N, O), device=dev)
+        stat = torch.empty((N, 2), device=dev)
+        partial = (torch.empty((splits, N, O), device=dev) if splits > 1
+                   else None)
+        err = lib.tulip_ln_linear(
+            build.dtype_code(x), x.data_ptr(), out.data_ptr(),
+            lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), stat.data_ptr(),
+            build.ptr(partial), N, K, O, 1e-6, 64, splits, mlp.SMEM_F32,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(lib, err, "ln_linear")
+        return out
+
+    shapes = [(b * (H // 2) * (W // 2), 4 * C) for b in (1, 8)
+              for (H, W), C, _ in STAGES[:-1]]
+    shapes += [(64, 3072), (512, 3072)]
+    rows = []
+    for N, K in shapes:
+        x = rn(N, K)
+        args = (rn(K, scale=0.1, shift=1.0), rn(K, scale=0.1),
+                rn(K // 2, K, scale=K ** -0.5))
+        ref = mlp.fused_ln_linear_ref(x.double(), *[a.double() for a in args])
+        mine = mlp.fused_ln_linear(x, *args)
+        kt, depths = K // 32, {}
+        for d in (192, 384, 768, K):
+            depths.setdefault(-(-kt // min(kt, d // 32)), d)
+        row = dict(N=N, K=K, plan=mlp.ln_linear_plan_f32(N, K, K // 2))
+        for splits, d in depths.items():
+            out = launch(x, *args, splits)
+            row[d] = dict(splits=splits, us=[], equal_to_plan=torch.equal(
+                out, mine), max_rel=((out.double() - ref).abs().max()
+                                     / ref.abs().max()).item())
+        order = list(depths.items())
+        for splits, d in order + order[::-1]:
+            row[d]["us"].append(sum(device_us(
+                torch, lambda: launch(x, *args, splits)).values()))
+        del ref
+        torch.cuda.empty_cache()
+        print(f"K4 fp32 depths N={N} K={K}: " + "; ".join(
+            f"depth {d} ({r['splits']} splits): device "
+            f"{[round(u, 2) for u in r['us']]} us, err/max|ref| "
+            f"{r['max_rel']:.3e}, bits of the plan {r['equal_to_plan']}"
+            for d, r in row.items() if isinstance(d, int)), flush=True)
+        rows.append(row)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "k4_depths.json"), "w") as f:
+        json.dump(dict(rows=[{str(k): v for k, v in r.items()}
+                             for r in rows]), f, indent=1)
     return 0
 
 
@@ -4929,6 +5092,9 @@ def main() -> int:
     if "--k3-forms" in sys.argv[1:]:
         build.load()
         return k3_f32_forms(torch, dev, tree)
+    if "--k4-depths" in sys.argv[1:]:
+        build.load()
+        return k4_f32_depths(torch, dev)
     if "--ranks" in sys.argv[1:]:
         build.load()
         n = int(sys.argv[sys.argv.index("--ranks") + 1])
@@ -4959,7 +5125,7 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    hgmma, hmma, wide, tf32 = sass_counts(build)
+    hgmma, hmma, wide, tf32, functions = sass_counts(build)
     hgmma = {k: hgmma[k] for k in TENSOR_CORE_KERNELS}
     hmma = {k: hmma[k] for k in MMA_SYNC_KERNELS}
     print(f"build: tensor-core instructions in the bf16 kernels: HGMMA "
@@ -4969,9 +5135,15 @@ def main() -> int:
           f"kernels {tf32}", flush=True)
     if not (tf32["two_matmul_tf32_kernel"][0]
             and tf32["linear_tf32_kernel"][0]
+            and tf32["ln_linear_tf32_kernel"][0]
             and all(tf32["window_msa_tf32_kernel"])):
         raise SystemExit(f"an fp32 split-TF32 kernel lacks its TF32 "
                          f"tensor-core instructions: {tf32}")
+    fma_k4 = [f for f in functions if "ln_linear_kernel" in f]
+    print(f"build: {len(functions)} functions in the library, fp32 FMA K4 "
+          f"(ln_linear_kernel) among them: {fma_k4}", flush=True)
+    if fma_k4:
+        raise SystemExit(f"the FMA K4 is still built: {fma_k4}")
     if not all(hgmma.values()):
         raise SystemExit(f"a bf16 tensor-core kernel holds no HGMMA: {hgmma}")
     if not all(hmma.values()):
@@ -4996,6 +5168,7 @@ def main() -> int:
     table += check_kernel_cases(torch, [c + (10,) for c in layouts])
     check_ln_launches(torch, dev)
     check_f32_refusals(torch, dev)
+    check_ln_linear_rows(torch, dev)
     check_deterministic(torch, dev, cases + more + train_cases + layouts)
     del cases, more, train_cases, layouts
     table += chamfer_checks(torch, dev)

@@ -1,20 +1,22 @@
 """The launch plans and the arithmetic of the fp32 split-TF32 kernels
 (csrc/window_msa.cu window_msa_tf32_kernel for K1 / K2 / K12 / K13,
-csrc/mlp.cu two_matmul_tf32_kernel for K3), in plain Python and numpy: no
-card is needed.
+csrc/mlp.cu two_matmul_tf32_kernel for K3, ln_linear_tf32_kernel for K4),
+in plain Python and numpy: no card is needed.
 
 - The plans (ops/window_msa.py:window_msa_plan_f32, ops/mlp.py:
-  two_matmul_plan_f32) fit a block's 227 KB of shared memory and cover every
-  token row, head, hidden unit and output column once, at every shape of
-  TULIP-base and TULIP-large at 32 x 2048 (batch 1, 2, 8, one process and a
-  W shard of --sp_degree 2 / 4) and of the SwinV2-T classifier (batch 1,
-  128).
+  two_matmul_plan_f32, ln_linear_plan_f32) fit a block's 227 KB of shared
+  memory and cover every token row, head, hidden unit, output column and
+  32-deep tile of K once, at every shape of TULIP-base and TULIP-large at
+  32 x 2048 (batch 1, 2, 8, one process and a W shard of --sp_degree 2 /
+  4) and of the SwinV2-T classifier (batch 1, 128).
 - Their split launches' partial sums, added in split order, equal the
   unsplit product in float64 (summation order only).
 - Split TF32: with hi = rna_tf32(a), lo = rna_tf32(a - hi), the three
   products hi hi + hi lo + lo hi hold fp32's accuracy (within 1e-6 of
   max|float64|), where one TF32 product does not: the reason the kernels
-  split."""
+  split.  K4 as its kernel computes it (the rows' statistics in the
+  statistics pass's order, LN applied as each tile splits, the tiles
+  folded, the splits added in order) holds it too."""
 
 import numpy as np
 import pytest
@@ -282,3 +284,148 @@ def test_split_tf32_products_hold_fp32_accuracy(K):
     prod = xh * yh + xh * yl + xl * yh
     assert (np.abs(prod - x * y) <= 2.0 ** -21 * np.abs(x * y)).all()
     assert (np.abs(xh * yh - x * y) > 2.0 ** -16 * np.abs(x * y)).any()
+
+
+# ---------------------------------------------------------------------------
+# fp32 K4: ops/mlp.py:ln_linear_plan_f32 and ln_linear_tf32_kernel's sums
+# ---------------------------------------------------------------------------
+
+def _merge_f32_shapes():
+    """(N, K) of every fp32 K4 launch: the merges of TULIP-base and -large
+    (a stage's tokens / 4 at 4 C) at batch 1, 2, 8, in one process and on
+    a W shard of --sp_degree 2 / 4, and a ragged token count."""
+    out = {(1000, 384)}
+    for stages in (BASE, LARGE):
+        for b in (1, 2, 8):
+            for sp in (1, 2, 4):
+                for t, c, _ in stages[:-1]:
+                    out.add((t * b // 4 // sp, 4 * c))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("N,K", _merge_f32_shapes())
+def test_ln_linear_f32_plan_fits_and_covers(N, K):
+    O = K // 2
+    p = TM.ln_linear_plan_f32(N, K, O)
+    assert p["rows"] == 64 and p["bn"] == 64 and p["stages"] == 3
+    # the K3 kernels' ring: two blocks share an SM
+    assert p["smem"] == TM.SMEM_F32 <= TM.SMEM_TWO_PER_SM
+    # every 32-deep tile of K in exactly one split, none empty
+    kt, kts, splits = K // 32, p["kts"], p["splits"]
+    assert kts * 32 <= TM.F32_LN_DEPTH and splits == -(-kt // kts)
+    tiles = []
+    for s in range(splits):
+        mine = range(s * kts, min((s + 1) * kts, kt))
+        assert len(mine) > 0
+        tiles += mine
+    assert tiles == list(range(kt))
+    # the split launches' partial sums stay under the cap: rows in launches
+    # of max_rows (64-row tiles, so each launch's tiles are the unsplit
+    # call's), every row in exactly one
+    if splits == 1:
+        assert p["max_rows"] is None
+    else:
+        m = p["max_rows"]
+        assert m % 64 == 0 and splits * m * O * 4 <= TM.PARTIAL_CAP
+        rows = [r for r0 in range(0, N, m) for r in range(r0, min(N, r0 + m))]
+        assert rows == list(range(N))
+
+
+@pytest.mark.parametrize("K", [384, 768, 1536, 3072])
+def test_ln_linear_f32_plan_ignores_the_token_count(K):
+    """The token count sets the row tiles and nothing else: a token's sums
+    run in one order in a batch-1 call, a W shard, a data rank or a batch
+    of eight."""
+    plans = [TM.ln_linear_plan_f32(n, K, K // 2)
+             for n in (1, 64, 1000, 4096, 32768)]
+    assert all(q == plans[0] for q in plans)
+    assert plans[0]["splits"] == K // 384
+
+
+@pytest.mark.parametrize("N,K", [(4096, 384), (1024, 768), (256, 1536),
+                                 (64, 3072)])
+def test_ln_linear_f32_plan_fills_the_card_at_batch_1(N, K):
+    """TULIP-base's batch-1 merges (the default evaluation) and
+    TULIP-large's deepest give at least one CTA per SM: row tiles x
+    64-column tiles x splits = 192 each."""
+    p = TM.ln_linear_plan_f32(N, K, K // 2)
+    ctas = -(-N // 64) * -(-(K // 2) // 64) * p["splits"]
+    assert ctas == 192 >= TM.NUM_SMS
+
+
+def _warp_sum(v):
+    """warp_sum of csrc/common.cuh on (rows, 32) fp32 lane values: the xor
+    butterfly over offsets 16, 8, 4, 2, 1 (every lane ends with the same
+    sum)."""
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[:, np.arange(32) ^ o]).astype(np.float32)
+    return v[:, 0]
+
+
+def _row_mean_rstd(x, eps):
+    """csrc/mlp.cu row_mean_rstd on fp32 rows: lane l adds the row's
+    16-byte chunks l, l + 32, ..., each as (a + b) + (c + d), the warp adds
+    the lanes; then the squared deviations alike."""
+    N, K = x.shape
+    f = np.float32
+    chunks = K // 4
+    per = -(-chunks // 32)
+
+    def lanes(parts):   # parts: (N, chunks) -> (N, 32) lane sums in order
+        pad = np.zeros((N, per * 32), f)
+        pad[:, :chunks] = parts
+        acc = np.zeros((N, 32), f)
+        for j in range(per):
+            acc = (acc + pad[:, 32 * j:32 * j + 32]).astype(f)
+        return acc
+
+    c = x.reshape(N, chunks, 4)
+    s = ((c[..., 0] + c[..., 1]) + (c[..., 2] + c[..., 3])).astype(f)
+    mean = (_warp_sum(lanes(s)) / f(K)).astype(f)
+    e = (c - mean[:, None, None]).astype(f)
+    e = (e * e).astype(f)
+    d = ((e[..., 0] + e[..., 1]) + (e[..., 2] + e[..., 3])).astype(f)
+    var = (_warp_sum(lanes(d)) / f(K)).astype(f)
+    return mean, (f(1) / np.sqrt(var + f(eps))).astype(f)
+
+
+@pytest.mark.parametrize("N,K", [(256, 1536), (1024, 768), (100, 384),
+                                 (64, 3072)])
+def test_ln_linear_f32_split_sums_hold_fp32_accuracy(N, K):
+    """What the fp32 K4 computes, modelled in numpy fp32: the rows'
+    statistics in the statistics pass's order, the LayerNorm applied to
+    each 32-deep tile of x as it splits, each tile's three TF32 products
+    summed (lo hi + hi lo, then hi hi) and added to the split's fp32 total
+    in tile order, the splits' totals added in split order; against the
+    plain LN + product in float64 within 1e-6 of max|ref|, as fp32 itself
+    is."""
+    O, eps, f = K // 2, 1e-6, np.float32
+    rng = np.random.default_rng(K + N)
+    x = (rng.normal(0, 1, (N, K)) + rng.normal(0, 2, (N, 1))).astype(f)
+    lnw = rng.normal(1, 0.1, K).astype(f)
+    lnb = rng.normal(0, 0.1, K).astype(f)
+    w = (rng.normal(0, 1, (O, K)) * K ** -0.5).astype(f)
+    p = TM.ln_linear_plan_f32(N, K, O)
+    mean, rstd = _row_mean_rstd(x, eps)
+    out = np.zeros((N, O), f)
+    for s in range(p["splits"]):
+        total = np.zeros((N, O), f)
+        for t in range(s * p["kts"], min((s + 1) * p["kts"], K // 32)):
+            cols = slice(32 * t, 32 * t + 32)
+            y = ((x[:, cols] - mean[:, None]) * rstd[:, None] * lnw[cols]
+                 + lnb[cols]).astype(f)
+            (yh, yl), (bh, bl) = _split(y), _split(w[:, cols])
+            tile = ((yl @ bh.T + yh @ bl.T) + yh @ bh.T).astype(f)
+            total = (total + tile).astype(f)
+        out = (out + total).astype(f)
+    ref = TM.fused_ln_linear_ref(*(torch.from_numpy(a).double()
+                                   for a in (x, lnw, lnb, w)), eps=eps)
+    ref = ref.numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(out - ref).max() <= 1e-6 * scale
+    # the statistics themselves: fp32's accuracy against float64
+    x64 = x.astype(np.float64)
+    m64 = x64.mean(1)
+    r64 = 1 / np.sqrt(((x64 - m64[:, None]) ** 2).mean(1) + eps)
+    assert np.abs(mean - m64).max() <= 1e-6 * np.abs(x64).max()
+    assert (np.abs(rstd - r64) <= 1e-6 * r64).all()

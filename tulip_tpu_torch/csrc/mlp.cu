@@ -110,45 +110,30 @@
 // products, or the split's conversions, out moved a batch-8 forward's K3
 // time by under 10 %); the latency of one warpgroup's chain of tiles, two
 // barriers a tile, is what is left.
-// fp32 K4: ln_linear_kernel, the FMA kernel on the CUDA cores (16 rows per
-// CTA, common.cuh), the parity path.
+// fp32 K4 (the patch-merging LN + reduction of the default evaluation):
+// split TF32 on the tensor cores too, on linear_tf32_kernel's body (LN
+// applied as each 32-deep x tile splits, three TF32 products a product,
+// every tile folded into an fp32 total) under its own names, so that a
+// profile or a SASS count books it as K4.  Bound: 2 N K O operations at
+// 165 TFLOP/s, about 3.7 us a batch-1 merge, above its bytes.
+//   - ln_linear_stats_f32_kernel: each row's mean and 1/std once (one warp
+//     a row, 16-byte loads, an order fixed by K), 8 bytes a row, for the
+//     product's CTAs to read; the product would otherwise re-read its 64
+//     rows whole in each of its column tiles x splits of K (48 times at
+//     the deepest batch-1 merge; that form measured 1.3-2.3x slower).
+//   - ln_linear_tf32_kernel, grid (64-row tiles, 64-column tiles, splits
+//     of K): K split by the widths alone, so a token's sums run in one
+//     order at any token count, and a W shard or a data rank gives its
+//     output bit for bit as one process does.
+//   - ln_linear_sum_f32_kernel: the splits' fp32 partial sums added in
+//     split order (no bias, no residual).
+// What bounds it as built (NVIDIA H100 80GB HBM3, 700 W; PERF.md): each
+// batch-1 merge takes about 32 us of device time whatever its width (the
+// product about 29 of it, some 2.4 us a 32-deep tile: K3's chain latency
+// again), 8-9x its bound; batch 8 reaches about 26 TFLOP/s.
 #include "mma.cuh"
 
 namespace tulip {
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ln_linear_kernel(
-    const T* __restrict__ x, T* __restrict__ out, const T* __restrict__ lnw,
-    const T* __restrict__ lnb, const T* __restrict__ w, int N, int K, int O,
-    float eps) {
-  extern __shared__ float smem[];
-  float* xn = smem;                       // [16][K]
-  float* wtile = xn + kRows * K;
-  const long long r0 = (long long)blockIdx.x * kRows;
-  load_rows(x, xn, r0, N, K);
-  __syncthreads();
-  layer_norm_rows<T>(xn, K, K, lnw, lnb, eps);
-  gemm_rows<T>(xn, K, K, w, K, identity_rows(), O, wtile,
-               [&](int r, int n, float v) {
-                 if (r0 + r < N) out[(r0 + r) * O + n] = from_f<T>(v);
-               });
-}
-
-template <typename T>
-cudaError_t launch_ln_linear(const void* x, void* out, const void* lnw,
-                             const void* lnb, const void* w, int N, int K,
-                             int O, float eps, cudaStream_t stream) {
-  if (K % kKC || N <= 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (kRows * K + kWTileFloats);
-  cudaError_t err = prepare_smem(ln_linear_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (N + kRows - 1) / kRows;
-  ln_linear_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<const T*>(lnw), static_cast<const T*>(lnb),
-      static_cast<const T*>(w), N, K, O, eps);
-  return cudaGetLastError();
-}
 
 namespace tc {
 
@@ -750,17 +735,19 @@ __global__ void __launch_bounds__(kThreads) two_matmul_sum_f32_kernel(
 // CTAs where the tiles are few.
 // grid (row tiles of 64, tiles of 64 output columns, splits of K); kts
 // 32-deep tiles of K a split (the last may hold fewer).  sum = [LN](a)
-// b^T over the split's tiles (a: N x K rows, LN from row_stats in
-// split_rows as in K3; b: ncols x K, torch layout); HIDDEN: act(sum +
-// bias) to out (N x ncols); else partial non-null: the split's sums to
-// partial[split][N][ncols]; else sum [+ bias] [+ x] to out.
-template <int ACT, bool HIDDEN>
-__global__ void __launch_bounds__(kWg) linear_tf32_kernel(
+// b^T over the split's tiles (a: N x K rows, LN applied in split_rows_ln
+// with the statistics stats(r0, stat) leaves in shared memory; b: ncols x
+// K, torch layout); HIDDEN: act(sum + bias) to out (N x ncols); else
+// partial non-null: the split's sums to partial[split][N][ncols]; else sum
+// [+ bias] [+ x] to out.  The body of K3's linear_tf32_kernel and of K4's
+// ln_linear_tf32_kernel.
+template <int ACT, bool HIDDEN, typename Stats>
+__device__ __forceinline__ void linear_tf32_tile(
     const float* __restrict__ a, const float* __restrict__ b,
     const float* __restrict__ bias, const float* __restrict__ lnw,
     const float* __restrict__ lnb, const float* __restrict__ x,
     float* __restrict__ out, float* __restrict__ partial, int N, int K,
-    int ncols, int kts, float eps) {
+    int ncols, int kts, Stats stats) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   float* stat = reinterpret_cast<float*>(sm + kTmF32Stages * kTmF32Stage);
@@ -771,8 +758,7 @@ __global__ void __launch_bounds__(kWg) linear_tf32_kernel(
   const int row = frag_row();
   float2 st_ln[2];
   if (lnw) {
-    row_stats([&](int r) { return r0 + r < N ? a + (r0 + r) * K : nullptr; },
-              K, eps, stat);
+    stats(r0, stat);
     __syncthreads();
     thread_stats(stat, st_ln);
   }
@@ -837,6 +823,23 @@ __global__ void __launch_bounds__(kWg) linear_tf32_kernel(
       *reinterpret_cast<float2*>(out + r * ncols + col) = make_float2(v0, v1);
     }
   }
+}
+
+// K3's two passes: linear_tf32_tile with the statistics of row_stats.
+template <int ACT, bool HIDDEN>
+__global__ void __launch_bounds__(kWg) linear_tf32_kernel(
+    const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ bias, const float* __restrict__ lnw,
+    const float* __restrict__ lnb, const float* __restrict__ x,
+    float* __restrict__ out, float* __restrict__ partial, int N, int K,
+    int ncols, int kts, float eps) {
+  linear_tf32_tile<ACT, HIDDEN>(
+      a, b, bias, lnw, lnb, x, out, partial, N, K, ncols, kts,
+      [&](long long r0, float* stat) {
+        row_stats(
+            [&](int r) { return r0 + r < N ? a + (r0 + r) * K : nullptr; },
+            K, eps, stat);
+      });
 }
 
 // The two passes under the plan's two-pass form: h (N x Hd fp32 scratch),
@@ -943,6 +946,124 @@ cudaError_t launch_two_matmul_tf32_plan(int bo, const float* x, float* out,
                                         hs, splits, smem, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// fp32 K4: ln_linear_tf32_kernel, split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+// A row's mean and 1/std in fp32, by one warp: lane l sums the row's
+// 16-byte chunks l, l + 32, ... (each (x + y) + (z + w)), the warp adds
+// the lanes' sums; then the squared deviations alike, reading the row
+// again (from L1).  The order depends on K alone.  K % 4 == 0, p 16-byte
+// aligned.
+__device__ __forceinline__ float2 row_mean_rstd(const float* __restrict__ p,
+                                                int K, float eps) {
+  const int lane = threadIdx.x & 31;
+  const float4* q = reinterpret_cast<const float4*>(p);
+  float s = 0.f;
+#pragma unroll 4
+  for (int c = lane; c < K / 4; c += 32) {
+    const float4 v = q[c];
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mean = warp_sum(s) / K;
+  float d = 0.f;
+#pragma unroll 4
+  for (int c = lane; c < K / 4; c += 32) {
+    const float4 v = q[c];
+    const float e0 = v.x - mean, e1 = v.y - mean, e2 = v.z - mean,
+                e3 = v.w - mean;
+    d += (e0 * e0 + e1 * e1) + (e2 * e2 + e3 * e3);
+  }
+  return make_float2(mean, rsqrtf(warp_sum(d) / K + eps));
+}
+
+// The statistics pass: stat[r] = (mean, 1/std) of row r, one warp a row.
+__global__ void __launch_bounds__(kThreads) ln_linear_stats_f32_kernel(
+    const float* __restrict__ x, float2* __restrict__ stat, int N, int K,
+    float eps) {
+  const long long r =
+      (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= N) return;
+  const float2 v = row_mean_rstd(x + r * K, K, eps);
+  if ((threadIdx.x & 31) == 0) stat[r] = v;
+}
+
+// grid (row tiles of 64, tiles of 64 output columns, splits of K): the
+// split's LN(x) w^T over its kts 32-deep tiles of K (linear_tf32_tile; w
+// O x K in torch layout), the rows' statistics gstat from the statistics
+// pass.  partial null: the sums to out; else to partial[split][N][O].
+__global__ void __launch_bounds__(kWg) ln_linear_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ lnw, const float* __restrict__ lnb,
+    const float2* __restrict__ gstat, float* __restrict__ out,
+    float* __restrict__ partial, int N, int K, int O, int kts) {
+  linear_tf32_tile<kGelu, false>(
+      x, w, nullptr, lnw, lnb, nullptr, out, partial, N, K, O, kts,
+      [&](long long r0, float* stat) {
+        for (int r = threadIdx.x; r < kBM; r += kWg) {
+          const float2 v = r0 + r < N ? gstat[r0 + r] : make_float2(0.f, 0.f);
+          stat[2 * r] = v.x;
+          stat[2 * r + 1] = v.y;
+        }
+      });
+}
+
+// out = sum over splits, in split order, fp32: two columns per thread.
+__global__ void __launch_bounds__(kThreads) ln_linear_sum_f32_kernel(
+    const float* __restrict__ partial, float* __restrict__ out,
+    long long total, int splits) {
+  const long long idx =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) * 2;
+  if (idx >= total) return;
+  float2 v = make_float2(0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float2 p =
+        *reinterpret_cast<const float2*>(partial + (size_t)s * total + idx);
+    v.x += p.x;
+    v.y += p.y;
+  }
+  *reinterpret_cast<float2*>(out + idx) = v;
+}
+
+// Plan (ops/mlp.py:ln_linear_plan_f32): bn (64) output columns a CTA,
+// splits of K, every 32-deep tile in exactly one split (kts tiles each,
+// the last may hold fewer), smem; stat (N float2) the statistics pass's
+// scratch; partial (splits, N, O) for more than one split.  A plan that
+// differs from the kernel's needs is refused.
+cudaError_t launch_ln_linear_tf32(const float* x, float* out,
+                                  const float* lnw, const float* lnb,
+                                  const float* w, float2* stat,
+                                  float* partial, int N, int K, int O,
+                                  float eps, int bn, int splits, int smem,
+                                  cudaStream_t stream) {
+  const int kt = K / 32;
+  if (K % kKC || O % 2 || N <= 0 || O <= 0 || !stat || bn != 64 ||
+      splits < 1 || splits > kt || (O + 63) / 64 > 65535 ||
+      (splits > 1) != (partial != nullptr) || (size_t)smem != kTmF32Smem)
+    return cudaErrorInvalidValue;
+  const int kts = (kt + splits - 1) / splits;
+  if ((kt + kts - 1) / kts != splits) return cudaErrorInvalidValue;
+  const int per = kThreads / 32;
+  ln_linear_stats_f32_kernel<<<(unsigned)((N + per - 1) / per), kThreads, 0,
+                               stream>>>(x, stat, N, K, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = prepare_smem(ln_linear_tf32_kernel, kTmF32Smem)) != cudaSuccess)
+    return err;
+  ln_linear_tf32_kernel<<<dim3((N + kBM - 1) / kBM, (O + 63) / 64, splits),
+                          kWg, kTmF32Smem, stream>>>(
+      x, w, lnw, lnb, stat, out, partial, N, K, O, kts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long total = (long long)N * O;
+  ln_linear_sum_f32_kernel<<<(unsigned)((total / 2 + kThreads - 1) /
+                                        kThreads),
+                             kThreads, 0, stream>>>(partial, out, total,
+                                                    splits);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace tulip
@@ -989,9 +1110,11 @@ extern "C" int tulip_two_matmul(int dtype, int act, const void* x, void* out,
   return cudaErrorInvalidValue;
 }
 
-// fp32: the FMA kernel; y, partial and the plan (bn, splits, smem) are not
-// read.  bf16: the LN pass, the tensor-core product under that plan and,
-// for more than one split, the sum pass.
+// fp32: the statistics pass to y, the (N, 2) fp32 scratch, and the
+// split-TF32 kernels under the plan (bn, splits, smem); partial (splits,
+// N, O) fp32 for more than one split.  bf16: the LN pass to y, the
+// tensor-core product under that plan and, for more than one split, the
+// sum pass.
 extern "C" int tulip_ln_linear(int dtype, const void* x, void* out,
                                const void* lnw, const void* lnb,
                                const void* w, void* y, void* partial, int N,
@@ -1000,8 +1123,11 @@ extern "C" int tulip_ln_linear(int dtype, const void* x, void* out,
   using bf16 = __nv_bfloat16;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tulip::launch_ln_linear<float>(x, out, lnw, lnb, w, N, K, O, eps,
-                                          s);
+    return tulip::tc::launch_ln_linear_tf32(
+        static_cast<const float*>(x), static_cast<float*>(out),
+        static_cast<const float*>(lnw), static_cast<const float*>(lnb),
+        static_cast<const float*>(w), static_cast<float2*>(y),
+        static_cast<float*>(partial), N, K, O, eps, bn, splits, smem, s);
   if (dtype == 1)
     return tulip::tc::launch_ln_linear_tc(
         static_cast<const bf16*>(x), static_cast<bf16*>(out),

@@ -17,10 +17,11 @@ and launches its kernels for a CUDA tensor; any other device raises.
 In bf16 K3, K4, the token passes of K10 and K11 and the weight-gradient
 products run on the tensor cores (``csrc/mma.cuh``) under the launch plans
 computed here (:func:`two_matmul_plan`, :func:`ln_linear_plan`,
-:func:`dy_splits`, ``reduce.tn_gemm_plan``).  In fp32 K3 runs on the
+:func:`dy_splits`, ``reduce.tn_gemm_plan``).  In fp32 K3 and K4 run on the
 tensor cores too, in split TF32 (three TF32 products a product, about
-fp32's accuracy) under :func:`two_matmul_plan_f32`; K4, K10 and K11 run on
-the FMA kernels, the parity path.
+fp32's accuracy) under :func:`two_matmul_plan_f32` and
+:func:`ln_linear_plan_f32`; the fp32 backwards K10 and K11 run on the FMA
+kernels, the parity path.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ _F32_HID = 64          # hidden units per tile of the fp32 K3 (kTmF32Hid)
 # ring stages of 128 rows x 32 fp32 as hi and lo, the 64 rows' LN
 # statistics; two blocks share an SM
 SMEM_F32 = 1024 + 3 * 2 * 128 * 128 + _ROWS * 8
+F32_LN_DEPTH = 384     # depth of K a split of the fp32 K4 (ln_linear_plan_f32)
 
 
 def check_widths(C: int, Hd: int, O: int, residual: bool, what: str) -> None:
@@ -136,6 +138,46 @@ def two_matmul_plan_f32(N: int, C: int, Hd: int, O: int) -> dict:
     hs = -(-min(hs, Hd) // unit) * unit
     return dict(rows=_ROWS, two_pass=two_pass, bo=bo, chunks=-(-O // bo),
                 hs=hs, splits=-(-Hd // hs), stages=3, smem=SMEM_F32)
+
+
+def ln_linear_plan_f32(N: int, K: int, O: int) -> dict:
+    """Launch plan of the fp32 split-TF32 K4 (``csrc/mlp.cu``
+    ln_linear_tf32_kernel), grid (row tiles, column tiles, splits), from
+    the widths alone: N only sets the row tiles, so each token's sums run
+    in one order whatever the call's token count, and a W shard or a data
+    rank gives a token's output bit for bit as one process does (the
+    bf16 :func:`ln_linear_plan` splits by N).
+
+    rows        token rows per CTA (64, one warpgroup);
+    bn          output columns per CTA (64);
+    kts         32-deep tiles of K a split: ``F32_LN_DEPTH`` / 32, or all
+                of K where it is shallower.  TULIP's merges (K 384 / 768 /
+                1,536, TULIP-large's 3,072) split 1 / 2 / 4 / 8 times, so
+                each batch-1 merge (64 / 16 / 4 / 1 row tiles) gives 192
+                CTAs for the 132 SMs; each tile's tensor-core sum is added
+                to an fp32 total, so kts does not set the accuracy.  At
+                batch 1, 384 deep is the fastest or within 3 % of it at
+                every merge (768 deep: 1.4-1.5x slower at K >= 768); at
+                batch 8, 768 deep is 11 % faster at K 768 and 1-5 % at
+                K 1,536 / 3,072 (device time, NVIDIA H100 80GB HBM3,
+                700 W; ``chip_smoke.py --k4-depths``);
+    splits      ceil(K / 32 / kts) >= 1, every tile in exactly one split;
+                above 1 a last launch adds the (splits, rows, O) fp32
+                partial sums in split order;
+    max_rows    rows a launch takes where K is split (a multiple of 64):
+                the partial sums stay under ``PARTIAL_CAP``; the wrapper
+                walks longer inputs in launches of max_rows rows (None:
+                one launch);
+    smem        ``SMEM_F32`` (two blocks share an SM).  The C entry point
+                recomputes the tiling and refuses a plan that differs."""
+    kt = -(-K // 32)
+    kts = min(kt, F32_LN_DEPTH // 32)
+    splits = -(-kt // kts)
+    max_rows = None
+    if splits > 1:
+        max_rows = max(_ROWS, PARTIAL_CAP // (4 * splits * O) // _ROWS * _ROWS)
+    return dict(rows=_ROWS, bn=64, kts=kts, splits=splits, max_rows=max_rows,
+                stages=3, smem=SMEM_F32)
 
 
 def dy_splits(N: int, C: int, Hd: int) -> int:
@@ -289,7 +331,10 @@ def fused_ln_linear_ref(x2d, lnw, lnb, w, *, eps: float = 1e-6):
 def fused_ln_linear(x2d, lnw, lnb, w, *, eps: float = 1e-6):
     """LN(x) @ w.T (the patch-merging norm + reduction).  CUDA, bf16: the
     LN pass to scratch y, the tensor-core product under
-    :func:`ln_linear_plan` and, where K is split, the sum pass."""
+    :func:`ln_linear_plan` and, where K is split, the sum pass.  fp32:
+    the statistics pass, the split-TF32 product under
+    :func:`ln_linear_plan_f32` and, where K is split, the sum pass, in
+    launches of at most ``max_rows`` rows."""
     if x2d.device.type == "cpu":
         return fused_ln_linear_ref(x2d, lnw, lnb, w, eps=eps)
     if x2d.device.type != "cuda":
@@ -306,21 +351,32 @@ def fused_ln_linear(x2d, lnw, lnb, w, *, eps: float = 1e-6):
     lib = build.load()
     out = torch.empty((N, O), device=dev, dtype=d)
     y = partial = None
-    plan = dict(bn=0, splits=0, smem=0)
+    step = N
     if d == torch.bfloat16:
         plan = ln_linear_plan(N, K, O)
         y = torch.empty_like(x2d)
-        if plan["splits"] > 1:
-            partial = torch.empty((plan["splits"], N, O), device=dev,
-                                  dtype=torch.float32)
+    else:
+        if O % 2:
+            raise NotImplementedError(
+                f"fp32 ln_linear kernel takes an even O, got O={O}")
+        for name, t in (("x", x2d), ("lnw", lnw), ("lnb", lnb), ("w", w)):
+            build.require_aligned(name, t)   # 16-byte loads
+        plan = ln_linear_plan_f32(N, K, O)
+        step = min(N, plan["max_rows"] or N)
+        y = torch.empty((step, 2), device=dev, dtype=d)   # rows' statistics
+    if plan["splits"] > 1:
+        partial = torch.empty((plan["splits"], step, O), device=dev,
+                              dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tulip_ln_linear(
-            build.dtype_code(x2d), x2d.data_ptr(), out.data_ptr(),
-            lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), build.ptr(y),
-            build.ptr(partial), N, K, O, float(eps), plan["bn"],
-            plan["splits"], plan["smem"], stream)
-    build.check(lib, err, "ln_linear")
+        for r0 in range(0, N, step):
+            n = min(step, N - r0)
+            err = lib.tulip_ln_linear(
+                build.dtype_code(x2d), x2d[r0:].data_ptr(),
+                out[r0:].data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
+                w.data_ptr(), build.ptr(y), build.ptr(partial), n, K, O,
+                float(eps), plan["bn"], plan["splits"], plan["smem"], stream)
+            build.check(lib, err, "ln_linear")
     fused_ln_linear.launches += 1
     return out
 

@@ -32,8 +32,13 @@ Phases, one line or more each; any failure raises and exits non-zero:
    (LDG.E.128 / STG.E.128), and the fp32 split-TF32 kernels (K3's
    two_matmul_tf32_kernel and linear_tf32_kernel, K4's
    ln_linear_tf32_kernel, the half-block's window_msa_tf32_kernel) HGMMA
-   with TF32 operands, the half-block also HMMA with TF32 operands; no
-   fp32 FMA K4 (ln_linear_kernel) is left in the library.
+   with TF32 operands, the half-block also HMMA with TF32 operands, and
+   so the fp32 K10 / K11 kernels (mlp_bwd_hidden_tf32_kernel,
+   mlp_bwd_dy_tf32_kernel, ln_linear_bwd_dy_tf32_kernel) and the fp32
+   weight-gradient product (tn_gemm_tf32_kernel); no fp32 FMA K4, K10, K11
+   or tn_gemm (ln_linear_kernel, two_matmul_bwd_kernel,
+   ln_linear_bwd_kernel, tn_gemm_kernel) is left in the library; ptxas'
+   spills of the split-TF32 kernels are printed.
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
@@ -42,7 +47,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    cores, whether its kernel runs them there or not), and K3 with O = 12
    and K1 with 4 x 8 windows refused on the card in fp32, K4 with an
    odd O too; the fp32 K4 at each merge's width gives a token the same
-   bits in one image's rows as in eight images' (and in 1,000 rows).
+   bits in one image's rows as in eight images' (and in 1,000 rows), and
+   so does the fp32 K10 / K11's dx at each MLP width, the head and each
+   merge of the batch-8 step (check_bwd_rows).
    Then the
    three chamfer
    kernels (K5, K6, K7; fp32) on 262,144-point clouds of a synthetic DurLAR
@@ -241,12 +248,16 @@ backward: dqkv, dbias) at the four stages, shifted and unshifted; K10 (the
 two-matmul backward: dx, dlnw, dlnb, dW1, db1, dW2, db2) at the four MLP
 widths and the head; K11 (LN + matmul backward: dx, dlnw, dlnb, dW) at the
 three merges, at a ragged token count and at the batch-1 deepest merge
-(dy split over CTAs); in bf16 also K8 / K9 at the batch-1 step's shapes,
+(dy split over CTAs); in fp32 also K10 / K11 at the batch-1 step's MLPs,
+head and merges, a ragged N of 1,000, TULIP-large's C 1,536 and K 3,072
+(more_bwd_cases; the fp32 K10 rows also give the bound with the a / dh
+scratch's bytes); in bf16 also K8 / K9 at the batch-1 step's shapes,
 on a 2 x 40 grid (5 windows: a short last tile), at C 768 on 15 windows
 and at TULIP-large's deepest stage (C 1,536, 48 heads); every output
 within the bf16 / fp32 limits of its own max|ref|.  For K8-K11, K14 and
 K15 the kernels line also gives the sums per train step (each batch-8
-shape's time x its launches in a step).
+shape's time x its launches in a step), in bf16 and (fp32_*_per_step)
+in fp32.
 
 Then one JSON line with the per-kernel results of all fifteen kernels
 (launches on the main paths, error, kernel / plain / library ms, bound;
@@ -341,14 +352,20 @@ WIDE_ACCESS_KERNELS = ("ln_fwd_reg_kernel", "ln_bwd_reg_kernel")
 # (HGMMA.64xNx8.F32.TF32), and in the half-block its 16 x 16 products as
 # HMMA.1688.F32.TF32
 TF32_KERNELS = ("two_matmul_tf32_kernel", "linear_tf32_kernel",
-                "ln_linear_tf32_kernel", "window_msa_tf32_kernel")
+                "ln_linear_tf32_kernel", "window_msa_tf32_kernel",
+                "mlp_bwd_hidden_tf32_kernel", "mlp_bwd_dy_tf32_kernel",
+                "ln_linear_bwd_dy_tf32_kernel", "tn_gemm_tf32_kernel")
+# the fp32 FMA kernels that the split-TF32 ones replaced (K4, K10, K11 and
+# the weight-gradient product): none may be built
+FMA_GONE = ("ln_linear_kernel", "two_matmul_bwd_kernel",
+            "ln_linear_bwd_kernel", "tn_gemm_kernel")
 # the ops/ wrappers whose fp32 cases run those kernels (checked for equal
 # bits over two runs).  Every fp32 case's bound, theirs and the FMA
 # kernels' alike, is taken at the split-TF32 rate: the least time for
 # fp32-accurate products on this card is three dense TF32 products a
 # product, whichever kernel the port runs today
 SPLIT_TF32 = ("window_msa", "window_msa_grouped", "window_msa_nat",
-              "two_matmul", "ln_linear")
+              "two_matmul", "ln_linear", "two_matmul_bwd", "ln_linear_bwd")
 # fp32 instructions per point pair of a nearest-neighbour sweep: both
 # directions (K5: 3 sub, mul, 2 fma, 2 min), one direction (K6, K7: one min)
 PAIR_OPS, PAIR_OPS_ONE = 8, 7
@@ -436,6 +453,13 @@ def work_two_matmul_bwd(N, C, Hd, O, e):
     return ((2 * N * C + N * O + Hd * C + O * Hd) * e
             + (Hd * C + O * Hd + Hd + O + 2 * C) * 4,
             2 * N * Hd * (3 * C + 2 * O))
+
+
+def scratch_two_matmul_bwd(N, Hd, e):
+    """Bytes of K10's a and dh scratch: written by the token pass, read
+    back by the weight-gradient products (not in the function's own
+    bytes, so not in its bound)."""
+    return 2 * 2 * N * Hd * e
 
 
 def work_ln_linear_bwd(N, K, O, e):
@@ -716,7 +740,8 @@ def check_deterministic(torch, device, cases):
     d(bias) column sum), the LayerNorm kernels (K14, K15 with dw / db
     summed inside its launch) and tn_gemm on their own, bf16; and the
     fp32 split-TF32 kernels (K1, K2, K12, K13, K3, K4 with their sum
-    passes):
+    passes, K10 and K11 with their finish kernels and column sums, and
+    tn_gemm on its own):
     two runs on the same inputs must give the same bits (no atomic sums,
     every cross-block sum in a fixed order)."""
     from tulip_tpu_torch.ops import reduce as R
@@ -729,11 +754,13 @@ def check_deterministic(torch, device, cases):
             and ("bfloat16" in label
                  or ("float32" in label and kernel in SPLIT_TF32))]
     g = torch.Generator().manual_seed(4)
-    for T, M, N in ((131072, 384, 96), (2048, 3072, 768), (1000, 16, 1536)):
-        a = torch.randn(T, M, generator=g).to(device, torch.bfloat16)
-        b = torch.randn(T, N, generator=g).to(device, torch.bfloat16)
-        runs.append((f"tn_gemm bfloat16 T={T} M={M} N={N}",
-                     lambda a=a, b=b: R.tn_gemm(a, b)))
+    for dtype in (torch.bfloat16, torch.float32):
+        for T, M, N in ((131072, 384, 96), (2048, 3072, 768),
+                        (1000, 16, 1536)):
+            a = torch.randn(T, M, generator=g).to(device, dtype)
+            b = torch.randn(T, N, generator=g).to(device, dtype)
+            runs.append((f"tn_gemm {str(dtype)[6:]} T={T} M={M} N={N}",
+                         lambda a=a, b=b: R.tn_gemm(a, b)))
     differ = []
     for label, fn in runs:
         one, two = fn(), fn()
@@ -745,9 +772,8 @@ def check_deterministic(torch, device, cases):
             differ.append(label)
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
           f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / K8 / K9 / K14 / K15 "
-          f"/ tn_gemm and fp32 K1 / K2 / K12 / K13 / K3 / K4 cases "
-          f"bit-identical "
-          f"over two runs", flush=True)
+          f"/ tn_gemm and fp32 K1 / K2 / K12 / K13 / K3 / K4 / K10 / K11 / "
+          f"tn_gemm cases bit-identical over two runs", flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
 
@@ -926,11 +952,7 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                 for (H, W), C, nh in stages]
         mlps.append((batch * 32 * 512, 96, 1536, 16, "leaky", "head C=96"))
         for N, C, Hd, O, act, what in mlps:
-            x, gr = to(rn(N, C)), to(rn(N, O))
-            args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
-                    to(rn(Hd, C, scale=C ** -0.5)), to(rn(Hd, scale=0.1)),
-                    to(rn(O, Hd, scale=Hd ** -0.5)),
-                    to(rn(O, scale=0.1)) if act == "gelu" else None]
+            x, args, gr = bwd_inputs(to, rn, N, C, Hd, O, act)
             if act == "leaky":
                 what += kink_guard(torch, x, args, gr, to, rn)
             kw = dict(act=act, residual=False)
@@ -942,7 +964,8 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                 lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd_ref(
                     x, *a, gr, **kw), True,
                 dict(work=work_two_matmul_bwd(N, C, Hd, O, e),
-                     per_step=1 if act == "leaky" else 2 if C == 768 else 4)))
+                     per_step=1 if act == "leaky" else 2 if C == 768 else 4,
+                     scratch=scratch_two_matmul_bwd(N, Hd, e))))
         # the step's three merges, then off the path a ragged token count
         # and the deepest merge at batch 1 (dy split over CTAs in bf16)
         merges = [(batch * (H // 2) * (W // 2), 4 * C, "merge", True)
@@ -961,6 +984,111 @@ def train_kernel_cases(torch, device, batch=TRAIN_BATCH, stages=STAGES):
                 on_path, dict(work=work_ln_linear_bwd(N, K, K // 2, e),
                               per_step=1)))
     return cases
+
+
+def bwd_inputs(to, rn, N, C, Hd, O, act):
+    """(x, [lnw, lnb, w1, b1, w2, b2], g) of one K10 case (b2 None for the
+    leaky head)."""
+    x, gr = to(rn(N, C)), to(rn(N, O))
+    args = [to(rn(C, scale=0.1, shift=1.0)), to(rn(C, scale=0.1)),
+            to(rn(Hd, C, scale=C ** -0.5)), to(rn(Hd, scale=0.1)),
+            to(rn(O, Hd, scale=Hd ** -0.5)),
+            to(rn(O, scale=0.1)) if act == "gelu" else None]
+    return x, args, gr
+
+
+def more_bwd_cases(torch, device):
+    """fp32 K10 / K11 (split TF32) off the batch-8 step: the batch-1 step's
+    MLPs, head and merges, a ragged token count, TULIP-large's deepest
+    stage (C 1,536, Hd 6,144, batch 8: 512 tokens), its deepest merge
+    (K 3,072) and a K11 whose O is not a multiple of 32 (the dy kernel's
+    last 32-deep tile of O part zeros), every gradient output against the
+    plain version."""
+    from tulip_tpu_torch.ops import mlp
+    g = torch.Generator().manual_seed(8)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    to = lambda t: t.to(device=device, dtype=torch.float32)
+    mlps = [(H * W, C, 4 * C, C, "gelu", f"batch-1 mlp C={C}")
+            for (H, W), C, nh in STAGES]
+    (H0, W0), C0, _ = STAGES[0]
+    mlps += [(H0 * W0, C0, 16 * C0, 16, "leaky", f"batch-1 head C={C0}"),
+             (1000, 96, 384, 96, "gelu", "ragged mlp C=96"),
+             (512, 1536, 6144, 1536, "gelu", "tulip_large mlp C=1536")]
+    cases = []
+    for N, C, Hd, O, act, what in mlps:
+        x, args, gr = bwd_inputs(to, rn, N, C, Hd, O, act)
+        if act == "leaky":
+            what += kink_guard(torch, x, args, gr, to, rn)
+        kw = dict(act=act, residual=False)
+        cases.append((
+            "two_matmul_bwd", "K10",
+            f"two_matmul_bwd K10 float32 {what} N={N} Hd={Hd} O={O}",
+            lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd(
+                x, *a, gr, **kw),
+            lambda x=x, a=args, gr=gr, kw=kw: mlp.two_matmul_bwd_ref(
+                x, *a, gr, **kw), False,
+            dict(work=work_two_matmul_bwd(N, C, Hd, O, 4),
+                 scratch=scratch_two_matmul_bwd(N, Hd, 4))))
+    for N, K, O, what in ((4096, 384, 192, "batch-1 merge"),
+                          (1024, 768, 384, "batch-1 merge"),
+                          (512, 3072, 1536, "tulip_large merge"),
+                          (1000, 384, 200, "O % 32 = 8")):
+        x, gr = to(rn(N, K)), to(rn(N, O))
+        args = [to(rn(K, scale=0.1, shift=1.0)), to(rn(K, scale=0.1)),
+                to(rn(O, K, scale=K ** -0.5))]
+        cases.append((
+            "ln_linear_bwd", "K11",
+            f"ln_linear_bwd K11 float32 {what} N={N} K={K} O={O}",
+            lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd(x, *a, gr),
+            lambda x=x, a=args, gr=gr: mlp.ln_linear_bwd_ref(x, *a, gr),
+            False, dict(work=work_ln_linear_bwd(N, K, O, 4))))
+    return cases
+
+
+def check_bwd_rows(torch, device):
+    """The fp32 K10 and K11 give a token's dx the same bits whatever else
+    the call holds (ops/mlp.py:bwd_plan_f32 splits dy by the widths
+    alone): at each MLP width, the head and each merge of the batch-8
+    step, the backward of x[:n] (with g[:n]) equals the backward of x's
+    eight images' rows cut to n (torch.equal), for n one image's rows and
+    1,000."""
+    from tulip_tpu_torch.ops import mlp
+    g = torch.Generator().manual_seed(9)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    to = lambda t: t.to(device=device, dtype=torch.float32)
+    same = {}
+    shapes = [(H * W, C, 4 * C, C, "gelu") for (H, W), C, _ in STAGES]
+    (H0, W0), C0, _ = STAGES[0]   # the head runs at stage 0's tokens
+    shapes.append((H0 * W0, C0, 16 * C0, 16, "leaky"))
+    for n1, C, Hd, O, act in shapes:
+        x, args, gr = bwd_inputs(to, rn, 8 * n1, C, Hd, O, act)
+        kw = dict(act=act, residual=act == "gelu")
+        full = mlp.two_matmul_bwd(x, *args, gr, **kw)[0]
+        same[f"K10 C={C} O={O}"] = [
+            torch.equal(mlp.two_matmul_bwd(x[:n], *args, gr[:n], **kw)[0],
+                        full[:n]) for n in (n1, 1000)]
+        del x, args, gr, full
+    for (H, W), C, _ in STAGES[:-1]:
+        n1, K = (H // 2) * (W // 2), 4 * C
+        x, gr = to(rn(8 * n1, K)), to(rn(8 * n1, K // 2))
+        args = (to(rn(K, scale=0.1, shift=1.0)), to(rn(K, scale=0.1)),
+                to(rn(K // 2, K, scale=K ** -0.5)))
+        full = mlp.ln_linear_bwd(x, *args, gr)[0]
+        same[f"K11 K={K}"] = [
+            torch.equal(mlp.ln_linear_bwd(x[:n], *args, gr[:n])[0],
+                        full[:n]) for n in (n1, 1000)]
+    torch.cuda.synchronize()
+    print(f"fp32 K10 / K11 dx rows alone vs in eight images' rows (one "
+          f"image's rows, 1,000 rows): bit-equal {same}", flush=True)
+    if not all(all(v) for v in same.values()):
+        raise SystemExit("the fp32 K10 / K11 dx depends on the call's rows")
+    return same
 
 
 def layout_and_ln_cases(torch, device, batch=2, train_batch=TRAIN_BATCH,
@@ -1194,8 +1322,11 @@ def check_kernel_cases(torch, cases):
         lib = extra.get("library")
         library_ms = None if lib is None else cuda_ms(torch, lib, iters=iters)
         nbytes, flops = extra["work"]
-        b_ms, b_by = bound_ms(nbytes, flops,
-                              "split_tf32" if dn == "float32" else dn)
+        kind = "split_tf32" if dn == "float32" else dn
+        b_ms, b_by = bound_ms(nbytes, flops, kind)
+        scratch = extra.get("scratch")
+        b_scratch = None if scratch is None else bound_ms(
+            nbytes + scratch, flops, kind)[0]
         ok = err <= TOL[dn]
         table.append(dict(kernel=kernel, knum=knum, label=label, dtype=dn,
                           on_path=on_path, per_step=extra.get("per_step"),
@@ -1203,15 +1334,36 @@ def check_kernel_cases(torch, cases):
                           max_abs_err_rel=err, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, bytes=nbytes, flops=flops,
                           bound_ms=b_ms, bound_by=b_by,
+                          bound_scratch_ms=b_scratch,
                           tflops=flops / ms / 1e9,
                           max_abs_err=abs_err, ok=ok))
         each = "" if len(errs) == 1 else f" (outputs {list(errs.values())})"
         libs = "" if library_ms is None else f" library {library_ms:.4f} ms"
+        with_scratch = ("" if b_scratch is None else
+                        f", {b_scratch:.4f} ms with the a / dh scratch")
         print(f"kernel {'ok ' if ok else 'BAD'} {label}: err/max|ref| "
               f"{err:.3e}{each} (limit {TOL[dn]:.0e}) kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms{libs} bound {b_ms:.4f} ms ({b_by}) "
-              f"achieved {flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"plain {plain_ms:.4f} ms{libs} bound {b_ms:.4f} ms ({b_by})"
+              f"{with_scratch} achieved {flops / ms / 1e9:.2f} TFLOP/s",
+              flush=True)
     return table
+
+
+def per_step_sums(rows):
+    """A train step's kernel / plain / library ms and bound of the table
+    rows of one kernel and type: each shape's value x its launches a step
+    (library None where a row has none; the bound with K10's a / dh
+    scratch where every row has it)."""
+    step = {k: sum(r[k] * r["per_step"] for r in rows)
+            for k in ("ms", "plain_ms", "bound_ms")}
+    libs = [r["library_ms"] for r in rows]
+    step["library_ms"] = (None if None in libs else sum(
+        r["library_ms"] * r["per_step"] for r in rows))
+    scratch = [r.get("bound_scratch_ms") for r in rows]
+    if None not in scratch:
+        step["bound_scratch_ms"] = sum(
+            v * r["per_step"] for v, r in zip(scratch, rows))
+    return step
 
 
 def timed_once(torch, fn):
@@ -3693,6 +3845,7 @@ PROFILE_CLASSES = {
     "attn_fwd_tc": "K8 attention core forward (mma.sync)",
     "attn_bwd_tc": "K9 attention core backward (mma.sync)",
     "attn_": "K8/K9 FMA kernels", "mlp_bwd": "K10 token pass",
+    "two_matmul_bwd": "K10 token pass",
     "tn_gemm": "weight gradients", "colsum": "weight gradients",
     "ln_rows": "LN passes of K3 / K10", "ln_fwd": "K14 LayerNorm forward",
     "ln_bwd": "K15 LayerNorm backward",
@@ -3709,8 +3862,9 @@ def profile_class(key):
 def profile_paths(torch, dev, tree):
     """``python3 chip_smoke.py --profile``: torch.profiler over the bf16
     inference forward (batch 1 and 8, 5 forwards each), the fp32 eval
-    forward of the default evaluation (batch 1 and 8, 3 each) and 3 bf16 train
-    steps of batch 8, without and with TULIP_TPU_LN_PALLAS=1, all at the
+    forward of the default evaluation (batch 1 and 8, 3 each), 3 bf16 train
+    steps of batch 8, without and with TULIP_TPU_LN_PALLAS=1, and 3 fp32
+    train steps of batch 8 (--precision fp32), all at the
     flagship size after a warm-up: per path
     the wall ms per iteration, the device's busy share and the device ms
     per iteration of every kernel name above 0.5 % (the port's kernels by
@@ -3805,7 +3959,12 @@ def profile_paths(torch, dev, tree):
             lambda: step(x, t, 5e-4, gen), 3)
     finally:
         os.environ.pop("TULIP_TPU_LN_PALLAS")
-    del tm, step
+    # the fp32 step (--precision fp32): the training kernels' fp32 forms
+    step32 = make_train_step(tm, make_optimizer(tm, 0.01),
+                             compute_dtype=torch.float32)
+    run(f"train step fp32 batch {TRAIN_BATCH}",
+        lambda: step32(x, t, 5e-4, gen), 3)
+    del tm, step, step32
     torch.cuda.empty_cache()
     report["attn"] = profile_attn(torch, dev, lags)
     report["k3_plan"] = k3_plan_ab(torch, dev)
@@ -3823,6 +3982,24 @@ def profile_paths(torch, dev, tree):
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(report, f, indent=1)
     return 0
+
+
+def kernel_spills(log, names):
+    """{kernel name: ptxas' spill line} of the functions of names (every
+    instantiation) in an nvcc -Xptxas -v log that spill; None where this
+    process loaded a library built before (no log)."""
+    if not log:
+        return None
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = max((k for k in names if k in line), key=len,
+                          default=None)
+        elif current and "spill stores" in line and \
+                " 0 bytes spill stores" not in line:
+            out.setdefault(current, []).append(line.split("ptxas")[-1]
+                                               .strip(" :"))
+    return out
 
 
 # K5's kernels by name -> class of its breakdown; PyTorch's kernels in a
@@ -5125,6 +5302,9 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    spills = kernel_spills(build.build_log, TF32_KERNELS)
+    print(f"build: ptxas spills of the fp32 split-TF32 kernels: {spills}",
+          flush=True)
     hgmma, hmma, wide, tf32, functions = sass_counts(build)
     hgmma = {k: hgmma[k] for k in TENSOR_CORE_KERNELS}
     hmma = {k: hmma[k] for k in MMA_SYNC_KERNELS}
@@ -5133,17 +5313,16 @@ def main() -> int:
           f"(LDG.E.128 / STG.E.128) of the bf16 LayerNorm kernels {wide}; "
           f"(HGMMA, HMMA with TF32 operands) of the fp32 split-TF32 "
           f"kernels {tf32}", flush=True)
-    if not (tf32["two_matmul_tf32_kernel"][0]
-            and tf32["linear_tf32_kernel"][0]
-            and tf32["ln_linear_tf32_kernel"][0]
+    if not (all(tf32[k][0] for k in TF32_KERNELS)
             and all(tf32["window_msa_tf32_kernel"])):
         raise SystemExit(f"an fp32 split-TF32 kernel lacks its TF32 "
                          f"tensor-core instructions: {tf32}")
-    fma_k4 = [f for f in functions if "ln_linear_kernel" in f]
-    print(f"build: {len(functions)} functions in the library, fp32 FMA K4 "
-          f"(ln_linear_kernel) among them: {fma_k4}", flush=True)
-    if fma_k4:
-        raise SystemExit(f"the FMA K4 is still built: {fma_k4}")
+    fma = [f for f in functions if any(k in f for k in FMA_GONE)]
+    print(f"build: {len(functions)} functions in the library, fp32 FMA "
+          f"K4 / K10 / K11 / tn_gemm ({', '.join(FMA_GONE)}) among them: "
+          f"{fma}", flush=True)
+    if fma:
+        raise SystemExit(f"an fp32 FMA kernel is still built: {fma}")
     if not all(hgmma.values()):
         raise SystemExit(f"a bf16 tensor-core kernel holds no HGMMA: {hgmma}")
     if not all(hmma.values()):
@@ -5161,6 +5340,7 @@ def main() -> int:
     table += check_kernel_cases(torch, [c + (10,) for c in more])
     train_cases = train_kernel_cases(torch, dev)
     train_cases += more_attn_core_cases(torch, dev)
+    train_cases += more_bwd_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (5,) for c in train_cases])
     layouts = layout_and_ln_cases(torch, dev)
     layouts += layout_and_ln_cases(torch, dev, batch=8, layouts_only=True)
@@ -5169,6 +5349,7 @@ def main() -> int:
     check_ln_launches(torch, dev)
     check_f32_refusals(torch, dev)
     check_ln_linear_rows(torch, dev)
+    bwd_rows = check_bwd_rows(torch, dev)
     check_deterministic(torch, dev, cases + more + train_cases + layouts)
     del cases, more, train_cases, layouts
     table += chamfer_checks(torch, dev)
@@ -5333,12 +5514,23 @@ def main() -> int:
                     fp32_bound_ms=sum(by32.values()),
                     fp32_bound_by=max(by32, key=by32.get),
                     fp32_cases=len(f32))
+                if all(r.get("per_step") for r in f32):
+                    # the fp32 train step (--precision fp32) runs the same
+                    # launches a step as the bf16 one
+                    step32 = per_step_sums(f32)
+                    kernels[-1].update({f"fp32_{k}_per_step": v
+                                        for k, v in step32.items()})
+                    print(f"per fp32 train step: {kernel} ({knum}) "
+                          f"{sum(r['per_step'] for r in f32)} launches, "
+                          f"kernel {step32['ms']:.4f} ms, plain "
+                          f"{step32['plain_ms']:.4f}, library "
+                          f"{step32['library_ms']}, bound "
+                          f"{step32['bound_ms']:.4f} ms"
+                          + ("" if "bound_scratch_ms" not in step32 else
+                             f", {step32['bound_scratch_ms']:.4f} ms with "
+                             f"the a / dh scratch"), flush=True)
             if all(r.get("per_step") for r in rows):
-                # a train step's launches: each shape's time x its launches
-                step = {k: sum(r[k] * r["per_step"] for r in rows)
-                        for k in ("ms", "plain_ms", "bound_ms")}
-                step["library_ms"] = (None if None in libs else sum(
-                    r["library_ms"] * r["per_step"] for r in rows))
+                step = per_step_sums(rows)
                 kernels[-1].update({f"{k}_per_step": v
                                     for k, v in step.items()})
                 print(f"per train step: {kernel} ({knum}) "
@@ -5358,7 +5550,10 @@ def main() -> int:
                        data_parallel=dp_report, sequence_parallel=sp_report,
                        variants=variants_report, data=data_report,
                        classifier=classifier_report,
-                       build=dict(seconds=build_s, nvcc_seconds=nvcc_s),
+                       build=dict(seconds=build_s, nvcc_seconds=nvcc_s,
+                                  tf32_hgmma_hmma=tf32, spills=spills,
+                                  fma_kernels=fma),
+                       bwd_rows_bit_equal=bwd_rows,
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -363,7 +363,7 @@ def _warp_sum(v):
 
 
 def _row_mean_rstd(x, eps):
-    """csrc/mlp.cu row_mean_rstd on fp32 rows: lane l adds the row's
+    """csrc/mma.cuh row_mean_rstd on fp32 rows: lane l adds the row's
     16-byte chunks l, l + 32, ..., each as (a + b) + (c + d), the warp adds
     the lanes; then the squared deviations alike."""
     N, K = x.shape

@@ -351,7 +351,7 @@ def test_tn_gemm_plan_covers_tokens_once(dtype, T, M, N):
     from tulip_tpu_torch.ops.reduce import tn_gemm_plan
     splits, tps = tn_gemm_plan(T, M, N, dtype)
     assert splits >= 1
-    assert tps % (64 if dtype == torch.bfloat16 else 16) == 0
+    assert tps % (64 if dtype == torch.bfloat16 else 32) == 0
     # split s owns tokens [s tps, min(T, (s + 1) tps)): all of them, once
     assert (splits - 1) * tps < T <= splits * tps
 

@@ -951,33 +951,6 @@ cudaError_t launch_two_matmul_tf32_plan(int bo, const float* x, float* out,
 // fp32 K4: ln_linear_tf32_kernel, split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-// A row's mean and 1/std in fp32, by one warp: lane l sums the row's
-// 16-byte chunks l, l + 32, ... (each (x + y) + (z + w)), the warp adds
-// the lanes' sums; then the squared deviations alike, reading the row
-// again (from L1).  The order depends on K alone.  K % 4 == 0, p 16-byte
-// aligned.
-__device__ __forceinline__ float2 row_mean_rstd(const float* __restrict__ p,
-                                                int K, float eps) {
-  const int lane = threadIdx.x & 31;
-  const float4* q = reinterpret_cast<const float4*>(p);
-  float s = 0.f;
-#pragma unroll 4
-  for (int c = lane; c < K / 4; c += 32) {
-    const float4 v = q[c];
-    s += (v.x + v.y) + (v.z + v.w);
-  }
-  const float mean = warp_sum(s) / K;
-  float d = 0.f;
-#pragma unroll 4
-  for (int c = lane; c < K / 4; c += 32) {
-    const float4 v = q[c];
-    const float e0 = v.x - mean, e1 = v.y - mean, e2 = v.z - mean,
-                e3 = v.w - mean;
-    d += (e0 * e0 + e1 * e1) + (e2 * e2 + e3 * e3);
-  }
-  return make_float2(mean, rsqrtf(warp_sum(d) / K + eps));
-}
-
 // The statistics pass: stat[r] = (mean, 1/std) of row r, one warp a row.
 __global__ void __launch_bounds__(kThreads) ln_linear_stats_f32_kernel(
     const float* __restrict__ x, float2* __restrict__ stat, int N, int K,

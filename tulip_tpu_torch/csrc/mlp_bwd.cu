@@ -63,15 +63,40 @@
 // x, g and dx together) and, at the deep merges, the L2 reads of one
 // warpgroup per CTA, as in K10.
 //
-// fp32: two_matmul_bwd_kernel and ln_linear_bwd_kernel, one launch each on
-// the CUDA cores (16 rows per CTA, common.cuh), the parity path.
+// fp32 K10 and K11 (--precision fp32 training): the same launches in split
+// TF32 on the tensor cores (mma.cuh: hi / lo halves, three TF32 products a
+// product, each 32-deep tile's sum folded into an fp32 total), fp32's
+// accuracy with nothing rounded in between.  Bound on the H100: K10's 2 N
+// Hd (3 C + 2 O) operations (h, da, dy here; dW1, dW2 in tn_gemm) and
+// K11's 4 N K O at 494.7 / 3 = 165 TFLOP/s, 4.88 and 0.18 ms a batch-8
+// step, above the bytes of x, g, dx and the weights; the fp32 a / dh
+// scratch (2 N Hd x 4 bytes written, read back by tn_gemm: 1.61 GB for
+// the head at batch 8) is what the bytes would add.
+//   1. mlp_bwd_ln_f32_kernel: y = LN(x) in fp32 (dW1 = dh^T y reads it)
+//      and the rows' mean, 1/std (row_mean_rstd's order, fixed by C).
+//   2. mlp_bwd_hidden_tf32_kernel, grid (64-row tiles, 64 hidden units):
+//      h = y W1^T (both K-major as stored), + b1, a = act(h) to scratch and
+//      act'(h) kept in registers; da = g W2[:, units], W2 read MN-major and
+//      so transposed by the split (mma.cuh's raw ring); dh = da act'(h) to
+//      scratch.  The h and da sums share one fragment layout.  At three
+//      blocks an SM (168 registers) it spills 64 (leaky) / 152 (GELU)
+//      bytes, and is still faster than at two without a spill (PERF.md).
+//   3. mlp_bwd_dy_tf32_kernel, grid (row tiles, 64-column tiles of C,
+//      splits of Hd): dy = dh W1 (W1 transposed by the split) in fp32 to
+//      scratch; Hd split by the widths alone, 768 units a split
+//      (ops/mlp.py:bwd_plan_f32), so a token's dx has the same bits at any
+//      token count.
+//   4. mlp_bwd_finish_f32_kernel: the splits added in split order, the LN
+//      backward [+ g] and the dlnw | dlnb partials (finish_rows<float>).
+// K11 runs 1, 3 and 4 with g, W for dh, W1 under ln_linear_bwd_*_f32 /
+// _tf32 names.  TF32 wgmma reads K-major operands only, so where the bf16
+// kernels read W2, W1 and W MN-major the fp32 ones land each tile raw and
+// transpose it as they split it (split_mnmaj, no bank conflict), and the
+// token rows (y, g, dh) are wgmma's register operand, read from the raw
+// tile by each thread (mma.cuh's raw ring: 71 KB, three blocks an SM).
 #include "mma.cuh"
 
 namespace tulip {
-
-__host__ __device__ constexpr int round_up_kc(int v) {
-  return (v + kKC - 1) / kKC * kKC;
-}
 
 // LayerNorm backward of the tile (one warp per row): from dy (fp32 shared,
 // row stride C) and the forward statistics, dx = rstd (dxh - mean(dxh) -
@@ -122,150 +147,6 @@ __device__ void ln_backward_rows(const T* x, const float* dy,
     part[c] = sw;
     part[C + c] = sb;
   }
-}
-
-// Write the tile's rounded LN output (fp32 shared, row stride C) to y.
-template <typename T>
-__device__ void store_rows(const float* s, T* y, long long r0, int N, int C) {
-  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
-    const long long r = r0 + i / C;
-    if (r < N) y[r * C + i % C] = from_f<T>(s[i]);
-  }
-}
-
-template <typename T, int ACT>
-__global__ void __launch_bounds__(kThreads) two_matmul_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ g,
-    const T* __restrict__ lnw, const T* __restrict__ lnb,
-    const T* __restrict__ w1, const T* __restrict__ b1,
-    const T* __restrict__ w2, T* __restrict__ dx, T* __restrict__ y_out,
-    T* __restrict__ a_out, T* __restrict__ dh_out, float* __restrict__ part,
-    int N, int C, int Hd, int O, int residual, float eps) {
-  extern __shared__ float smem[];
-  const int Op = round_up_kc(O);
-  float* ys = smem;                        // [16][C]  [LN](x), rounded
-  float* dys = ys + kRows * C;             // [16][C]  dL/dy
-  float* gs = dys + kRows * C;             // [16][Op] g, zero-padded
-  float* dact = gs + kRows * Op;           // [16][64] act'(h) of the chunk
-  float* dhs = dact + kRows * kHidChunk;   // [16][64] dh of the chunk
-  float* stat = dhs + kRows * kHidChunk;   // [16][2]  LN mean, rstd
-  float* wtile = stat + 2 * kRows;
-
-  const long long r0 = (long long)blockIdx.x * kRows;
-  load_rows(x, ys, r0, N, C);
-  load_rows(g, gs, r0, N, O, Op);
-  for (int i = threadIdx.x; i < kRows * C; i += kThreads) dys[i] = 0.f;
-  __syncthreads();
-  if (lnw) {
-    layer_norm_rows<T>(ys, C, C, lnw, lnb, eps, stat);
-    __syncthreads();
-    store_rows(ys, y_out, r0, N, C);
-  }
-
-  for (int h0 = 0; h0 < Hd; h0 += kHidChunk) {
-    const int nh = min(kHidChunk, Hd - h0);
-    // h = y W1^T + b1 (rounded), a = act(h): a to scratch, act'(h) kept
-    gemm_rows<T>(ys, C, C, w1 + (size_t)h0 * C, C, identity_rows(), nh,
-                 wtile, [&](int r, int n, float v) {
-                   const float h = round_to<T>(v + to_f(b1[h0 + n]));
-                   if (r0 + r < N)
-                     a_out[(r0 + r) * Hd + h0 + n] =
-                         from_f<T>(activate<ACT>(h));
-                   dact[r * kHidChunk + n] = activate_grad<ACT>(h);
-                 });
-    // dh = (g W2)[:, chunk] * act'(h), rounded; to scratch
-    gemm_rows_kn<T>(gs, Op, O, w2 + h0, Hd, nh, wtile,
-                    [&](int r, int n, float v) {
-                      const float dh =
-                          round_to<T>(v * dact[r * kHidChunk + n]);
-                      dhs[r * kHidChunk + n] = dh;
-                      if (r0 + r < N)
-                        dh_out[(r0 + r) * Hd + h0 + n] = from_f<T>(dh);
-                    });
-    // dy += dh[:, chunk] W1[chunk, :]
-    gemm_rows_kn<T>(dhs, kHidChunk, nh, w1 + (size_t)h0 * C, C, C, wtile,
-                    [&](int r, int n, float v) { dys[r * C + n] += v; });
-  }
-  __syncthreads();
-  ln_backward_rows<T>(x, dys, stat, lnw, residual ? gs : nullptr, Op, dx,
-                      part ? part + (size_t)blockIdx.x * 2 * C : nullptr,
-                      r0, N, C);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ln_linear_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ g,
-    const T* __restrict__ lnw, const T* __restrict__ lnb,
-    const T* __restrict__ w, T* __restrict__ dx, T* __restrict__ y_out,
-    float* __restrict__ part, int N, int K, int O, float eps) {
-  extern __shared__ float smem[];
-  const int Op = round_up_kc(O);
-  float* xs = smem;                  // [16][K] LN(x), then dL/dy
-  float* gs = xs + kRows * K;        // [16][Op] g, zero-padded
-  float* stat = gs + kRows * Op;     // [16][2]
-  float* wtile = stat + 2 * kRows;
-
-  const long long r0 = (long long)blockIdx.x * kRows;
-  load_rows(x, xs, r0, N, K);
-  load_rows(g, gs, r0, N, O, Op);
-  __syncthreads();
-  layer_norm_rows<T>(xs, K, K, lnw, lnb, eps, stat);
-  __syncthreads();
-  store_rows(xs, y_out, r0, N, K);
-  // dy = g W, over the LN output (gemm_rows_kn syncs before its first
-  // tile, after every thread has stored its part of y)
-  gemm_rows_kn<T>(gs, Op, O, w, K, K, wtile,
-                  [&](int r, int n, float v) { xs[r * K + n] = v; });
-  __syncthreads();
-  ln_backward_rows<T>(x, xs, stat, lnw, nullptr, 0, dx,
-                      part + (size_t)blockIdx.x * 2 * K, r0, N, K);
-}
-
-template <typename T, int ACT>
-cudaError_t launch_two_matmul_bwd(const void* x, const void* g,
-                                  const void* lnw, const void* lnb,
-                                  const void* w1, const void* b1,
-                                  const void* w2, void* dx, void* y, void* a,
-                                  void* dh, float* part, int N, int C, int Hd,
-                                  int O, int residual, float eps,
-                                  cudaStream_t stream) {
-  if (C % kKC || Hd % kKC || (residual && O != C) || N <= 0 || O <= 0 ||
-      (lnw && (!y || !part)))
-    return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (2 * kRows * C + kRows * round_up_kc(O) +
-                       2 * kRows * kHidChunk + 2 * kRows + kWTileFloats);
-  cudaError_t err = prepare_smem(two_matmul_bwd_kernel<T, ACT>, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (N + kRows - 1) / kRows;
-  two_matmul_bwd_kernel<T, ACT><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const T*>(lnw), static_cast<const T*>(lnb),
-      static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<T*>(dx), static_cast<T*>(y),
-      static_cast<T*>(a), static_cast<T*>(dh), part, N, C, Hd, O, residual,
-      eps);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_ln_linear_bwd(const void* x, const void* g,
-                                 const void* lnw, const void* lnb,
-                                 const void* w, void* dx, void* y,
-                                 float* part, int N, int K, int O, float eps,
-                                 cudaStream_t stream) {
-  if (K % kKC || N <= 0 || O <= 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (kRows * K + kRows * round_up_kc(O) +
-                                       2 * kRows + kWTileFloats);
-  cudaError_t err = prepare_smem(ln_linear_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (N + kRows - 1) / kRows;
-  ln_linear_bwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const T*>(lnw), static_cast<const T*>(lnb),
-      static_cast<const T*>(w), static_cast<T*>(dx), static_cast<T*>(y),
-      part, N, K, O, eps);
-  return cudaGetLastError();
 }
 
 namespace tc {
@@ -435,12 +316,23 @@ __global__ void __launch_bounds__(kWg) ln_linear_bwd_dy_kernel(
   dy_tile<BN>(g, w, dyp, N, K, O, kts);
 }
 
+// Four consecutive elements of a row as fp32 (8- or 16-byte aligned).
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+  return make_float4(to_f(e[0]), to_f(e[1]), to_f(e[2]), to_f(e[3]));
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 // 16 rows per CTA: dy = the splits' partial sums added in split order, then
 // dx = LN^T(dy) [+ g] and the rows' dlnw | dlnb partial (ln_backward_rows).
+template <typename T>
 __device__ __forceinline__ void finish_rows(
-    const bf16* __restrict__ x, const bf16* __restrict__ g,
-    const bf16* __restrict__ lnw, const float* __restrict__ stat,
-    const float* __restrict__ dyp, bf16* __restrict__ dx,
+    const T* __restrict__ x, const T* __restrict__ g,
+    const T* __restrict__ lnw, const float* __restrict__ stat,
+    const float* __restrict__ dyp, T* __restrict__ dx,
     float* __restrict__ part, int N, int C, int splits, int residual) {
   extern __shared__ __align__(16) float fsmem[];
   float* dys = fsmem;                                   // [16][C]
@@ -462,11 +354,7 @@ __device__ __forceinline__ void finish_rows(
           v.z += p.z;
           v.w += p.w;
         }
-        if (residual) {
-          const uint2 raw = *reinterpret_cast<const uint2*>(g + r * C + c);
-          const bf16* e = reinterpret_cast<const bf16*>(&raw);
-          gv = make_float4(to_f(e[0]), to_f(e[1]), to_f(e[2]), to_f(e[3]));
-        }
+        if (residual) gv = load4(g + r * C + c);
       }
       *reinterpret_cast<float4*>(dys + rr * C + c) = v;
       if (residual) *reinterpret_cast<float4*>(gs + rr * C + c) = gv;
@@ -476,7 +364,7 @@ __device__ __forceinline__ void finish_rows(
     st[threadIdx.x] =
         r0 + threadIdx.x / 2 < N ? stat[r0 * 2 + threadIdx.x] : 0.f;
   __syncthreads();
-  ln_backward_rows<bf16>(x, dys, st, lnw, residual ? gs : nullptr, C, dx,
+  ln_backward_rows<T>(x, dys, st, lnw, residual ? gs : nullptr, C, dx,
                          part ? part + (size_t)blockIdx.x * 2 * C : nullptr,
                          r0, N, C);
 }
@@ -486,7 +374,7 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_finish_kernel(
     const bf16* __restrict__ lnw, const float* __restrict__ stat,
     const float* __restrict__ dyp, bf16* __restrict__ dx,
     float* __restrict__ part, int N, int C, int splits, int residual) {
-  finish_rows(x, g, lnw, stat, dyp, dx, part, N, C, splits, residual);
+  finish_rows<bf16>(x, g, lnw, stat, dyp, dx, part, N, C, splits, residual);
 }
 
 // K11: no residual (g is not read).
@@ -495,7 +383,7 @@ __global__ void __launch_bounds__(kThreads) ln_linear_bwd_finish_kernel(
     const float* __restrict__ stat, const float* __restrict__ dyp,
     bf16* __restrict__ dx, float* __restrict__ part, int N, int K,
     int splits) {
-  finish_rows(x, nullptr, lnw, stat, dyp, dx, part, N, K, splits, 0);
+  finish_rows<bf16>(x, nullptr, lnw, stat, dyp, dx, part, N, K, splits, 0);
 }
 
 __global__ void __launch_bounds__(kThreads) ln_linear_bwd_ln_kernel(
@@ -519,10 +407,10 @@ cudaError_t launch_dy(Kernel kernel, int bn, const bf16* dh, const bf16* w1,
   return cudaGetLastError();
 }
 
-// kts 64-deep tiles per split, or 0 when dy_splits does not put every tile
-// of Hd into exactly one non-empty split.
-inline int dy_tiles_per_split(int Hd, int dy_splits) {
-  const int kt = (Hd + 63) / 64;
+// kts depth-deep tiles per split (64 in bf16, 32 in fp32), or 0 when
+// dy_splits does not put every tile of Hd into exactly one non-empty split.
+inline int dy_tiles_per_split(int Hd, int dy_splits, int depth = 64) {
+  const int kt = (Hd + depth - 1) / depth;
   if (dy_splits < 1 || dy_splits > kt) return 0;
   const int kts = (kt + dy_splits - 1) / dy_splits;
   return (kt + kts - 1) / kts == dy_splits ? kts : 0;
@@ -604,13 +492,278 @@ inline cudaError_t launch_ln_linear_bwd_tc(const bf16* x, const bf16* g,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32: split TF32 on the tensor cores (mma.cuh's raw ring)
+// ---------------------------------------------------------------------------
+
+// y = LN(x) in fp32 and each row's mean, 1/std to stat[2 r], stat[2 r + 1]:
+// one warp a row, the statistics in row_mean_rstd's order (fixed by C),
+// 16-byte loads and stores.  C % 4 == 0.
+__device__ __forceinline__ void ln_rows_f32(const float* __restrict__ x,
+                                            const float* __restrict__ lnw,
+                                            const float* __restrict__ lnb,
+                                            float* __restrict__ y,
+                                            float* __restrict__ stat, int N,
+                                            int C, float eps) {
+  const long long r = (long long)blockIdx.x * kLnRows + (threadIdx.x >> 5);
+  if (r >= N) return;
+  const int lane = threadIdx.x & 31;
+  const float2 st = row_mean_rstd(x + r * C, C, eps);
+  const float4* xr = reinterpret_cast<const float4*>(x + r * C);
+  const float4* wr = reinterpret_cast<const float4*>(lnw);
+  const float4* br = reinterpret_cast<const float4*>(lnb);
+  float4* yr = reinterpret_cast<float4*>(y + r * C);
+  for (int c = lane; c < C / 4; c += 32) {
+    const float4 v = xr[c], w = wr[c], b = br[c];
+    yr[c] = make_float4((v.x - st.x) * st.y * w.x + b.x,
+                        (v.y - st.x) * st.y * w.y + b.y,
+                        (v.z - st.x) * st.y * w.z + b.z,
+                        (v.w - st.x) * st.y * w.w + b.w);
+  }
+  if (lane == 0) {
+    stat[2 * r] = st.x;
+    stat[2 * r + 1] = st.y;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) mlp_bwd_ln_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ lnw,
+    const float* __restrict__ lnb, float* __restrict__ y,
+    float* __restrict__ stat, int N, int C, float eps) {
+  ln_rows_f32(x, lnw, lnb, y, stat, N, C, eps);
+}
+
+__global__ void __launch_bounds__(kThreads) ln_linear_bwd_ln_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ lnw,
+    const float* __restrict__ lnb, float* __restrict__ y,
+    float* __restrict__ stat, int N, int C, float eps) {
+  ln_rows_f32(x, lnw, lnb, y, stat, N, C, eps);
+}
+
+// grid (64-row tiles, tiles of 64 hidden units): h = y W1^T over C / 32
+// ring tiles (y and W1 K-major), then + b1, a = act(h) to scratch and
+// act'(h) kept in registers; da = g W2[:, units] over ceil(O / 32) ring
+// tiles (g K-major, W2 MN-major: transposed by the split), then dh = da
+// act'(h) to scratch.  y and g are the A operands (fragments from the raw
+// tiles), W1 and W2 the split B.  Each 32-deep tile's products are folded
+// into an fp32 total; nothing is rounded in between.
+template <int ACT>
+__global__ void __launch_bounds__(kWg, kF32Ctas) mlp_bwd_hidden_tf32_kernel(
+    const float* __restrict__ y, const float* __restrict__ g,
+    const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2, float* __restrict__ a_out,
+    float* __restrict__ dh_out, int N, int C, int Hd, int O) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const uint32_t raw = smem_u32(sm);
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int u0 = blockIdx.y * 64;
+  const int ktc = C / 32, kto = (O + 31) / 32, T = ktc + kto;
+  auto fetch = [&](int t, uint32_t st) {
+    if (t < ktc) {   // y[rows][32 t ..], W1[units][32 t ..]
+      load_kmaj_f32(st, y, C, r0, N, 32 * t, C);
+      load_kmaj_f32(st + kF32Slot, w1, C, u0, Hd, 32 * t, C);
+    } else {         // g[rows][32 j ..], W2[32 j ..][units]
+      const int j = t - ktc;
+      load_kmaj_f32(st, g, O, r0, N, 32 * j, O);
+      load_mnmaj_f32(st + kF32Slot, w2, Hd, 32 * j, O, u0, Hd);
+    }
+  };
+  auto split = [&](int t, uint32_t st, uint32_t buf) {
+    const unsigned char* s = sm + (st - raw) + kF32Slot;
+    if (t < ktc)
+      split_kmaj(s, sm + (buf - raw));
+    else
+      split_mnmaj(s, sm + (buf - raw));
+  };
+  auto frag = [&](int, uint32_t st, uint32_t (&hi)[4][4],
+                  uint32_t (&lo)[4][4]) {
+    frag_kmaj(sm + (st - raw), hi, lo);
+  };
+  raw_start(raw, T, fetch);
+  float dact[32];
+  {
+    float h[32];
+    fold_ring_tiles(h, raw, T, 0, ktc, fetch, split, frag);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int hc = u0 + frag_col(jj);
+      float2 bb = make_float2(0.f, 0.f);
+      if (hc < Hd) bb = *reinterpret_cast<const float2*>(b1 + hc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        activate_both<ACT>(h[4 * jj + e] + (e & 1 ? bb.y : bb.x),
+                           h[4 * jj + e], dact[4 * jj + e]);
+    }
+    store_frag64(h, a_out, Hd, r0, N, u0, Hd, [](int, float v) { return v; });
+  }
+  float da[32];
+  fold_ring_tiles(da, raw, T, ktc, kto, fetch, split, frag);
+  store_frag64(da, dh_out, Hd, r0, N, u0, Hd,
+               [&](int i, float v) { return v * dact[i]; });
+}
+
+// grid (64-row tiles, 64-column tiles of C, splits of Hd): the split's dy =
+// dh[:, split] W1[split, :] (dh K-major, the A fragments; W1 MN-major,
+// transposed by the split) over its kts 32-deep tiles, in fp32 to
+// dyp[split][N][C].
+__device__ __forceinline__ void dy_tile_f32(const float* __restrict__ dh,
+                                            const float* __restrict__ w1,
+                                            float* __restrict__ dyp, int N,
+                                            int C, int Hd, int kts) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const uint32_t raw = smem_u32(sm);
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int c0 = blockIdx.y * 64;
+  const int kt0 = blockIdx.z * kts;
+  const int T = min(kts, (Hd + 31) / 32 - kt0);
+  auto fetch = [&](int t, uint32_t st) {
+    const int k0 = (kt0 + t) * 32;
+    load_kmaj_f32(st, dh, Hd, r0, N, k0, Hd);
+    load_mnmaj_f32(st + kF32Slot, w1, C, k0, Hd, c0, C);
+  };
+  auto split = [&](int, uint32_t st, uint32_t buf) {
+    split_mnmaj(sm + (st - raw) + kF32Slot, sm + (buf - raw));
+  };
+  auto frag = [&](int, uint32_t st, uint32_t (&hi)[4][4],
+                  uint32_t (&lo)[4][4]) {
+    frag_kmaj(sm + (st - raw), hi, lo);
+  };
+  raw_start(raw, T, fetch);
+  float sum[32];
+  fold_ring_tiles(sum, raw, T, 0, T, fetch, split, frag);
+  store_frag64(sum, dyp + (size_t)blockIdx.z * N * C, C, r0, N, c0, C,
+               [](int, float v) { return v; });
+}
+
+__global__ void __launch_bounds__(kWg, kF32Ctas) mlp_bwd_dy_tf32_kernel(
+    const float* __restrict__ dh, const float* __restrict__ w1,
+    float* __restrict__ dyp, int N, int C, int Hd, int kts) {
+  dy_tile_f32(dh, w1, dyp, N, C, Hd, kts);
+}
+
+// K11: dy = g W, with g (N, O) as dh and W (O, K) as w1.
+__global__ void __launch_bounds__(kWg, kF32Ctas) ln_linear_bwd_dy_tf32_kernel(
+    const float* __restrict__ g, const float* __restrict__ w,
+    float* __restrict__ dyp, int N, int K, int O, int kts) {
+  dy_tile_f32(g, w, dyp, N, K, O, kts);
+}
+
+__global__ void __launch_bounds__(kThreads) mlp_bwd_finish_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ lnw, const float* __restrict__ stat,
+    const float* __restrict__ dyp, float* __restrict__ dx,
+    float* __restrict__ part, int N, int C, int splits, int residual) {
+  finish_rows<float>(x, g, lnw, stat, dyp, dx, part, N, C, splits, residual);
+}
+
+__global__ void __launch_bounds__(kThreads) ln_linear_bwd_finish_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ lnw,
+    const float* __restrict__ stat, const float* __restrict__ dyp,
+    float* __restrict__ dx, float* __restrict__ part, int N, int K,
+    int splits) {
+  finish_rows<float>(x, nullptr, lnw, stat, dyp, dx, part, N, K, splits, 0);
+}
+
+// Launch an fp32 dy kernel over grid (row tiles, 64-column tiles of C,
+// splits), then its finish kernel (finish_kernel, finish_smem bytes) by
+// launch_finish().
+template <typename DyKernel, typename FinishKernel, typename Launch>
+cudaError_t launch_dy_finish_f32(DyKernel dy_kernel, const float* dh,
+                                 const float* w1, float* dyp, int N, int C,
+                                 int Hd, int kts, int splits,
+                                 FinishKernel finish_kernel,
+                                 size_t finish_smem, cudaStream_t stream,
+                                 Launch launch_finish) {
+  cudaError_t err = prepare_smem(dy_kernel, kF32RingSmem);
+  if (err != cudaSuccess) return err;
+  dy_kernel<<<dim3((N + kBM - 1) / kBM, (C + 63) / 64, splits), kWg,
+              kF32RingSmem, stream>>>(dh, w1, dyp, N, C, Hd, kts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = prepare_smem(finish_kernel, finish_smem)) != cudaSuccess)
+    return err;
+  launch_finish();
+  return cudaGetLastError();
+}
+
+// K10's fp32 token pass: y (N, C), a and dh (N, Hd), stat (N, 2), dyp
+// (dy_splits, N, C) fp32 scratch, part one dlnw | dlnb row per 16 rows;
+// dy_splits from the widths alone (ops/mlp.py:bwd_plan_f32).
+template <int ACT>
+cudaError_t launch_two_matmul_bwd_tf32(const float* x, const float* g,
+                                       const float* lnw, const float* lnb,
+                                       const float* w1, const float* b1,
+                                       const float* w2, float* dx, float* y,
+                                       float* a, float* dh, float* part,
+                                       float* stat, float* dyp, int N, int C,
+                                       int Hd, int O, int residual, float eps,
+                                       int dy_splits, cudaStream_t stream) {
+  const int kts = dy_tiles_per_split(Hd, dy_splits, 32);
+  if (C % kKC || Hd % kKC || O % 8 || (residual && O != C) || N <= 0 ||
+      O <= 0 || !dyp || (lnw && (!y || !part || !stat)) || !kts ||
+      dy_splits > 65535 || (Hd + 63) / 64 > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  const float* ysrc = x;
+  if (lnw) {
+    mlp_bwd_ln_f32_kernel<<<(N + kLnRows - 1) / kLnRows, kThreads, 0,
+                            stream>>>(x, lnw, lnb, y, stat, N, C, eps);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ysrc = y;
+  }
+  if ((err = prepare_smem(mlp_bwd_hidden_tf32_kernel<ACT>, kF32RingSmem)) !=
+      cudaSuccess)
+    return err;
+  mlp_bwd_hidden_tf32_kernel<ACT>
+      <<<dim3((N + kBM - 1) / kBM, (Hd + 63) / 64), kWg, kF32RingSmem,
+         stream>>>(ysrc, g, w1, b1, w2, a, dh, N, C, Hd, O);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem =
+      sizeof(float) * ((residual ? 2 : 1) * kRows * C + 2 * kRows);
+  return launch_dy_finish_f32(
+      mlp_bwd_dy_tf32_kernel, dh, w1, dyp, N, C, Hd, kts, dy_splits,
+      mlp_bwd_finish_f32_kernel, smem, stream, [&] {
+        mlp_bwd_finish_f32_kernel<<<(N + kRows - 1) / kRows, kThreads, smem,
+                                    stream>>>(x, g, lnw, stat, dyp, dx, part,
+                                              N, C, dy_splits, residual);
+      });
+}
+
+// K11's fp32 token pass: as launch_ln_linear_bwd_tc, split TF32.
+inline cudaError_t launch_ln_linear_bwd_tf32(const float* x, const float* g,
+                                             const float* lnw,
+                                             const float* lnb, const float* w,
+                                             float* dx, float* y, float* part,
+                                             float* stat, float* dyp, int N,
+                                             int K, int O, float eps,
+                                             int dy_splits,
+                                             cudaStream_t stream) {
+  const int kts = dy_tiles_per_split(O, dy_splits, 32);
+  if (K % kKC || O % 8 || N <= 0 || O <= 0 || !y || !part || !stat || !dyp ||
+      !kts || dy_splits > 65535)
+    return cudaErrorInvalidValue;
+  ln_linear_bwd_ln_f32_kernel<<<(N + kLnRows - 1) / kLnRows, kThreads, 0,
+                                stream>>>(x, lnw, lnb, y, stat, N, K, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * (kRows * K + 2 * kRows);
+  return launch_dy_finish_f32(
+      ln_linear_bwd_dy_tf32_kernel, g, w, dyp, N, K, O, kts, dy_splits,
+      ln_linear_bwd_finish_f32_kernel, smem, stream, [&] {
+        ln_linear_bwd_finish_f32_kernel<<<(N + kRows - 1) / kRows, kThreads,
+                                          smem, stream>>>(
+            x, lnw, stat, dyp, dx, part, N, K, dy_splits);
+      });
+}
+
 }  // namespace tc
 
 }  // namespace tulip
 
-// fp32: the FMA kernel (part: one dlnw | dlnb row per 16 rows); stat, dyp
-// and dy_splits are not read.  bf16: the four tensor-core launches; stat
-// (N, 2) and dyp (dy_splits, N, C) are fp32 scratch, part as for fp32.
+// The token pass of either type: stat (N, 2) and dyp (dy_splits, N, C)
+// are fp32 scratch, part one dlnw | dlnb row per 16 rows.  fp32: the
+// split-TF32 launches; bf16: the tensor-core ones.
 extern "C" int tulip_two_matmul_bwd(int dtype, int act, const void* x,
                                     const void* g, const void* lnw,
                                     const void* lnb, const void* w1,
@@ -624,13 +777,18 @@ extern "C" int tulip_two_matmul_bwd(int dtype, int act, const void* x,
   using bf16 = __nv_bfloat16;
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<float*>(part);
-#define TULIP_TM_BWD(T, ACT)                                                \
-  return tulip::launch_two_matmul_bwd<T, ACT>(x, g, lnw, lnb, w1, b1, w2,  \
-                                              dx, y, a, dh, p, N, C, Hd, O, \
-                                              residual, eps, s)
-  if (dtype == 0 && act == kGelu) TULIP_TM_BWD(float, kGelu);
-  if (dtype == 0 && act == kLeaky) TULIP_TM_BWD(float, kLeaky);
-#undef TULIP_TM_BWD
+#define TULIP_TM_BWD_F32(ACT)                                                \
+  return tulip::tc::launch_two_matmul_bwd_tf32<ACT>(                         \
+      static_cast<const float*>(x), static_cast<const float*>(g),            \
+      static_cast<const float*>(lnw), static_cast<const float*>(lnb),        \
+      static_cast<const float*>(w1), static_cast<const float*>(b1),          \
+      static_cast<const float*>(w2), static_cast<float*>(dx),                \
+      static_cast<float*>(y), static_cast<float*>(a),                        \
+      static_cast<float*>(dh), p, static_cast<float*>(stat),                 \
+      static_cast<float*>(dyp), N, C, Hd, O, residual, eps, dy_splits, s)
+  if (dtype == 0 && act == kGelu) TULIP_TM_BWD_F32(kGelu);
+  if (dtype == 0 && act == kLeaky) TULIP_TM_BWD_F32(kLeaky);
+#undef TULIP_TM_BWD_F32
   if (dtype != 1) return cudaErrorInvalidValue;
 #define TULIP_TM_BWD_TC(ACT)                                                 \
   return tulip::tc::launch_two_matmul_bwd_tc<ACT>(                           \
@@ -647,8 +805,9 @@ extern "C" int tulip_two_matmul_bwd(int dtype, int act, const void* x,
   return cudaErrorInvalidValue;
 }
 
-// fp32: the FMA kernel; stat, dyp and dy_splits are not read.  bf16: the
-// three tensor-core launches.  part: one dlnw | dlnb row per 16 rows.
+// The token pass of either type (fp32 split TF32, bf16 tensor cores):
+// stat (N, 2) and dyp (dy_splits, N, K) fp32 scratch, part one dlnw | dlnb
+// row per 16 rows.
 extern "C" int tulip_ln_linear_bwd(int dtype, const void* x, const void* g,
                                    const void* lnw, const void* lnb,
                                    const void* w, void* dx, void* y,
@@ -659,8 +818,12 @@ extern "C" int tulip_ln_linear_bwd(int dtype, const void* x, const void* g,
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<float*>(part);
   if (dtype == 0)
-    return tulip::launch_ln_linear_bwd<float>(x, g, lnw, lnb, w, dx, y, p, N,
-                                              K, O, eps, s);
+    return tulip::tc::launch_ln_linear_bwd_tf32(
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<const float*>(lnw), static_cast<const float*>(lnb),
+        static_cast<const float*>(w), static_cast<float*>(dx),
+        static_cast<float*>(y), p, static_cast<float*>(stat),
+        static_cast<float*>(dyp), N, K, O, eps, dy_splits, s);
   if (dtype == 1)
     return tulip::tc::launch_ln_linear_bwd_tc(
         static_cast<const bf16*>(x), static_cast<const bf16*>(g),

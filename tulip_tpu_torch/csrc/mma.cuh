@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 MLP kernels (mlp.cu, mlp_bwd.cu,
 // reduce.cu), of the bf16 attention half-block (window_msa.cu) and, at the
-// end, of the fp32 ones (split TF32: window_msa.cu, mlp.cu): Hopper's
+// end, of the fp32 ones (split TF32: window_msa.cu, mlp.cu, mlp_bwd.cu,
+// reduce.cu): Hopper's
 // warpgroup product (wgmma) fed from a ring of shared-memory tiles that
 // cp.async fills ahead of the product.  At the end, the warp-level mma.sync
 // products of one 16-token window and head, which the half-block and the
@@ -785,6 +786,26 @@ __device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_tf32_rs_n96(float (&d)[48],
                                                    const uint32_t (&a)[4],
                                                    uint64_t b, int acc) {
@@ -820,9 +841,10 @@ template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t b, int acc) {
-  static_assert(N == 16 || N == 32 || N == 96, "tile width");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 96, "tile width");
   if constexpr (N == 16) wgmma_tf32_rs_n16(d, a, b, acc);
   if constexpr (N == 32) wgmma_tf32_rs_n32(d, a, b, acc);
+  if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, b, acc);
   if constexpr (N == 96) wgmma_tf32_rs_n96(d, a, b, acc);
 }
 
@@ -860,13 +882,15 @@ __device__ __forceinline__ void mma3_tile(float (&acc)[N / 2], uint32_t a_hi,
 }
 
 // The same with A from registers: ahi[4 KK + k] / alo[4 KK + k] the A
-// fragments of k-step k (columns in the order split_rows(perm) gives B).
-template <int N, int KK>
+// fragments of k-step k (in K3 columns in the order split_rows(perm)
+// gives B; from frag_kmaj / frag_mnmaj in order).
+template <int N, int KK, int R>
 __device__ __forceinline__ void mma3_tile_rs(float (&acc)[N / 2],
-                                             const uint32_t (&ahi)[8][4],
-                                             const uint32_t (&alo)[8][4],
+                                             const uint32_t (&ahi)[R][4],
+                                             const uint32_t (&alo)[R][4],
                                              uint32_t b_hi, uint32_t b_lo,
                                              bool fresh) {
+  static_assert(4 * KK + 4 <= R, "k-steps");
   const uint64_t bh = make_desc(b_hi, 16, 1024);
   const uint64_t bl = make_desc(b_lo, 16, 1024);
   if (fresh) {
@@ -969,6 +993,219 @@ __device__ __forceinline__ void stream_split_tiles(uint32_t ring,
     use(t, split_tile<STAGES>(ring, stage_bytes, T, t, fetch, split));
 }
 
+// A row's mean and 1/std in fp32, by one warp: lane l sums the row's
+// 16-byte chunks l, l + 32, ... (each (x + y) + (z + w)), the warp adds
+// the lanes' sums; then the squared deviations alike, reading the row
+// again (from L1).  The order depends on K alone.  K % 4 == 0, p 16-byte
+// aligned.  K4's statistics pass (mlp.cu) and the fp32 backward's LN pass
+// (mlp_bwd.cu).
+__device__ __forceinline__ float2 row_mean_rstd(const float* __restrict__ p,
+                                                int K, float eps) {
+  const int lane = threadIdx.x & 31;
+  const float4* q = reinterpret_cast<const float4*>(p);
+  float s = 0.f;
+#pragma unroll 4
+  for (int c = lane; c < K / 4; c += 32) {
+    const float4 v = q[c];
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mean = warp_sum(s) / K;
+  float d = 0.f;
+#pragma unroll 4
+  for (int c = lane; c < K / 4; c += 32) {
+    const float4 v = q[c];
+    const float e0 = v.x - mean, e1 = v.y - mean, e2 = v.z - mean,
+                e3 = v.w - mean;
+    d += (e0 * e0 + e1 * e1) + (e2 * e2 + e3 * e3);
+  }
+  return make_float2(mean, rsqrtf(warp_sum(d) / K + eps));
+}
+
+// ---------------------------------------------------------------------------
+// Split TF32 from a raw ring, A from registers: the fp32 backward
+// (mlp_bwd.cu) and the fp32 weight-gradient product (reduce.cu), whose
+// operands lie in memory K-major (x, dh, g as A: a token row's values
+// along the reduction) or MN-major (W2 in g W2, W1 in dh W1, W in g W, and
+// both token-major operands of A^T B over tokens).  TF32 wgmma reads
+// shared-memory operands K-major only.  So every tile lands raw, as it
+// lies in memory, through a ring of kF32RawStages stages (cp.async
+// kF32RawStages - 1 tiles ahead), and then:
+//   - B (the 64 output columns' operand) is split by every thread into hi
+//     and lo, K-major and swizzled, in the split buffer (raw_split_tile);
+//     an MN-major B is transposed as it is split;
+//   - A (the 64 output rows' operand) never reaches the split buffer: each
+//     thread reads its own elements of the landed tile in the A-fragment
+//     layout of wgmma's register operand and splits them in registers
+//     (frag_kmaj, frag_mnmaj), so the products read only B from shared
+//     memory (wgmma ... m64n64k8 with A in registers): a 64 x 64 x 32
+//     tile's three products read 24 KB of it instead of 48, and the split
+//     writes 16 KB instead of 32.
+// Each tile's products are waited for before the next tile (fold_ring_
+// tiles), so one split buffer does, and the registers of one accumulator
+// and one set of A fragments: 1 KB of alignment room + 16 KB + three raw
+// stages of two 9,216-byte slots = 71 KB and at most 168 registers, three
+// blocks an SM, whose splits and waits interleave.  Measured slower
+// (PERF.md): two blocks with four raw stages, and a ring that splits tile
+// t + 1 while tile t's products run (two raw stages, two split buffers).
+//   K-major raw tile (64 rows x 32): row r chunk c at r * 128 + ((c ^ (r
+//     & 7)) << 4), the split tile's layout, so split_kmaj splits chunk i
+//     into chunk i of hi and of lo; frag_kmaj's lanes read eight rows' 16
+//     bytes in different bank groups (no conflict).
+//   MN-major raw tile (32 x 64, the reduction along its rows): row-major
+//     with kMnLd = 72 floats a row.  split_mnmaj's item (r, q) reads raw
+//     rows 4 q .. 4 q + 3 at column r and writes chunk q of split row r: a
+//     warp reads 32 consecutive floats of one row and writes 16-byte
+//     chunks of rows r .. r + 7 that the swizzle puts into eight bank
+//     groups; frag_mnmaj's lanes (g, q) read row 8 ks + q, column 16 warp +
+//     g, banks 8 q + g: no conflict either way.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Ctas = 3;                      // blocks an SM
+constexpr int kF32RawStages = 3;
+constexpr int kMnLd = 72;                        // floats a raw MN-major row
+constexpr uint32_t kF32Slot = 32 * kMnLd * 4;    // one operand's raw tile
+constexpr uint32_t kF32Raw = 2 * kF32Slot;       // a raw stage: A, then B
+constexpr uint32_t kF32Tile = 64 * 128;          // a 64 x 32 split tile
+constexpr uint32_t kF32Split = 2 * kF32Tile;     // the split buffer: hi, lo
+constexpr uint32_t kF32RingSmem =
+    1024 + kF32Split + kF32RawStages * kF32Raw;
+
+// Start the copy of rows [r0, r0 + 64) x columns [c0, c0 + 32) of a
+// row-major fp32 matrix (ld elements a row) into a K-major raw tile;
+// rows >= rmax and 16-byte chunks from column cmax on arrive as zeros.
+// c0, cmax and ld multiples of 4, src 16-byte aligned.
+__device__ __forceinline__ void load_kmaj_f32(uint32_t dst, const float* src,
+                                              long long ld, long long r0,
+                                              long long rmax, int c0,
+                                              int cmax) {
+  for (int i = threadIdx.x; i < 64 * 8; i += kWg) {
+    const int r = i >> 3, ch = i & 7;
+    const long long gr = r0 + r;
+    const int gc = c0 + 4 * ch;
+    const bool ok = gr < rmax && gc < cmax;
+    cp_async16(dst + r * 128 + ((ch ^ (r & 7)) << 4),
+               ok ? src + gr * ld + gc : src, ok);
+  }
+}
+
+// Start the copy of rows [k0, k0 + 32) x columns [c0, c0 + 64) of a
+// row-major fp32 matrix into an MN-major raw tile; rows >= kmax and chunks
+// from column cmax on arrive as zeros.  As load_kmaj_f32's alignment.
+__device__ __forceinline__ void load_mnmaj_f32(uint32_t dst, const float* src,
+                                               long long ld, long long k0,
+                                               long long kmax, int c0,
+                                               int cmax) {
+  for (int i = threadIdx.x; i < 32 * 16; i += kWg) {
+    const int k = i >> 4, ch = i & 15;
+    const long long gk = k0 + k;
+    const int gc = c0 + 4 * ch;
+    const bool ok = gk < kmax && gc < cmax;
+    cp_async16(dst + (k * kMnLd + 4 * ch) * 4,
+               ok ? src + gk * ld + gc : src, ok);
+  }
+}
+
+__device__ __forceinline__ void split4(const float4& v, uint4& hi, uint4& lo) {
+  split_tf32(v.x, hi.x, lo.x);
+  split_tf32(v.y, hi.y, lo.y);
+  split_tf32(v.z, hi.z, lo.z);
+  split_tf32(v.w, hi.w, lo.w);
+}
+
+// A landed K-major raw tile split into hi at dst and lo at dst + kF32Tile
+// (the same swizzled layout).
+__device__ __forceinline__ void split_kmaj(const unsigned char* raw,
+                                           unsigned char* dst) {
+  for (int i = threadIdx.x; i < 64 * 8; i += kWg) {
+    uint4 hi, lo;
+    split4(reinterpret_cast<const float4*>(raw)[i], hi, lo);
+    reinterpret_cast<uint4*>(dst)[i] = hi;
+    reinterpret_cast<uint4*>(dst + kF32Tile)[i] = lo;
+  }
+}
+
+// A landed MN-major raw tile (32 x 64) split and transposed into a K-major
+// tile of 64 rows x 32: hi at dst, lo at dst + kF32Tile.
+__device__ __forceinline__ void split_mnmaj(const unsigned char* raw,
+                                            unsigned char* dst) {
+  const float* s = reinterpret_cast<const float*>(raw);
+  for (int i = threadIdx.x; i < 64 * 8; i += kWg) {
+    const int r = i & 63, q = i >> 6;
+    const float4 v =
+        make_float4(s[(4 * q) * kMnLd + r], s[(4 * q + 1) * kMnLd + r],
+                    s[(4 * q + 2) * kMnLd + r], s[(4 * q + 3) * kMnLd + r]);
+    uint4 hi, lo;
+    split4(v, hi, lo);
+    const uint32_t o = r * 128 + ((q ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(dst + o) = hi;
+    *reinterpret_cast<uint4*>(dst + kF32Tile + o) = lo;
+  }
+}
+
+// This thread's A fragments (k-step ks, register i: row 16 warp + g + 8 (i
+// & 1), column 8 ks + q + 4 (i >> 1) for lane 4 g + q) of a landed raw
+// tile, split: from a K-major tile (element (r, c) at swz32(r, c)) or an
+// MN-major one (at raw[c * kMnLd + r]).
+__device__ __forceinline__ void frag_kmaj(const unsigned char* raw,
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+  const int r0 = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = *reinterpret_cast<const float*>(
+          raw + swz32(r0 + 8 * (i & 1), 8 * ks + q + 4 * (i >> 1)));
+      split_tf32(v, hi[ks][i], lo[ks][i]);
+    }
+}
+__device__ __forceinline__ void frag_mnmaj(const unsigned char* raw,
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+  const float* s = reinterpret_cast<const float*>(raw);
+  const int r0 = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_tf32(s[(8 * ks + q + 4 * (i >> 1)) * kMnLd + r0 + 8 * (i & 1)],
+                 hi[ks][i], lo[ks][i]);
+}
+
+// The raw ring in two parts, as ring_start / split_tile: raw_start once,
+// then raw_split_tile(t) at each tile t in order.  It waits for tile t's
+// copies, starts those of tile t + kF32RawStages - 1 into the stage that
+// tile t - 1 left (read before the last barrier), and has split(t, raw
+// stage, split buffer) write tile t's B as hi and lo (every thread) into
+// the split buffer, which sits at raw.  The products of tile t - 1 read
+// it: the caller waits for them before it calls for tile t.
+// raw_stage(raw, t) is tile t's stage.
+__device__ __forceinline__ uint32_t raw_stage(uint32_t raw, int t) {
+  return raw + kF32Split + (t % kF32RawStages) * kF32Raw;
+}
+template <typename Fetch>
+__device__ __forceinline__ void raw_start(uint32_t raw, int T, Fetch fetch) {
+  __syncthreads();   // no warp still reads the ring or the split buffer
+  for (int t = 0; t < kF32RawStages - 1; ++t) {
+    if (t < T) fetch(t, raw_stage(raw, t));
+    cp_async_commit();
+  }
+}
+template <typename Fetch, typename Split>
+__device__ __forceinline__ void raw_split_tile(uint32_t raw, int T, int t,
+                                               Fetch fetch, Split split) {
+  cp_async_wait<kF32RawStages - 2>();
+  __syncthreads();
+  const int tn = t + kF32RawStages - 1;
+  if (tn < T) fetch(tn, raw_stage(raw, tn));
+  cp_async_commit();
+  split(t, raw_stage(raw, t), raw);
+  fence_async_proxy();
+  __syncthreads();
+}
+
 // Keeps registers that an asynchronous product reads allocated and
 // unchanged until the caller has waited for it.
 template <int R>
@@ -977,6 +1214,61 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// total (64 x 64) = the sum over ring tiles t0 .. t0 + n - 1 of A_t B_t^T:
+// A_t's fragments from frag(t, raw stage, hi, lo), B_t from the split
+// buffer; each tile's products start from zero, are waited for and are
+// added to the fp32 total (fold).  T: the ring's tile count.  A tile's
+// products are not left in flight across the next tile's split, as
+// mma3_fold leaves them: in such a loop ptxas puts a full warpgroup wait
+// (WARPGROUP.DEPBAR.LE gsb0, 0x0) before the loop's back edge (C7517), so
+// two accumulators that alternate overlap nothing and cost the registers
+// that a third block an SM needs; the other blocks fill the wait.
+template <typename Fetch, typename Split, typename Frag>
+__device__ __forceinline__ void fold_ring_tiles(float (&total)[32],
+                                                uint32_t raw, int T, int t0,
+                                                int n, Fetch fetch,
+                                                Split split, Frag frag) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) total[i] = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const int t = t0 + j;
+    raw_split_tile(raw, T, t, fetch, split);
+    uint32_t hi[4][4], lo[4][4];
+    float acc[32];
+    frag(t, raw_stage(raw, t), hi, lo);
+    mma3_tile_rs<64, 0>(acc, hi, lo, raw, raw + kF32Tile, true);
+    wgmma_wait<0>();
+    fence_regs(hi);
+    fence_regs(lo);
+    fold(total, acc);
+  }
+}
+
+// Store a 64 x 64 fp32 sum tile (this thread's fragment) as float2 pairs
+// to out (row-major, ld a row) at rows r0 + .., columns c0 + .., masked to
+// rows < rmax and columns < cmax (cmax even); v(i, value) may change
+// fragment element i (frag_row / frag_col's order) before it is stored.
+template <typename F>
+__device__ __forceinline__ void store_frag64(const float (&s)[32], float* out,
+                                             long long ld, long long r0,
+                                             long long rmax, int c0, int cmax,
+                                             F v) {
+  const int row = frag_row();
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int c = c0 + frag_col(jj);
+    if (c >= cmax) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const long long r = r0 + row + 8 * e;
+      if (r < rmax)
+        *reinterpret_cast<float2*>(out + r * ld + c) =
+            make_float2(v(4 * jj + 2 * e, s[4 * jj + 2 * e]),
+                        v(4 * jj + 2 * e + 1, s[4 * jj + 2 * e + 1]));
+    }
+  }
 }
 
 // d (16 x 8, fp32) += A (16 x 8) B (8 x 8), TF32 fragments in registers

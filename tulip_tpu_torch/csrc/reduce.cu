@@ -24,8 +24,22 @@
 //   operand layout of wgmma, so 64-token slices of A and B go through the
 //   ring as they lie in memory: no transposed copy, three stages, the next
 //   slice's copies overlapping this slice's products.
-//   fp32: tn_gemm_kernel, 64 x 64 per block, 4 x 4 per thread, FMA on the
-//   CUDA cores from 16-token slices (the parity path).
+//   fp32: tn_gemm_tf32_kernel, split TF32 on the tensor cores (mma.cuh),
+//   fp32's accuracy.  Bound: 2 T M N operations at 494.7 / 3 = 165
+//   TFLOP/s against the HBM reads of A and B; at the training step's
+//   shapes (M, N of 16 to 3,072 over up to 131,072 tokens) the reads bind
+//   for the narrow outputs and the operations for the wide.  A 64 x 64
+//   output tile per warpgroup, the sums in registers.  TF32 wgmma reads
+//   K-major operands only, and both operands are token-major (MN-major for
+//   the product), so each 32-token slice of A and of B lands raw through
+//   mma.cuh's raw ring (three stages, cp.async two slices ahead): B is
+//   transposed as it is split into hi / lo (split_mnmaj: no bank
+//   conflict), A's fragments are read from the raw slice and split in
+//   registers (frag_mnmaj); each slice's three TF32 products start from
+//   zero and are folded into an fp32 total (one tensor-core chain over
+//   all of a sum's tiles had 5-6x the error: PERF.md).  The token splits
+//   (ops/reduce.py:tn_gemm_plan) are summed in split order by
+//   tulip_colsum.  71 KB of shared memory: three blocks an SM.
 #include "mma.cuh"
 
 namespace tulip {
@@ -73,73 +87,6 @@ cudaError_t launch_colsum(const void* in, float* out, float* scratch,
   if (err != cudaSuccess) return err;
   colsum_kernel<float><<<dim3(gx, 1), kThreads, 0, stream>>>(scratch, out, S,
                                                             M, S);
-  return cudaGetLastError();
-}
-
-constexpr int kTT = 16;              // tokens per staged slice
-constexpr int kTile = 64;            // output tile edge
-constexpr int kTileLd = kTile + 4;   // padded row, 16-byte aligned
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) tn_gemm_kernel(
-    const T* __restrict__ A, const T* __restrict__ B,
-    float* __restrict__ part, long long Tt, int M, int N, long long tps) {
-  __shared__ __align__(16) float As[kTT][kTileLd];
-  __shared__ __align__(16) float Bs[kTT][kTileLd];
-  const int tid = threadIdx.x;
-  const int tm = tid / 16, tn = tid % 16;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const long long t0 = (long long)blockIdx.z * tps;
-  const long long t1 = min(Tt, t0 + tps);
-  float acc[4][4] = {};
-  for (long long tt = t0; tt < t1; tt += kTT) {
-    __syncthreads();
-    for (int i = tid; i < kTT * kTile; i += kThreads) {
-      const int k = i / kTile, c = i % kTile;
-      const long long t = tt + k;
-      As[k][c] = (t < t1 && m0 + c < M) ? to_f(A[t * M + m0 + c]) : 0.f;
-      Bs[k][c] = (t < t1 && n0 + c < N) ? to_f(B[t * N + n0 + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTT; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][tm * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tn * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-  }
-  float* out = part + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tm * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tn * 4 + j;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_tn_gemm(const void* A, const void* B, float* part,
-                           long long Tt, int M, int N, long long tps,
-                           cudaStream_t stream) {
-  if (Tt <= 0 || M <= 0 || N <= 0 || tps <= 0 || tps % kTT)
-    return cudaErrorInvalidValue;
-  const long long S = (Tt + tps - 1) / tps;
-  if (S > 65535 || (M + kTile - 1) / kTile > 65535)
-    return cudaErrorInvalidValue;
-  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile,
-                  (unsigned)S);
-  tn_gemm_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(A), static_cast<const T*>(B), part, Tt, M, N,
-      tps);
   return cudaGetLastError();
 }
 
@@ -215,13 +162,62 @@ cudaError_t launch_tn_gemm_tc(const bf16* A, const bf16* B, float* part,
   return cudaGetLastError();
 }
 
+// fp32: grid (64-column tiles, 64-row tiles of the output, token splits);
+// tps tokens per split, a multiple of 32.  Both operands are token-major,
+// MN-major for the product, so each 32-token slice of A and of B lands raw
+// (mma.cuh's raw ring): A's fragments are read from it and split in
+// registers, B is split and transposed into K-major hi / lo tiles; each
+// slice's split-TF32 products are folded into the fp32 total.
+__global__ void __launch_bounds__(kWg, kF32Ctas) tn_gemm_tf32_kernel(
+    const float* __restrict__ A, const float* __restrict__ B,
+    float* __restrict__ part, long long Tt, int M, int N, long long tps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const uint32_t raw = smem_u32(sm);
+  const int n0 = blockIdx.x * 64, m0 = blockIdx.y * kBM;
+  const long long t0 = (long long)blockIdx.z * tps;
+  const long long t1 = min(Tt, t0 + tps);
+  const int T = (int)((t1 - t0 + 31) / 32);
+  auto fetch = [&](int t, uint32_t st) {
+    const long long tt = t0 + 32LL * t;
+    load_mnmaj_f32(st, A, M, tt, t1, m0, M);
+    load_mnmaj_f32(st + kF32Slot, B, N, tt, t1, n0, N);
+  };
+  auto split = [&](int, uint32_t st, uint32_t buf) {
+    split_mnmaj(sm + (st - raw) + kF32Slot, sm + (buf - raw));
+  };
+  auto frag = [&](int, uint32_t st, uint32_t (&hi)[4][4],
+                  uint32_t (&lo)[4][4]) {
+    frag_mnmaj(sm + (st - raw), hi, lo);
+  };
+  raw_start(raw, T, fetch);
+  float sum[32];
+  fold_ring_tiles(sum, raw, T, 0, T, fetch, split, frag);
+  store_frag64(sum, part + (size_t)blockIdx.z * M * N, N, m0, M, n0, N,
+               [](int, float v) { return v; });
+}
+
+inline cudaError_t launch_tn_gemm_tf32(const float* A, const float* B,
+                                       float* part, long long Tt, int M,
+                                       int N, long long tps,
+                                       cudaStream_t stream) {
+  const long long S = (Tt + tps - 1) / tps;
+  const int gy = (M + kBM - 1) / kBM;
+  if (S > 65535 || gy > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = prepare_smem(tn_gemm_tf32_kernel, kF32RingSmem);
+  if (err != cudaSuccess) return err;
+  tn_gemm_tf32_kernel<<<dim3((N + 63) / 64, gy, (unsigned)S), kWg,
+                        kF32RingSmem, stream>>>(A, B, part, Tt, M, N, tps);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace tulip
 
 // dtype of in (colsum) or of A and B (tn_gemm): 0 fp32, 1 bf16; the
-// outputs and the scratch are fp32.  tn_gemm: tps a multiple of 16 (fp32)
-// or of 64 and M, N multiples of 8 (bf16)
+// outputs and the scratch are fp32.  tn_gemm: M, N multiples of 8, tps a
+// multiple of 32 (fp32) or of 64 (bf16).
 extern "C" int tulip_colsum(int dtype, const void* in, void* out,
                             void* scratch, long long R, int M, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -238,11 +234,14 @@ extern "C" int tulip_tn_gemm(int dtype, const void* A, const void* B,
                              long long tps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<float*>(part);
-  if (dtype == 0)
-    return tulip::launch_tn_gemm<float>(A, B, p, Tt, M, N, tps, s);
-  if (dtype != 1 || Tt <= 0 || M <= 0 || N <= 0 || M % 8 || N % 8 ||
-      tps <= 0 || tps % 64)
+  const int slice = dtype == 0 ? 32 : 64;
+  if ((dtype != 0 && dtype != 1) || Tt <= 0 || M <= 0 || N <= 0 || M % 8 ||
+      N % 8 || tps <= 0 || tps % slice)
     return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return tulip::tc::launch_tn_gemm_tf32(static_cast<const float*>(A),
+                                          static_cast<const float*>(B), p,
+                                          Tt, M, N, tps, s);
   auto a = static_cast<const __nv_bfloat16*>(A);
   auto b = static_cast<const __nv_bfloat16*>(B);
   if (N % 192 == 0)

@@ -20,8 +20,9 @@ computed here (:func:`two_matmul_plan`, :func:`ln_linear_plan`,
 :func:`dy_splits`, ``reduce.tn_gemm_plan``).  In fp32 K3 and K4 run on the
 tensor cores too, in split TF32 (three TF32 products a product, about
 fp32's accuracy) under :func:`two_matmul_plan_f32` and
-:func:`ln_linear_plan_f32`; the fp32 backwards K10 and K11 run on the FMA
-kernels, the parity path.
+:func:`ln_linear_plan_f32`, and so do the fp32 backwards K10 and K11 and
+their weight-gradient products under :func:`bwd_plan_f32` and
+``reduce.tn_gemm_plan``.
 """
 
 from __future__ import annotations
@@ -53,6 +54,12 @@ _F32_HID = 64          # hidden units per tile of the fp32 K3 (kTmF32Hid)
 # statistics; two blocks share an SM
 SMEM_F32 = 1024 + 3 * 2 * 128 * 128 + _ROWS * 8
 F32_LN_DEPTH = 384     # depth of K a split of the fp32 K4 (ln_linear_plan_f32)
+F32_DY_DEPTH = 768     # hidden units a split of the fp32 K10 / K11 dy product
+# shared bytes of the fp32 backward and weight-gradient kernels
+# (csrc/mma.cuh kF32RingSmem): 1 KB alignment room, the split buffer (a 64
+# x 32 fp32 tile as hi and lo), three raw stages of two 32 x 72 fp32
+# slots; three blocks share an SM
+SMEM_BWD_F32 = 1024 + 2 * 64 * 128 + 3 * 2 * 32 * 72 * 4
 
 
 def check_widths(C: int, Hd: int, O: int, residual: bool, what: str) -> None:
@@ -178,6 +185,31 @@ def ln_linear_plan_f32(N: int, K: int, O: int) -> dict:
         max_rows = max(_ROWS, PARTIAL_CAP // (4 * splits * O) // _ROWS * _ROWS)
     return dict(rows=_ROWS, bn=64, kts=kts, splits=splits, max_rows=max_rows,
                 stages=3, smem=SMEM_F32)
+
+
+def bwd_plan_f32(N: int, C: int, Hd: int) -> dict:
+    """Launch plan of the fp32 split-TF32 token pass of K10 (``csrc/
+    mlp_bwd.cu``; K11 with K, O for C, Hd), from the widths alone: N only
+    sets the row tiles, so a token's dx has the same bits at any token
+    count (a W shard, a data rank, one process).
+
+    rows       token rows per CTA (64, one warpgroup);
+    hid        hidden units per CTA of the hidden kernel (64): grid (row
+               tiles, ceil(Hd / 64)), C / 32 + ceil(O / 32) tiles each;
+    bn         columns of C per CTA of the dy kernel (64);
+    dy_depth   hidden units a split of dy = dh W1: ``F32_DY_DEPTH``, or Hd
+               where it is less (TULIP's MLPs split 1 / 1 / 2 / 4 times,
+               the head 2, the merges' K11 once; at batch 1 the deepest
+               stages still give 192 CTAs); a multiple of 32;
+    dy_splits  ceil(Hd / dy_depth), every 32-deep tile in exactly one
+               split; the finish kernel adds the splits' fp32 dy in split
+               order;
+    smem       ``SMEM_BWD_F32`` for every launch of the ring (three
+               blocks share an SM)."""
+    kt = -(-Hd // 32)
+    kts = min(kt, F32_DY_DEPTH // 32)
+    return dict(rows=_ROWS, hid=64, bn=64, dy_depth=32 * kts,
+                dy_splits=-(-kt // kts), smem=SMEM_BWD_F32)
 
 
 def dy_splits(N: int, C: int, Hd: int) -> int:
@@ -444,10 +476,11 @@ def two_matmul_bwd_ref(x2d, lnw, lnb, w1, b1, w2, b2, g, *, act: str,
 def two_matmul_bwd(x2d, lnw, lnb, w1, b1, w2, b2, g, *, act: str,
                    residual: bool, eps: float = 1e-6):
     """Backward of :func:`fused_two_matmul` (K10).  CUDA: the token pass
-    (recompute, da, dh, dy, dx; scratch y, a, dh; in bf16 also the rows' LN
-    statistics and dy in fp32, one per split of :func:`dy_splits`) then the
-    weight-gradient products and column sums of ``csrc/reduce.cu``.
-    Outputs as in :func:`two_matmul_bwd_ref`."""
+    (recompute, da, dh, dy, dx; scratch y, a, dh, the rows' LN statistics
+    and dy in fp32, one per split of :func:`dy_splits` in bf16 and of
+    :func:`bwd_plan_f32` in fp32) then the weight-gradient products and
+    column sums of ``csrc/reduce.cu``.  Outputs as in
+    :func:`two_matmul_bwd_ref`."""
     if x2d.device.type == "cpu":
         return two_matmul_bwd_ref(x2d, lnw, lnb, w1, b1, w2, b2, g, act=act,
                                   residual=residual, eps=eps)
@@ -469,23 +502,24 @@ def two_matmul_bwd(x2d, lnw, lnb, w1, b1, w2, b2, g, *, act: str,
         build.require(lnb, "lnb", dev, d, (C,))
     empty = lambda *shape, dt=d: torch.empty(shape, device=dev, dtype=dt)
     f32 = torch.float32
+    if O % 8:
+        raise NotImplementedError(
+            f"two_matmul backward takes O % 8 == 0, got O={O}")
+    for name, t in (("x", x2d), ("g", g), ("w1", w1), ("w2", w2),
+                    ("lnw", lnw), ("lnb", lnb)):
+        build.require_aligned(name, t)
+    if d == torch.bfloat16:
+        splits = dy_splits(N, C, Hd)
+    else:
+        build.require_aligned("b1", b1, 8)   # read as float2
+        splits = bwd_plan_f32(N, C, Hd)["dy_splits"]
     dx, a, dh = empty(N, C), empty(N, Hd), empty(N, Hd)
-    y = part = stat = dyp = None
-    splits = 0
+    dyp = empty(splits, N, C, dt=f32)
+    y = part = stat = None
     if lnw is not None:
         y = empty(N, C)
         part = empty(-(-N // 16), 2 * C, dt=f32)
-    if d == torch.bfloat16:
-        if O % 8:
-            raise NotImplementedError(
-                f"bf16 two_matmul backward takes O % 8 == 0, got O={O}")
-        for name, t in (("x", x2d), ("g", g), ("w1", w1), ("w2", w2),
-                        ("lnw", lnw), ("lnb", lnb)):
-            build.require_aligned(name, t)
-        splits = dy_splits(N, C, Hd)
-        dyp = empty(splits, N, C, dt=f32)
-        if lnw is not None:
-            stat = empty(N, 2, dt=f32)
+        stat = empty(N, 2, dt=f32)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -524,9 +558,9 @@ def ln_linear_bwd_ref(x2d, lnw, lnb, w, g, *, eps: float = 1e-6):
 
 def ln_linear_bwd(x2d, lnw, lnb, w, g, *, eps: float = 1e-6):
     """Backward of :func:`fused_ln_linear` (K11): the token pass (dy = g W,
-    LN backward, scratch y; in bf16 also the rows' LN statistics and dy in
-    fp32, one per split of :func:`dy_splits`) then dW = g^T y and the LN
-    column sums."""
+    LN backward, scratch y, the rows' LN statistics and dy in fp32, one per
+    split of :func:`dy_splits` in bf16 and of :func:`bwd_plan_f32` in
+    fp32) then dW = g^T y and the LN column sums."""
     if x2d.device.type == "cpu":
         return ln_linear_bwd_ref(x2d, lnw, lnb, w, g, eps=eps)
     if x2d.device.type != "cuda":
@@ -542,16 +576,22 @@ def ln_linear_bwd(x2d, lnw, lnb, w, g, *, eps: float = 1e-6):
     build.require(lnw, "lnw", dev, d, (K,))
     build.require(lnb, "lnb", dev, d, (K,))
     build.require(w, "w", dev, d, (O, K))
+    if d == torch.bfloat16:
+        splits = dy_splits(N, K, O)
+    else:
+        if O % 8:
+            raise NotImplementedError(
+                f"fp32 ln_linear backward takes O % 8 == 0, got O={O}")
+        for name, t in (("x", x2d), ("g", g), ("lnw", lnw), ("lnb", lnb),
+                        ("w", w)):
+            build.require_aligned(name, t)   # 16-byte loads
+        splits = bwd_plan_f32(N, K, O)["dy_splits"]
     f32 = torch.float32
     dx = torch.empty_like(x2d)
     y = torch.empty_like(x2d)
     part = torch.empty((-(-N // 16), 2 * K), device=dev, dtype=f32)
-    stat = dyp = None
-    splits = 0
-    if d == torch.bfloat16:
-        splits = dy_splits(N, K, O)
-        stat = torch.empty((N, 2), device=dev, dtype=f32)
-        dyp = torch.empty((splits, N, K), device=dev, dtype=f32)
+    stat = torch.empty((N, 2), device=dev, dtype=f32)
+    dyp = torch.empty((splits, N, K), device=dev, dtype=f32)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -13,14 +13,17 @@ import torch
 from . import build
 
 _COL_BLOCK_ROWS = 256      # csrc/reduce.cu kColBlockRows
-# blocks tn_gemm aims for: eight waves of 132 SMs of the fp32 FMA kernel,
-# two of the bf16 tensor-core kernel (fewer, longer splits: less fp32
-# partial output to write and to sum)
+# blocks tn_gemm aims for: bf16 two per SM of 132 (two blocks share an SM;
+# fewer, longer splits: less fp32 partial output to write and to sum);
+# fp32 eight per SM (three blocks share an SM: mma.cuh kF32Ctas): the
+# fp32 batch-8 step's weight gradients took 9.41 ms of device time on an
+# NVIDIA H100 80GB HBM3 at 700 W, against 10.26 at 396 and 10.85 at 264
+# (PERF.md)
 _TARGET_BLOCKS = {torch.float32: 1056, torch.bfloat16: 264}
-# csrc/reduce.cu: tokens per staged slice and output tile (rows, columns) of
-# the fp32 FMA kernel; the bf16 tensor-core kernel takes 64-token slices and
-# 64 x 192 tiles where 192 divides N, else 64 x 128
-_SLICE = {torch.float32: 16, torch.bfloat16: 64}
+# csrc/reduce.cu: tokens per slice of the split-TF32 kernel (64 x 64
+# output tiles) and of the bf16 tensor-core kernel (64 x 192 tiles where
+# 192 divides N, else 64 x 128)
+_SLICE = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def mn_tile(n: int) -> int:
@@ -67,18 +70,18 @@ colsum.launches = 0   # kernels launched: two where the rows exceed 512
 
 
 def tn_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a.T @ b over the token axis, fp32: a (T, M), b (T, N) -> (M, N).
-    The token axis is split (:func:`tn_gemm_plan`); the splits' partials
-    are summed by :func:`colsum` in split order."""
+    """a.T @ b over the token axis, fp32: a (T, M), b (T, N) -> (M, N),
+    bf16 or fp32 (split TF32) on the tensor cores.  The token axis is
+    split (:func:`tn_gemm_plan`); the splits' partials are summed by
+    :func:`colsum` in split order."""
     T, M = a.shape
     N = b.shape[1]
     build.require(b, "tn_gemm b", a.device, a.dtype, (T, N))
-    if a.dtype == torch.bfloat16:
-        if M % 8 or N % 8:
-            raise NotImplementedError(
-                f"bf16 tn_gemm takes M, N multiples of 8; got M={M}, N={N}")
-        build.require_aligned("tn_gemm a", a)
-        build.require_aligned("tn_gemm b", b)
+    if M % 8 or N % 8:
+        raise NotImplementedError(
+            f"tn_gemm takes M, N multiples of 8; got M={M}, N={N}")
+    build.require_aligned("tn_gemm a", a)
+    build.require_aligned("tn_gemm b", b)
     splits, tps = tn_gemm_plan(T, M, N, a.dtype)
     part = torch.empty((splits, M, N), device=a.device, dtype=torch.float32)
     lib = build.load()

@@ -35,10 +35,13 @@ Phases, one line or more each; any failure raises and exits non-zero:
    with TF32 operands, the half-block also HMMA with TF32 operands, and
    so the fp32 K10 / K11 kernels (mlp_bwd_hidden_tf32_kernel,
    mlp_bwd_dy_tf32_kernel, ln_linear_bwd_dy_tf32_kernel) and the fp32
-   weight-gradient product (tn_gemm_tf32_kernel); no fp32 FMA K4, K10, K11
-   or tn_gemm (ln_linear_kernel, two_matmul_bwd_kernel,
-   ln_linear_bwd_kernel, tn_gemm_kernel) is left in the library; ptxas'
-   spills of the split-TF32 kernels are printed.
+   weight-gradient product (tn_gemm_tf32_kernel); the fp32 training
+   attention core (K8, K9: attn_fwd_tf32_kernel, attn_bwd_tf32_kernel)
+   HMMA with TF32 operands and no spill; no fp32 FMA K4, K10, K11,
+   tn_gemm, K8 or K9 (ln_linear_kernel, two_matmul_bwd_kernel,
+   ln_linear_bwd_kernel, tn_gemm_kernel, attn_fwd_kernel, attn_bwd_kernel)
+   is left in the library; ptxas' spills of the split-TF32 kernels are
+   printed.
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
@@ -84,7 +87,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
    LR of bash_scripts/tulip_upsampling_durlar.sh), 20 steps through the
    port's train_one_epoch: finite losses, the launches per step of every
    kernel (K1/K2 none), median step ms, img/s, peak memory; the loop's ms
-   per step with --pin_mem and with --no_pin_mem; 10 steps on one
+   per step with --pin_mem and with --no_pin_mem; the same loop for
+   F32_STEPS fp32 steps (--precision fp32: the fp32 K3, K4, K8, K9, K10,
+   K11), counted from 0 and read after it, finite losses, median step ms;
+   10 steps on one
    repeated batch, drop-path off, constant LR: the last loss below the
    first; and the whole step at batch 1 (drop-path 0) against the same
    step on the CPU through the plain versions: fp32 loss within 1e-4
@@ -223,8 +229,8 @@ natural row-strip entry, the stages with more than 8 heads) at batch 2 and,
 in bf16, batch 8; K4 at batch 1 and 8 (the bf16 kernel splits K over CTAs
 at batch 1-4), at a ragged token count and at TULIP-large's deepest merge
 (K 3,072); every bf16 case of K1, K2, K3, K4, K8, K9, K10, K11, K12, K13
-twice for the same bits, and every fp32 case of K1, K2, K3, K4, K12,
-K13 (split TF32) too; and K14 / K15 (LayerNorm forward and backward: y,
+twice for the same bits, and every fp32 case of K1, K2, K3, K4, K8, K9,
+K10, K11, K12, K13 (split TF32) too; and K14 / K15 (LayerNorm forward and backward: y,
 dx, dw, db) at the four norm1 shapes of the batch-8 train step, at the
 batch-1 step's, at a ragged token count, at TULIP-large's C 1,536 and at
 widths whose chunks do not split evenly over a row's lanes, in bf16 and
@@ -251,7 +257,7 @@ three merges, at a ragged token count and at the batch-1 deepest merge
 (dy split over CTAs); in fp32 also K10 / K11 at the batch-1 step's MLPs,
 head and merges, a ragged N of 1,000, TULIP-large's C 1,536 and K 3,072
 (more_bwd_cases; the fp32 K10 rows also give the bound with the a / dh
-scratch's bytes); in bf16 also K8 / K9 at the batch-1 step's shapes,
+scratch's bytes); in bf16 and fp32 also K8 / K9 at the batch-1 step's shapes,
 on a 2 x 40 grid (5 windows: a short last tile), at C 768 on 15 windows
 and at TULIP-large's deepest stage (C 1,536, 48 heads); every output
 within the bf16 / fp32 limits of its own max|ref|.  For K8-K11, K14 and
@@ -295,6 +301,7 @@ PER_STEP = {"window_msa": 0, "attn_core_fwd": 14, "attn_core_bwd": 14,
             "two_matmul": 15, "two_matmul_bwd": 15, "ln_linear": 3,
             "ln_linear_bwd": 3}
 TRAIN_BATCH, TRAIN_STEPS = 8, 20
+F32_STEPS = 4   # phase 7's fp32 steps (--precision fp32)
 SOURCES = {
     "window_msa": ("tulip_tpu_torch/csrc/window_msa.cu",
                    {"K1": "tulip_tpu/ops/pallas/window_msa.py:476",
@@ -347,25 +354,31 @@ MMA_SYNC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_tc_kernel")
 # global loads and stores (LDG.E.128 / STG.E.128 in the SASS)
 WIDE_ACCESS_KERNELS = ("ln_fwd_reg_kernel", "ln_bwd_reg_kernel")
 # the fp32 kernels of K3 (fused, and the two passes of its wide form), of
-# K4 and of the attention half-block (K1, K2, K12, K13): split TF32 on the
-# tensor cores, so HGMMA with TF32 operands in the SASS
-# (HGMMA.64xNx8.F32.TF32), and in the half-block its 16 x 16 products as
-# HMMA.1688.F32.TF32
+# K4, K10, K11, the weight-gradient product and the attention half-block
+# (K1, K2, K12, K13): split TF32 on the tensor cores, so HGMMA with TF32
+# operands in the SASS (HGMMA.64xNx8.F32.TF32), and in the half-block its
+# 16 x 16 products as HMMA.1688.F32.TF32; and the training attention core
+# (K8, K9), whose products are all warp-level (TF32_MMA_SYNC_KERNELS):
+# HMMA.1688.F32.TF32 only, and no spill
+TF32_MMA_SYNC_KERNELS = ("attn_fwd_tf32_kernel", "attn_bwd_tf32_kernel")
 TF32_KERNELS = ("two_matmul_tf32_kernel", "linear_tf32_kernel",
                 "ln_linear_tf32_kernel", "window_msa_tf32_kernel",
                 "mlp_bwd_hidden_tf32_kernel", "mlp_bwd_dy_tf32_kernel",
-                "ln_linear_bwd_dy_tf32_kernel", "tn_gemm_tf32_kernel")
-# the fp32 FMA kernels that the split-TF32 ones replaced (K4, K10, K11 and
-# the weight-gradient product): none may be built
+                "ln_linear_bwd_dy_tf32_kernel",
+                "tn_gemm_tf32_kernel") + TF32_MMA_SYNC_KERNELS
+# the fp32 FMA kernels that the split-TF32 ones replaced (K4, K10, K11,
+# the weight-gradient product, K8 and K9): none may be built
 FMA_GONE = ("ln_linear_kernel", "two_matmul_bwd_kernel",
-            "ln_linear_bwd_kernel", "tn_gemm_kernel")
+            "ln_linear_bwd_kernel", "tn_gemm_kernel", "attn_fwd_kernel",
+            "attn_bwd_kernel")
 # the ops/ wrappers whose fp32 cases run those kernels (checked for equal
 # bits over two runs).  Every fp32 case's bound, theirs and the FMA
 # kernels' alike, is taken at the split-TF32 rate: the least time for
 # fp32-accurate products on this card is three dense TF32 products a
 # product, whichever kernel the port runs today
 SPLIT_TF32 = ("window_msa", "window_msa_grouped", "window_msa_nat",
-              "two_matmul", "ln_linear", "two_matmul_bwd", "ln_linear_bwd")
+              "two_matmul", "ln_linear", "two_matmul_bwd", "ln_linear_bwd",
+              "attn_core_fwd", "attn_core_bwd")
 # fp32 instructions per point pair of a nearest-neighbour sweep: both
 # directions (K5: 3 sub, mul, 2 fma, 2 min), one direction (K6, K7: one min)
 PAIR_OPS, PAIR_OPS_ONE = 8, 7
@@ -740,8 +753,8 @@ def check_deterministic(torch, device, cases):
     d(bias) column sum), the LayerNorm kernels (K14, K15 with dw / db
     summed inside its launch) and tn_gemm on their own, bf16; and the
     fp32 split-TF32 kernels (K1, K2, K12, K13, K3, K4 with their sum
-    passes, K10 and K11 with their finish kernels and column sums, and
-    tn_gemm on its own):
+    passes, K10 and K11 with their finish kernels and column sums, K8, K9
+    with its d(bias) column sum, and tn_gemm on its own):
     two runs on the same inputs must give the same bits (no atomic sums,
     every cross-block sum in a fixed order)."""
     from tulip_tpu_torch.ops import reduce as R
@@ -773,7 +786,7 @@ def check_deterministic(torch, device, cases):
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
           f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / K8 / K9 / K14 / K15 "
           f"/ tn_gemm and fp32 K1 / K2 / K12 / K13 / K3 / K4 / K10 / K11 / "
-          f"tn_gemm cases bit-identical over two runs", flush=True)
+          f"K8 / K9 / tn_gemm cases bit-identical over two runs", flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
 
@@ -900,27 +913,29 @@ def attn_core_cases(torch, device, rn, dtype, batch, H, W, C, nh, shifted,
 
 
 def more_attn_core_cases(torch, device):
-    """K8 / K9 in bf16 beyond the batch-8 step: every stage of the step at
-    batch 1 (fewer tiles than CTAs the card holds), then shapes the flagship
-    never gives: a 2 x 40 grid (5 windows: a last tile of one window), 15
-    windows at C 768 (a last tile of three, eight head groups) and
-    TULIP-large's deepest stage (C 1,536, 48 heads, a 2 x 32 grid)."""
+    """K8 / K9 in bf16 and fp32 beyond the batch-8 step: every stage of the
+    step at batch 1 (fewer tiles than CTAs the card holds), then shapes the
+    flagship never gives: a 2 x 40 grid (5 windows: a last tile of one
+    window), 15 windows at C 768 (a last tile of three; eight head groups
+    in bf16, 24 in fp32) and TULIP-large's deepest stage (C 1,536, 48
+    heads, a 2 x 32 grid)."""
     g = torch.Generator().manual_seed(7)
 
     def rn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=g) * scale + shift
 
     cases = []
-    for (H, W), C, nh in STAGES:
-        for shifted in (False, True):
-            cases += attn_core_cases(torch, device, rn, torch.bfloat16, 1, H,
-                                     W, C, nh, shifted, False)
-    for batch, H, W, C, nh, shifted in (
-            (1, 2, 40, 96, 3, False), (1, 2, 40, 96, 3, True),
-            (3, 2, 40, 768, 24, True), (8, 2, 32, 1536, 48, True)):
-        cases += attn_core_cases(torch, device, rn, torch.bfloat16, batch, H,
-                                 W, C, nh, shifted, False, library=False,
-                                 what="off-path ")
+    for dtype in (torch.bfloat16, torch.float32):
+        for (H, W), C, nh in STAGES:
+            for shifted in (False, True):
+                cases += attn_core_cases(torch, device, rn, dtype, 1, H, W,
+                                         C, nh, shifted, False)
+        for batch, H, W, C, nh, shifted in (
+                (1, 2, 40, 96, 3, False), (1, 2, 40, 96, 3, True),
+                (3, 2, 40, 768, 24, True), (8, 2, 32, 1536, 48, True)):
+            cases += attn_core_cases(torch, device, rn, dtype, batch, H, W,
+                                     C, nh, shifted, False, library=False,
+                                     what="off-path ")
     return cases
 
 
@@ -1973,7 +1988,6 @@ def run_train_phase(torch, dev, data_root, weights):
     width = FLAGSHIP["img_size"][1]
     write_durlar(data_root, 2 * TRAIN_BATCH, width, split="train")
     batches = load_batches(data_root, TRAIN_BATCH, width, split="train")
-    loader = batches * (TRAIN_STEPS // len(batches))
     args = types.SimpleNamespace(accum_iter=1, lr=5e-4, min_lr=0.0,
                                  warmup_epochs=60, epochs=600, seed=0,
                                  log_transform=True)
@@ -1983,9 +1997,7 @@ def run_train_phase(torch, dev, data_root, weights):
         m.load_state_dict(weights, strict=True)
         return m.to(device=device, dtype=dtype)
 
-    model = fresh(0.1)
-    step = make_train_step(model, make_optimizer(model, 0.01),
-                           compute_dtype=torch.bfloat16)
+    step = None
     times, losses = [], []
 
     def timed_step(low, high, lr, generator):
@@ -1997,38 +2009,56 @@ def run_train_phase(torch, dev, data_root, weights):
         losses.append(out)
         return out
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts()
-    stats = train_one_epoch(timed_step, loader, 0, device=dev, args=args)
-    got = counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    want = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
-    if {k: got[k] for k in PER_STEP} != want:
-        raise SystemExit(f"train launches {got}, expected {want}")
-    vals = [(l.item(), p.item()) for l, p in losses]
-    if len(vals) != TRAIN_STEPS or not all(
-            math.isfinite(v) for pair in vals for v in pair):
-        raise SystemExit(f"train losses {vals}")
-    med = statistics.median(times[2:])
-    print(f"train: {TRAIN_STEPS} bf16 steps of batch {TRAIN_BATCH} through "
-          f"train_one_epoch, drop_path_rate 0.1, launches/step "
-          f"{ {k: got[k] // TRAIN_STEPS for k in PER_STEP} }; step median "
-          f"{med * 1e3:.2f} ms = {TRAIN_BATCH / med:.2f} img/s (min "
-          f"{min(times[2:]) * 1e3:.2f}, max {max(times[2:]) * 1e3:.2f}, "
-          f"first {times[0] * 1e3:.1f} ms), peak mem {peak / 2 ** 20:.0f} "
-          f"MiB; losses {[round(v[0], 5) for v in vals]} (random weights: "
-          f"a check that the path runs, not a result); mean {stats}",
-          flush=True)
-    report = dict(launches={k: got[k] for k in TRAIN_KERNELS},
-                  launches_per_step={k: got[k] // TRAIN_STEPS
-                                     for k in PER_STEP},
-                  step_ms=[t * 1e3 for t in times], step_ms_median=med * 1e3,
-                  img_per_s=TRAIN_BATCH / med, peak_mib=peak / 2 ** 20,
-                  losses=vals)
+    def counted_epoch(dtype, steps, what):
+        """steps steps of batch TRAIN_BATCH through train_one_epoch from the
+        weights, computing in dtype, the counts set to 0 just before and
+        read just after; the run's report."""
+        nonlocal step
+        model = fresh(0.1)
+        step = make_train_step(model, make_optimizer(model, 0.01),
+                               compute_dtype=dtype)
+        times.clear()
+        losses.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        stats = train_one_epoch(timed_step,
+                                batches * (steps // len(batches)), 0,
+                                device=dev, args=args)
+        got = counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        step = None
+        want = {k: v * steps for k, v in PER_STEP.items()}
+        if {k: got[k] for k in PER_STEP} != want:
+            raise SystemExit(f"{what} train launches {got}, expected {want}")
+        vals = [(l.item(), p.item()) for l, p in losses]
+        if len(vals) != steps or not all(
+                math.isfinite(v) for pair in vals for v in pair):
+            raise SystemExit(f"{what} train losses {vals}")
+        med = statistics.median(times[2:])
+        print(f"train: {steps} {what} steps of batch {TRAIN_BATCH} through "
+              f"train_one_epoch, drop_path_rate 0.1, launches/step "
+              f"{ {k: got[k] // steps for k in PER_STEP} }; step median "
+              f"{med * 1e3:.2f} ms = {TRAIN_BATCH / med:.2f} img/s (min "
+              f"{min(times[2:]) * 1e3:.2f}, max {max(times[2:]) * 1e3:.2f}, "
+              f"first {times[0] * 1e3:.1f} ms), peak mem "
+              f"{peak / 2 ** 20:.0f} MiB; losses "
+              f"{[round(v[0], 5) for v in vals]} (random weights: a check "
+              f"that the path runs, not a result); mean {stats}", flush=True)
+        return dict(launches={k: got[k] for k in TRAIN_KERNELS},
+                    launches_per_step={k: got[k] // steps for k in PER_STEP},
+                    step_ms=[t * 1e3 for t in times],
+                    step_ms_median=med * 1e3, img_per_s=TRAIN_BATCH / med,
+                    peak_mib=peak / 2 ** 20, losses=vals)
+
+    report = counted_epoch(torch.bfloat16, TRAIN_STEPS, "bf16")
+    torch.cuda.empty_cache()
+    # the same loop in fp32 (--precision fp32): the training kernels' fp32
+    # forms (split TF32)
+    report["fp32"] = counted_epoch(torch.float32, F32_STEPS,
+                                   "fp32 (--precision fp32)")
 
     # --pin_mem (the default) against --no_pin_mem: the loop from one step's
     # start to the next, which holds the batch's copy to the card
-    del model, step
     torch.cuda.empty_cache()
     pin = {True: [], False: []}
     for on in (True, False, False, True):
@@ -3844,6 +3874,8 @@ PROFILE_CLASSES = {
     "ln_linear_tf32": "K4 (LN / statistics pass, product, sum pass)",
     "attn_fwd_tc": "K8 attention core forward (mma.sync)",
     "attn_bwd_tc": "K9 attention core backward (mma.sync)",
+    "attn_fwd_tf32": "K8 attention core forward fp32 (split TF32)",
+    "attn_bwd_tf32": "K9 attention core backward fp32 (split TF32)",
     "attn_": "K8/K9 FMA kernels", "mlp_bwd": "K10 token pass",
     "two_matmul_bwd": "K10 token pass",
     "tn_gemm": "weight gradients", "colsum": "weight gradients",
@@ -4085,40 +4117,45 @@ def device_us(torch, fn, n=10, lags=None):
 
 
 def profile_attn(torch, dev, lags=None):
-    """K8 and K9 in bf16 at every shape of the batch-8 and batch-1 train
-    steps, by torch.profiler: device us per call (mean of 10; K9 with its
-    d(bias) column sum) beside the bound and F.scaled_dot_product_attention's
-    device time, and the sums per train step (each shape's launches in a
-    step)."""
+    """K8 and K9 in bf16 and fp32 (--precision fp32) at every shape of the
+    batch-8 and batch-1 train steps, by torch.profiler: device us per call
+    (mean of 10; K9 with its d(bias) column sum) beside the bound and
+    F.scaled_dot_product_attention's device time, and the sums per train
+    step (each shape's launches in a step; fp32 keys start "fp32")."""
     g = torch.Generator().manual_seed(1)
 
     def rn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=g) * scale + shift
 
     rows, step = [], {}
-    for batch in (TRAIN_BATCH, 1):
-        for (H, W), C, nh in STAGES:
-            for shifted in (False, True):
-                for _, knum, label, kfn, _, _, extra in attn_core_cases(
-                        torch, dev, rn, torch.bfloat16, batch, H, W, C, nh,
-                        shifted, True, per_step=1 if C == 768 else 2):
-                    kern = device_us(torch, kfn, lags=lags)
-                    lib = sum(device_us(torch, extra["library"],
-                                        lags=lags).values())
-                    bound = bound_ms(*extra["work"], "bfloat16")[0] * 1e3
-                    total = sum(kern.values())
-                    for key, v in ((knum, total), (knum + " bound", bound),
-                                   (knum + " sdpa", lib)):
-                        key = f"{key} batch {batch}"
-                        step[key] = step.get(key, 0.0) + v * extra["per_step"]
-                    rows.append(dict(label=label, device_us=total,
-                                     kernels=kern, sdpa_us=lib,
-                                     bound_us=bound))
-                    print(f"profile {label}: device {total:.2f} us "
-                          f"({100 * bound / total:.0f} % of the bound "
-                          f"{bound:.2f}), sdpa {lib:.2f} us; "
-                          + ", ".join(f"{k.split('(')[0][-28:]} {v:.2f}"
-                                      for k, v in kern.items()), flush=True)
+    for dtype, kind, pre in ((torch.bfloat16, "bfloat16", ""),
+                             (torch.float32, "split_tf32", "fp32 ")):
+        for batch in (TRAIN_BATCH, 1):
+            for (H, W), C, nh in STAGES:
+                for shifted in (False, True):
+                    for _, knum, label, kfn, _, _, extra in attn_core_cases(
+                            torch, dev, rn, dtype, batch, H, W, C, nh,
+                            shifted, True, per_step=1 if C == 768 else 2):
+                        kern = device_us(torch, kfn, lags=lags)
+                        lib = sum(device_us(torch, extra["library"],
+                                            lags=lags).values())
+                        bound = bound_ms(*extra["work"], kind)[0] * 1e3
+                        total = sum(kern.values())
+                        for key, v in ((knum, total),
+                                       (knum + " bound", bound),
+                                       (knum + " sdpa", lib)):
+                            key = f"{pre}{key} batch {batch}"
+                            step[key] = (step.get(key, 0.0)
+                                         + v * extra["per_step"])
+                        rows.append(dict(label=label, device_us=total,
+                                         kernels=kern, sdpa_us=lib,
+                                         bound_us=bound))
+                        print(f"profile {label}: device {total:.2f} us "
+                              f"({100 * bound / total:.0f} % of the bound "
+                              f"{bound:.2f}), sdpa {lib:.2f} us; "
+                              + ", ".join(
+                                  f"{k.split('(')[0][-28:]} {v:.2f}"
+                                  for k, v in kern.items()), flush=True)
     print("profile K8 / K9 per train step, device us: "
           + ", ".join(f"{k} {v:.1f}" for k, v in step.items()), flush=True)
     return dict(rows=rows, per_step_us=step)
@@ -5313,14 +5350,18 @@ def main() -> int:
           f"(LDG.E.128 / STG.E.128) of the bf16 LayerNorm kernels {wide}; "
           f"(HGMMA, HMMA with TF32 operands) of the fp32 split-TF32 "
           f"kernels {tf32}", flush=True)
-    if not (all(tf32[k][0] for k in TF32_KERNELS)
+    if not (all(tf32[k][0] for k in TF32_KERNELS
+                if k not in TF32_MMA_SYNC_KERNELS)
+            and all(tf32[k][1] for k in TF32_MMA_SYNC_KERNELS)
             and all(tf32["window_msa_tf32_kernel"])):
         raise SystemExit(f"an fp32 split-TF32 kernel lacks its TF32 "
                          f"tensor-core instructions: {tf32}")
+    if spills and any(k in spills for k in TF32_MMA_SYNC_KERNELS):
+        raise SystemExit(f"the fp32 K8 / K9 kernels spill: {spills}")
     fma = [f for f in functions if any(k in f for k in FMA_GONE)]
     print(f"build: {len(functions)} functions in the library, fp32 FMA "
-          f"K4 / K10 / K11 / tn_gemm ({', '.join(FMA_GONE)}) among them: "
-          f"{fma}", flush=True)
+          f"K4 / K10 / K11 / tn_gemm / K8 / K9 ({', '.join(FMA_GONE)}) "
+          f"among them: {fma}", flush=True)
     if fma:
         raise SystemExit(f"an fp32 FMA kernel is still built: {fma}")
     if not all(hgmma.values()):
@@ -5494,14 +5535,17 @@ def main() -> int:
                 cases=len(rows)))
             # beside them the fp32 cases on the path (the default
             # evaluation's type), and the launches of phase 6's fp32
-            # evaluate (NUM_EVAL forwards)
+            # evaluate (NUM_EVAL forwards), for the training kernels of
+            # phase 7's fp32 steps
             f32 = [r for r in table if r["knum"] == knum
                    and r["dtype"] == "float32" and r["on_path"]]
             if f32 and dtype == "bfloat16":
                 by32 = {w: sum(r["bound_ms"] for r in f32
                                if r["bound_by"] == w)
                         for w in ("bytes", "operations")}
-                ev = eval_report["runs"]["evaluate fp32"]["launches"]
+                ev = (train_report["fp32"]["launches"]
+                      if kernel in TRAIN_KERNELS else
+                      eval_report["runs"]["evaluate fp32"]["launches"])
                 n32 = ev.get(kernel, 0)
                 if kernel == "window_msa":
                     many = ev["window_msa_many_heads"]

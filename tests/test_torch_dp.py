@@ -9,16 +9,23 @@ At the small config of test_torch_train.py (a two-stage TULIP-base,
   drop_path_rate 0.1, accum_iter 1 (2 steps) and 2 (4 micro-steps): the
   losses within 1e-5 relative; the gradient of the first update within
   1e-5 of each tensor's max|ref| (the same arithmetic but for the order of
-  the batch's sums; measured <= 4.1e-7); the weights, and the gradients of
-  later updates, within 1e-5 of the largest |ref| of all tensors
-  (measured 3.6e-8 and 6.5e-7).  Per tensor these would not hold: a
-  tensor that starts at zero, a bias, holds entries of about lr after one
-  update, and AdamW's normalised update turns the rounding noise of a
-  gradient entry near zero into up to 2e-4 of that; the next gradient of
-  a tensor as small as a bias table's (1.6e-6) then moves by 2e-3 of
-  itself, as it does between one process's runs on 1 and on 2 threads.
-  The two ranks' weights are equal bit for bit after every step (rank 1
-  starts from other weights, which replicate() overwrites);
+  the batch's sums; measured <= 4.1e-7); the gradients of later updates
+  within 1e-5 of the largest |ref| of all tensors (measured 6.5e-7).  Per
+  tensor these would not hold: a tensor that starts at zero, a bias,
+  holds entries of about lr after one update, and AdamW's normalised
+  update turns the rounding noise of a gradient entry near zero into up
+  to 2e-4 of that; the next gradient of a tensor as small as a bias
+  table's (1.6e-6) then moves by 2e-3 of itself, as it does between one
+  process's runs on 1 and on 2 threads.  The weights are not held to the
+  one process's: AdamW divides each entry by its own gradient's size, so
+  an entry whose gradient is near zero moves by a share of lr that the
+  rounding of its gradient decides (one host measured 1.05e-5 of the
+  largest weight after the second update, another 3.6e-8).  Instead the
+  ranks' weights after each update equal, bit for bit, the port's AdamW
+  replayed on one thread from the start weights on the ranks' gradients
+  (replay_updates), which are the gradients held to the one process
+  above.  The two ranks' weights are equal bit for bit after every step
+  (rank 1 starts from other weights, which replicate() overwrites);
 - (b) the same two ranks at drop-path 0 against the JAX package's one
   process on the joined batch (``make_train_step``): the first loss within
   1e-5 relative and each gradient within 1e-4 of its max|ref|, the limits
@@ -221,6 +228,32 @@ def _one_process(spec):
         torch.set_num_threads(threads)
 
 
+def replay_updates(params, grads):
+    """The weights after each update of the port's AdamW (make_optimizer,
+    lr LR) from ``params`` (a saved state dict), handed ``grads`` (one dict
+    an update), on one thread as the ranks run."""
+    cfg = model_config("tulip_base", **KW)
+    model = TT.TULIP(cfg)
+    model.load_state_dict(torch.load(params, weights_only=True))
+    opt = TS.make_optimizer(model, WD)
+    for group in opt.param_groups:
+        group["lr"] = LR
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = []
+    try:
+        for g in grads:
+            for n, p in model.named_parameters():
+                p.grad = g[n].clone()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            out.append({n: p.detach().clone()
+                        for n, p in model.named_parameters()})
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
 def _within(got, ref, limit, per_tensor=True):
     """Each tensor's largest difference over its largest |ref|, or over the
     largest |ref| of all of them."""
@@ -253,9 +286,15 @@ def test_two_ranks_equal_one_process_on_the_joined_batch(data, tmp_path,
             assert torch.equal(w, got1["weights"][k]), (i, k)
         assert got0["loss"] == got1["loss"]
         np.testing.assert_allclose(got0["loss"], want["loss"], rtol=1e-5)
-        _within(got0["weights"], want["weights"], 1e-5, per_tensor=False)
     for j, (got, want) in enumerate(zip(ranks[0][1], ref_grads)):
         _within(got, want, 1e-5, per_tensor=j == 0)
+    # the ranks' weights are AdamW's update on the gradients compared
+    # above, bit for bit
+    replayed = replay_updates(data["params"], ranks[0][1])
+    for j, weights in enumerate(replayed):
+        got = ranks[0][0][(j + 1) * accum_iter - 1]["weights"]
+        for k, w in weights.items():
+            assert torch.equal(got[k], w), (j, k)
     # the weights moved by about lr a step, far beyond the limit
     params = torch.load(data["params"], weights_only=True)
     assert max(float((ref[-1]["weights"][k] - params[k]).abs().max())

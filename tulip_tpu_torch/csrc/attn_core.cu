@@ -26,7 +26,8 @@
 // Bound on the H100: 4 x 16 x 16 x 32 MACs per window and head against
 // 3 x 16 x 32 values in and 16 x 32 out (forward), 5 x 16 x 16 x 32 against
 // 4 x 16 x 32 in and 3 x 16 x 32 out (backward): 8-11 operations a byte, so
-// the bytes bind it, 30x below the tensor cores' ridge.
+// the bytes bind it, 30x below the tensor cores' ridge; in fp32, twice
+// the bytes and three TF32 products a product, still 9x below it.
 //
 // bf16: attn_fwd_tc_kernel / attn_bwd_tc_kernel, whose design is to move
 // those bytes at the card's rate:
@@ -51,212 +52,87 @@
 //     the CTAs in order.  No atomics: the same inputs give the same bits.
 // Measured: PERF.md section 6 (chip_smoke.py).
 //
-// fp32: attn_fwd_kernel / attn_bwd_kernel, the FMA kernels on the CUDA
-// cores (one CTA of 256 threads per head and split of the windows, thread
-// (i, j) owns logit (i, j)): the parity path, 1e-4 of the plain version.
+// fp32: attn_fwd_tf32_kernel / attn_bwd_tf32_kernel, the same copies,
+// warps and d(bias) sums with the products in split TF32 (mma.cuh: hi /
+// lo halves, three m16n8k8 TF32 products a product, small terms first):
+//   - a row of a head's part is 32 fp32 = 128 bytes, so a tile row of hg
+//     heads is 128 hg PARTS + 16 bytes: R = 32 hg PARTS + 4 words, R = 4
+//     (mod 32).  A tile is 2 windows (kAttnF32Win) of up to 3 heads: 75 KB
+//     forward, three blocks an SM, 99 KB backward, two; of seven shapes
+//     timed it ties with one window and beats the others (PERF.md,
+//     section 6).  ldmatrix reads fp32 as
+//     pairs of b16: lane 4 g + q gets
+//     word q of row g of an 8 x 4-float matrix, which is the TF32 A
+//     fragment (rows along M, dims along K) and the B fragment of the
+//     rows' transpose (tokens along N), so S = q k^T and dP = dO v^T load
+//     as the bf16 pair does (a_off / b_off; the rows' 16-byte chunks sit
+//     in 8 bank groups since R / 4 is odd);
+//   - products over tokens (P v, dS k, dS^T q, P^T dO) take their B
+//     operand, token k = 8 kt + 2 q + {0, 1} and dim 8 dt + g, by 4-byte
+//     loads: word (8 kt + 2 q) R + 8 dt + g is bank 8 q + g + 8 dt (mod
+//     32), 32 banks for 32 lanes.  The key tokens go in that order in
+//     both operands: the A operand is a D fragment as it is (lane 4 g + q
+//     holds columns 2 q, 2 q + 1);
+//   - movmatrix and ldmatrix.trans move 16-bit elements only, so P^T and
+//     dS^T go through shared memory: P and dS are written to the warp's
+//     own v slot (v is read by then) as rows of R words and read back
+//     down the columns, word (8 kt + 2 q + e) R + g (+ 8): bank 8 q + 4 e
+//     + g (+ 8), again 32 banks.  (The writes, float2 at row g, column 8
+//     nt + 2 q, fall 2-way: any R = 4 (mod 8) that the reads need puts
+//     rows g and g + 1 4 words apart.)  Taking P^T as the softmax of k
+//     q^T instead costs two more 16 x 16 x 32 products (dP^T too) and
+//     the row statistics through shuffles, for what are 8 float2 stores
+//     and 16 loads a lane here: measured 11-13 % slower (PERF.md,
+//     section 6);
+//   - a fragment that feeds several products (q's in S, P's and dS's in
+//     the products over tokens) is split into hi / lo once.
+// The rounding points are the plain version's: none below fp32.
+// Measured: PERF.md section 6 (chip_smoke.py).
 #include "mma.cuh"
 
 namespace tulip {
-
-constexpr int kHD = 32;         // head dim
-constexpr int kLd = kHD + 1;    // padded row: conflict-free column reads
-
-struct WindowGeom {
-  int H, W, C, wh, ww, sh, sw, nWw, nWin;
-  // token index (b * H + row) * W + col of token t of window win of image b
-  __device__ __forceinline__ long long token(int b, int win, int t) const {
-    const int row = ((win / nWw) * wh + t / ww + sh) % H;
-    const int col = ((win % nWw) * ww + t % ww + sw) % W;
-    return ((long long)b * H + row) * W + col;
-  }
-};
-
-// Stage q, k, v (and, with dout, dO) of head h for the 16 tokens tok[].
-template <typename T>
-__device__ void load_head(const T* qkv, const T* dout, const long long* tok,
-                          int C, int h, float (*q)[kLd], float (*k)[kLd],
-                          float (*v)[kLd], float (*dO)[kLd]) {
-  for (int i = threadIdx.x; i < kRows * 3 * kHD; i += kThreads) {
-    const int t = i / (3 * kHD), j = i % (3 * kHD);
-    const int part = j / kHD, d = j % kHD;
-    const float val = to_f(qkv[tok[t] * 3 * C + part * C + h * kHD + d]);
-    (part == 0 ? q : part == 1 ? k : v)[t][d] = val;
-  }
-  if (dout)
-    for (int i = threadIdx.x; i < kRows * kHD; i += kThreads) {
-      const int t = i / kHD, d = i % kHD;
-      dO[t][d] = to_f(dout[tok[t] * C + h * kHD + d]);
-    }
-}
-
-// Row-wise softmax of logit (li, lj) over the 16 lanes of its half-warp.
-__device__ __forceinline__ float softmax16(float s) {
-  float m = s;
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  const float e = expf(s - m);
-  float sum = e;
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  return e / sum;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(
-    const T* __restrict__ qkv, T* __restrict__ out,
-    const float* __restrict__ bias, const float* __restrict__ mask,
-    WindowGeom geo, int nwin_total, float scale) {
-  __shared__ float q[kRows][kLd], k[kRows][kLd], v[kRows][kLd];
-  __shared__ float p[kRows][kRows + 1];
-  __shared__ long long tok[kRows];
-  const int h = blockIdx.x, C = geo.C;
-  const int li = threadIdx.x >> 4, lj = threadIdx.x & 15;
-  for (int w = blockIdx.y; w < nwin_total; w += gridDim.y) {
-    const int b = w / geo.nWin, win = w % geo.nWin;
-    if (threadIdx.x < kRows) tok[threadIdx.x] = geo.token(b, win, threadIdx.x);
-    __syncthreads();
-    load_head(qkv, static_cast<const T*>(nullptr), tok, C, h, q, k, v,
-              static_cast<float (*)[kLd]>(nullptr));
-    __syncthreads();
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < kHD; ++d) s += q[li][d] * k[lj][d];
-    s = s * scale + bias[(h * kRows + li) * kRows + lj];
-    if (mask) s += mask[(win * kRows + li) * kRows + lj];
-    p[li][lj] = round_to<T>(softmax16(s));
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int d = lj + 16 * half;
-      float o = 0.f;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) o += p[li][j] * v[j][d];
-      out[tok[li] * C + h * kHD + d] = from_f<T>(o);
-    }
-    __syncthreads();   // q, k, v, p and tok are rewritten by the next window
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dout,
-    T* __restrict__ dqkv, const float* __restrict__ bias,
-    const float* __restrict__ mask, float* __restrict__ part,
-    WindowGeom geo, int nwin_total, float scale) {
-  __shared__ float q[kRows][kLd], k[kRows][kLd], v[kRows][kLd];
-  __shared__ float dO[kRows][kLd];
-  __shared__ float pr[kRows][kRows + 1], ds[kRows][kRows + 1];
-  __shared__ long long tok[kRows];
-  const int h = blockIdx.x, C = geo.C;
-  const int li = threadIdx.x >> 4, lj = threadIdx.x & 15;
-  float dbias = 0.f;   // this thread's d(B_h)[li][lj] over its windows
-  for (int w = blockIdx.y; w < nwin_total; w += gridDim.y) {
-    const int b = w / geo.nWin, win = w % geo.nWin;
-    if (threadIdx.x < kRows) tok[threadIdx.x] = geo.token(b, win, threadIdx.x);
-    __syncthreads();
-    load_head(qkv, dout, tok, C, h, q, k, v, dO);
-    __syncthreads();
-    float s = 0.f, dp = 0.f;
-#pragma unroll
-    for (int d = 0; d < kHD; ++d) {
-      s += q[li][d] * k[lj][d];
-      dp += dO[li][d] * v[lj][d];
-    }
-    s = s * scale + bias[(h * kRows + li) * kRows + lj];
-    if (mask) s += mask[(win * kRows + li) * kRows + lj];
-    const float p32 = softmax16(s);
-    const float t = p32 * dp;
-    float rs = t;
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
-    const float dsv = t - p32 * rs;
-    dbias += dsv;
-    pr[li][lj] = round_to<T>(p32);
-    ds[li][lj] = round_to<T>(dsv);
-    __syncthreads();
-    // thread (li, lj): dims lj, lj + 16 of token li as query (dq), as key
-    // (dk) and as value (dv)
-    T* dst = dqkv + tok[li] * 3 * C + h * kHD;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int d = lj + 16 * half;
-      float dq = 0.f, dk = 0.f, dv = 0.f;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        dq += ds[li][j] * k[j][d];
-        dk += ds[j][li] * q[j][d];
-        dv += pr[j][li] * dO[j][d];
-      }
-      dst[d] = from_f<T>(dq * scale);
-      dst[C + d] = from_f<T>(dk * scale);
-      dst[2 * C + d] = from_f<T>(dv);
-    }
-    __syncthreads();
-  }
-  part[((size_t)blockIdx.y * gridDim.x + h) * kRows * kRows + threadIdx.x] =
-      dbias;
-}
-
-inline cudaError_t make_geom(int H, int W, int C, int nh, int wh, int ww,
-                             int sh, int sw, WindowGeom* geo) {
-  if (wh * ww != kRows || C != nh * kHD || H % wh || W % ww || sh < 0 ||
-      sw < 0)
-    return cudaErrorInvalidValue;
-  *geo = WindowGeom{H, W, C, wh, ww, sh, sw, W / ww, (H / wh) * (W / ww)};
-  return cudaSuccess;
-}
-
-cudaError_t launch_attn_fwd(const float* qkv, float* out, const float* bias,
-                            const float* mask, int B, int H, int W, int C,
-                            int nh, int wh, int ww, int sh, int sw,
-                            float scale, cudaStream_t stream) {
-  WindowGeom geo;
-  cudaError_t err = make_geom(H, W, C, nh, wh, ww, sh, sw, &geo);
-  if (err != cudaSuccess) return err;
-  const int total = B * geo.nWin;
-  const dim3 grid(nh, min(total, 65535));
-  attn_fwd_kernel<float><<<grid, kThreads, 0, stream>>>(qkv, out, bias, mask,
-                                                        geo, total, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_attn_bwd(const float* qkv, const float* dout, float* dqkv,
-                            const float* bias, const float* mask, float* part,
-                            int B, int H, int W, int C, int nh, int wh,
-                            int ww, int sh, int sw, int nsplit, float scale,
-                            cudaStream_t stream) {
-  WindowGeom geo;
-  cudaError_t err = make_geom(H, W, C, nh, wh, ww, sh, sw, &geo);
-  if (err != cudaSuccess) return err;
-  const int total = B * geo.nWin;
-  if (nsplit < 1 || nsplit > total || nsplit > 65535)
-    return cudaErrorInvalidValue;
-  attn_bwd_kernel<float><<<dim3(nh, nsplit), kThreads, 0, stream>>>(
-      qkv, dout, dqkv, bias, mask, part, geo, total, scale);
-  return cudaGetLastError();
-}
-
-
 namespace tc {
 
-constexpr int kAttnWin = 4;                       // windows per tile
-constexpr int kAttnRows = kAttnWin * kRows;       // token rows per tile
-constexpr int kAttnMaxGroup = 3;                  // heads per group, at most
+constexpr int kHD = 32;                           // head dim
+constexpr int kAttnWin = 4;                       // windows per tile, bf16
+constexpr int kAttnMaxGroup = 3;                  // heads per group, bf16
 constexpr int kAttnThreads = 32 * kAttnWin * kAttnMaxGroup;
+// fp32: windows per tile and heads per group, at most
+// (ops/attn_core.py:_TILE_WINDOWS, _MAX_GROUP), and the blocks an SM holds
+// by shared memory, which the launch bounds promise.
+constexpr int kAttnF32Win = 2;
+constexpr int kAttnF32Group = 3;
+constexpr int kAttnF32Threads = 32 * kAttnF32Win * kAttnF32Group;
+// shared bytes an SM offers blocks (228 KB), and what each block takes
+// beside its dynamic shared memory (ops/window_msa.py:SM_SMEM)
+constexpr int kSmSmem = 233472;
+constexpr int kBlockSmemExtra = 1024;
+
+// Shared bytes of a kernel's two tiles: 16 win rows of hg heads' parts (q,
+// k, v and, backward, dO) of 32 elements, and 16 bytes of pad a row.
+__host__ __device__ constexpr int attn_smem(int esz, int parts, int hg,
+                                            int win) {
+  return 2 * kRows * win * (hg * parts * kHD * esz + 16);
+}
+// blocks of the largest fp32 group an SM holds, forward and backward
+constexpr int kAttnF32FwdBlocks =
+    kSmSmem / (attn_smem(4, 3, kAttnF32Group, kAttnF32Win) + kBlockSmemExtra);
+constexpr int kAttnF32BwdBlocks =
+    kSmSmem / (attn_smem(4, 4, kAttnF32Group, kAttnF32Win) + kBlockSmemExtra);
 
 // The token grid (B, H, W, C) cut into wh x ww windows read with shift
 // (sh, sw): nW windows an image, nWw a window row, windows over the batch,
-// tiles of kAttnWin windows.
+// tiles of WIN windows.
 struct AttnGeom {
   int H, W, C, wh, ww, sh, sw, nW, nWw, windows, tiles;
 };
 
 // Token index (b * H + row) * W + col of row r of tile `tile`, or -1 where
 // the tile's window lies beyond the batch.
+template <int WIN>
 __device__ __forceinline__ long long attn_token(const AttnGeom& g, int tile,
                                                 int r) {
-  const int wg = tile * kAttnWin + (r >> 4);
+  const int wg = tile * WIN + (r >> 4);
   if (wg >= g.windows) return -1;
   const int t = r & 15;
   const int b = wg / g.nW, win = wg - b * g.nW;
@@ -269,12 +145,13 @@ __device__ __forceinline__ long long attn_token(const AttnGeom& g, int tile,
 // One (window, head) of a tile, in its warp.  slot: the window's first row
 // in the tile at the head's q columns; rs: bytes a tile row; ps: bytes
 // between the q, k, v (, dO) parts of a row.  Lane address patterns of the
-// four 8 x 8 matrices of an ldmatrix over 16 tokens x 16 dims:
-//   a_off  rows lane % 16, dims + 8 (lane / 16): the A fragment of the
+// four 8 x 16-byte matrices of an ldmatrix over 16 tokens x 16 bytes:
+//   a_off  rows lane % 16, bytes + 16 (lane / 16): the A fragment of the
 //          rows (tokens along M), or with .trans the two B fragments of
-//          two 8-dim column tiles of the rows (tokens along K);
-//   b_off  rows lane % 8 + 8 (lane / 16), dims + 8 (lane / 8 % 2): the B
-//          fragments of two 8-token column tiles (tokens along N).
+//          two 8-dim column tiles of the rows (tokens along K; bf16);
+//   b_off  rows lane % 8 + 8 (lane / 16), bytes + 16 (lane / 8 % 2): the
+//          B fragments of two 8-token column tiles (tokens along N).
+// Both hold for bf16 (16 dims a matrix row pair) and fp32 (8 dims).
 struct PairAddr {
   uint32_t q, k, v, dO;   // ldmatrix bases of the four parts
   uint32_t a_off, b_off;
@@ -321,6 +198,30 @@ __device__ __forceinline__ void put_tile(unsigned char* slot, int rs, int dt,
   *reinterpret_cast<uint32_t*>(p + 8 * rs) = pack_bf16(v[2] * mul, v[3] * mul);
 }
 
+// ds = P * (dP - rowsum(dP * P)) of the logits' D tiles, fp32; a row's
+// sum over the 4 lanes that share it; ds added to db (load_frag16 order).
+__device__ __forceinline__ void dsoftmax(const float (&p)[2][4],
+                                         const float (&dp)[2][4],
+                                         float (&ds)[2][4], float (&db)[8]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int e = 2 * half;
+    const float t00 = p[0][e] * dp[0][e], t01 = p[0][e + 1] * dp[0][e + 1];
+    const float t10 = p[1][e] * dp[1][e], t11 = p[1][e + 1] * dp[1][e + 1];
+    float r = (t00 + t01) + (t10 + t11);
+    r += __shfl_xor_sync(0xffffffffu, r, 1);
+    r += __shfl_xor_sync(0xffffffffu, r, 2);
+    ds[0][e] = t00 - p[0][e] * r;
+    ds[0][e + 1] = t01 - p[0][e + 1] * r;
+    ds[1][e] = t10 - p[1][e] * r;
+    ds[1][e + 1] = t11 - p[1][e + 1] * r;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) db[4 * nt + i] += ds[nt][i];
+}
+
 // o = softmax(q k^T scale + bias + mask) v, rounded over q's slot.
 __device__ __forceinline__ void attn_fwd_pair(unsigned char* slot, int rs,
                                               int ps, const float (&bh)[8],
@@ -357,23 +258,7 @@ __device__ __forceinline__ void attn_bwd_pair(unsigned char* slot, int rs,
   mma_rows_rows(dp, a.dO, a.v, a);
   window_softmax(s, bh, mk, scale);   // s: P in fp32
   float ds[2][4];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int e = 2 * half;
-    const float t00 = s[0][e] * dp[0][e], t01 = s[0][e + 1] * dp[0][e + 1];
-    const float t10 = s[1][e] * dp[1][e], t11 = s[1][e + 1] * dp[1][e + 1];
-    float r = (t00 + t01) + (t10 + t11);
-    r += __shfl_xor_sync(0xffffffffu, r, 1);
-    r += __shfl_xor_sync(0xffffffffu, r, 2);
-    ds[0][e] = t00 - s[0][e] * r;
-    ds[0][e + 1] = t01 - s[0][e + 1] * r;
-    ds[1][e] = t10 - s[1][e] * r;
-    ds[1][e + 1] = t11 - s[1][e + 1] * r;
-  }
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) db[4 * nt + i] += ds[nt][i];
+  dsoftmax(s, dp, ds, db);
   uint32_t pa[4], pta[4], dsa[4], dsta[4];
   pack_a(s, pa);
   pack_a(ds, dsa);
@@ -402,25 +287,185 @@ __device__ __forceinline__ void attn_bwd_pair(unsigned char* slot, int rs,
   }
 }
 
-// grid (CTAs, head groups), 128 hg threads: warp w takes window w / hg of
-// each tile and head h0 + w % hg.  Shared memory: two tiles of 64 rows of
-// rs = 64 hg PARTS + 16 bytes; PARTS 3 (q, k, v) forward, 4 (+ dO)
-// backward.  Thread t gathers and stores row t / (2 hg), chunks t % (2 hg)
-// + 2 hg k: the same thread rewrites a chunk it has stored, so the next
-// gather into a buffer needs no barrier after the stores.
-template <bool BWD>
+// --- fp32: split TF32 -------------------------------------------------------
+
+// A TF32 operand fragment split into hi / lo once, for several products.
+struct Tf32Frag {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ Tf32Frag split_frag(float a0, float a1, float a2,
+                                               float a3) {
+  Tf32Frag f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+// The A operand of a product over the key tokens from a 16 x 16 matrix
+// held as D tiles (rows: s[.][0..1] row g, s[.][2..3] row g + 8): tile kt,
+// keys in the order 8 kt + 2 q, then 8 kt + 2 q + 1 (mma.cuh).
+__device__ __forceinline__ Tf32Frag split_d(const float (&s)[4]) {
+  return split_frag(s[0], s[2], s[1], s[3]);
+}
+
+// d += A B in split TF32, A split, b0 / b1 fp32 (the small terms first).
+__device__ __forceinline__ void mma3_split(float (&d)[4], const Tf32Frag& a,
+                                           float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, a.lo, bh0, bh1);
+  mma_tf32(d, a.hi, bl0, bl1);
+  mma_tf32(d, a.hi, bh0, bh1);
+}
+
+// s (+)= X Y^T over the 32 fp32 dims (4 k-steps of 8), X (rows) and Y
+// (columns) 16 tokens each; X's fragment split once for both column tiles.
+__device__ __forceinline__ void mma_rows_rows_f32(float (&s)[2][4],
+                                                  uint32_t x, uint32_t y,
+                                                  const PairAddr& a) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t xa[4], yb[4];
+    ldsm_x4(xa, x + a.a_off + 32 * ks);
+    ldsm_x4(yb, y + a.b_off + 32 * ks);
+    const Tf32Frag xf =
+        split_frag(__uint_as_float(xa[0]), __uint_as_float(xa[1]),
+                   __uint_as_float(xa[2]), __uint_as_float(xa[3]));
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      mma3_split(s[nt], xf, __uint_as_float(yb[2 * nt]),
+                 __uint_as_float(yb[2 * nt + 1]));
+  }
+}
+
+// d += A X[tokens, dims 8 dt ..] over the 16 tokens of the rows at x (R
+// floats a row): B fragment (token 8 kt + 2 q (+ 1), dim 8 dt + g).
+__device__ __forceinline__ void mma_tokens_f32(float (&d)[4],
+                                               const Tf32Frag (&a)[2],
+                                               const float* x, int R,
+                                               int dt) {
+  const int lane = threadIdx.x & 31;
+  const float* p = x + 2 * (lane & 3) * R + 8 * dt + (lane >> 2);
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt)
+    mma3_split(d, a[kt], p[8 * kt * R], p[(8 * kt + 1) * R]);
+}
+
+// (v * mul) of 8-dim column tile dt of a 16 x 32 result into the tile at
+// slot (the warp's own rows and columns), fp32.
+__device__ __forceinline__ void put_tile_f32(unsigned char* slot, int rs,
+                                             int dt, const float (&v)[4],
+                                             float mul) {
+  const int lane = threadIdx.x & 31;
+  unsigned char* p = slot + (lane >> 2) * rs + (8 * dt + 2 * (lane & 3)) * 4;
+  *reinterpret_cast<float2*>(p) = make_float2(v[0] * mul, v[1] * mul);
+  *reinterpret_cast<float2*>(p + 8 * rs) = make_float2(v[2] * mul,
+                                                       v[3] * mul);
+}
+
+// o = softmax(q k^T scale + bias + mask) v over q's slot, fp32.
+__device__ __forceinline__ void attn_fwd_pair_f32(unsigned char* slot, int rs,
+                                                  int ps,
+                                                  const float (&bh)[8],
+                                                  const float (&mk)[8],
+                                                  float scale) {
+  const PairAddr a = pair_addr(slot, rs, ps);
+  float s[2][4] = {};
+  mma_rows_rows_f32(s, a.q, a.k, a);
+  window_softmax(s, bh, mk, scale);
+  const Tf32Frag pf[2] = {split_d(s[0]), split_d(s[1])};
+  const float* v = reinterpret_cast<const float*>(slot + 2 * ps);
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    float o[4] = {};
+    mma_tokens_f32(o, pf, v, rs / 4, dt);
+    put_tile_f32(slot, rs, dt, o, 1.f);   // q's dims, read above
+  }
+}
+
+// dq, dk, dv of one (window, head) over its q, k, v slots, fp32; dS added
+// to db (load_frag16 order).
+__device__ __forceinline__ void attn_bwd_pair_f32(unsigned char* slot, int rs,
+                                                  int ps,
+                                                  const float (&bh)[8],
+                                                  const float (&mk)[8],
+                                                  float scale,
+                                                  float (&db)[8]) {
+  const PairAddr a = pair_addr(slot, rs, ps);
+  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+  const int R = rs / 4;
+  float s[2][4] = {}, dp[2][4] = {};
+  mma_rows_rows_f32(s, a.q, a.k, a);
+  mma_rows_rows_f32(dp, a.dO, a.v, a);
+  window_softmax(s, bh, mk, scale);   // s: P
+  float ds[2][4];
+  dsoftmax(s, dp, ds, db);
+  const Tf32Frag dsf[2] = {split_d(ds[0]), split_d(ds[1])};
+  // P (columns 0-15) and dS (16-31) to the v slot, read back transposed
+  float* sc = reinterpret_cast<float*>(slot + 2 * ps);
+  __syncwarp();   // every lane's v is read
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = sc + (g + 8 * h) * R + 8 * nt + 2 * qd;
+      *reinterpret_cast<float2*>(row) =
+          make_float2(s[nt][2 * h], s[nt][2 * h + 1]);
+      *reinterpret_cast<float2*>(row + 16) =
+          make_float2(ds[nt][2 * h], ds[nt][2 * h + 1]);
+    }
+  __syncwarp();
+  Tf32Frag ptf[2], dstf[2];   // P^T, dS^T: keys along M, queries along K
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt) {
+    const float* r0 = sc + (8 * kt + 2 * qd) * R + g;
+    const float* r1 = r0 + R;
+    ptf[kt] = split_frag(r0[0], r0[8], r1[0], r1[8]);
+    dstf[kt] = split_frag(r0[16], r0[24], r1[16], r1[24]);
+  }
+  __syncwarp();   // read before dv is written over them
+  const float* q = reinterpret_cast<const float*>(slot);
+  const float* k = reinterpret_cast<const float*>(slot + ps);
+  const float* dO = reinterpret_cast<const float*>(slot + 3 * ps);
+  // per 8 dims: q, k and dO read, then dq, dk, dv of those dims written
+  // over them (no lane reads them again)
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    float dq[4] = {}, dk[4] = {}, dv[4] = {};
+    mma_tokens_f32(dq, dsf, k, R, dt);    // dS k
+    mma_tokens_f32(dk, dstf, q, R, dt);   // dS^T q
+    mma_tokens_f32(dv, ptf, dO, R, dt);   // P^T dO
+    __syncwarp();
+    put_tile_f32(slot, rs, dt, dq, scale);
+    put_tile_f32(slot + ps, rs, dt, dk, scale);
+    put_tile_f32(slot + 2 * ps, rs, dt, dv, 1.f);
+  }
+}
+
+// grid (CTAs, head groups), 32 WIN hg threads: warp w takes window w / hg
+// of each tile of WIN windows and head h0 + w % hg.  Shared memory: two
+// tiles of 16 WIN rows of rs = 32 hg PARTS sizeof(T) + 16 bytes; PARTS 3
+// (q, k, v) forward, 4 (+ dO) backward.  Thread t gathers and stores row
+// t / (2 hg), chunks t % (2 hg) + 2 hg k: the same thread rewrites a chunk
+// it has stored, so the next gather into a buffer needs no barrier after
+// the stores.
+template <typename T, bool BWD, int WIN>
 __device__ __forceinline__ void attn_tc(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-    bf16* __restrict__ out, const float* __restrict__ bias,
+    const T* __restrict__ qkv, const T* __restrict__ dout,
+    T* __restrict__ out, const float* __restrict__ bias,
     const float* __restrict__ mask, float* __restrict__ part,
     const AttnGeom& g, int nh, int hg, float scale) {
   constexpr int kParts = BWD ? 4 : 3;     // of a head: q, k, v (, dO)
   constexpr int kOut = BWD ? 3 : 1;       // o; dq, dk, dv
-  extern __shared__ uint4 attn_smem[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(attn_smem);
+  constexpr int kEl = 16 / sizeof(T);     // elements of a 16-byte chunk
+  constexpr int kCpt = sizeof(T);         // a thread's chunks of a part
+  extern __shared__ uint4 attn_smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(attn_smem_raw);
   const int C = g.C;
-  const int ps = hg * 64, rs = kParts * ps + 16;
-  const int buf_bytes = kAttnRows * rs;   // one tile
+  const int ps = hg * kHD * (int)sizeof(T), rs = kParts * ps + 16;
+  const int buf_bytes = WIN * kRows * rs;   // one tile
   const int h0 = blockIdx.y * hg;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int win = warp / hg, hl = warp - win * hg;
@@ -430,23 +475,23 @@ __device__ __forceinline__ void attn_tc(
   auto gather = [&](unsigned char* buf, long long tok) {
     if (tok < 0) return;
     const uint32_t dst = smem_u32(buf + r * rs);
-    const bf16* q0 = qkv + tok * 3 * C + h0 * kHD;
+    const T* q0 = qkv + tok * 3 * C + h0 * kHD;
 #pragma unroll
-    for (int k = 0; k < 2 * kParts; ++k) {
-      const int p = k >> 1, w = j + tpr * (k & 1);
-      const bf16* src = p < 3 ? q0 + p * C + w * 8
-                              : dout + tok * C + h0 * kHD + w * 8;
+    for (int k = 0; k < kCpt * kParts; ++k) {
+      const int p = k / kCpt, w = j + tpr * (k % kCpt);
+      const T* src = p < 3 ? q0 + p * C + w * kEl
+                           : dout + tok * C + h0 * kHD + w * kEl;
       cp_async16(dst + (j + tpr * k) * 16, src, true);
     }
   };
   auto store = [&](const unsigned char* buf, long long tok) {
     if (tok < 0) return;
     const unsigned char* src = buf + r * rs;
-    bf16* d0 = out + tok * kOut * C + h0 * kHD;
+    T* d0 = out + tok * kOut * C + h0 * kHD;
 #pragma unroll
-    for (int k = 0; k < 2 * kOut; ++k) {
-      const int p = k >> 1, w = j + tpr * (k & 1);
-      *reinterpret_cast<uint4*>(d0 + p * C + w * 8) =
+    for (int k = 0; k < kCpt * kOut; ++k) {
+      const int p = k / kCpt, w = j + tpr * (k % kCpt);
+      *reinterpret_cast<uint4*>(d0 + p * C + w * kEl) =
           *reinterpret_cast<const uint4*>(src + (j + tpr * k) * 16);
     }
   };
@@ -454,28 +499,35 @@ __device__ __forceinline__ void attn_tc(
   float bh[8], db[8] = {};
   load_frag16(bias + (size_t)(h0 + hl) * kRows * kRows, bh);
   int tile = blockIdx.x;
-  long long tok_next = attn_token(g, tile, r);
+  long long tok_next = attn_token<WIN>(g, tile, r);
   gather(sm, tok_next);
   cp_async_commit();
   for (int n = 0; tile < g.tiles; ++n, tile += gridDim.x) {
     unsigned char* buf = sm + (n & 1) * buf_bytes;
     const long long tok = tok_next;
     const int next = tile + gridDim.x;
-    tok_next = next < g.tiles ? attn_token(g, next, r) : -1;
+    tok_next = next < g.tiles ? attn_token<WIN>(g, next, r) : -1;
     gather(sm + ((n & 1) ^ 1) * buf_bytes, tok_next);
     cp_async_commit();
-    const int wg = tile * kAttnWin + win;
+    const int wg = tile * WIN + win;
     float mk[8] = {};
     if (mask && wg < g.windows)
       load_frag16(mask + (size_t)(wg % g.nW) * kRows * kRows, mk);
     cp_async_wait<1>();
     __syncthreads();   // the tile has landed
     if (wg < g.windows) {
-      unsigned char* slot = buf + win * kRows * rs + hl * 64;
-      if constexpr (BWD)
-        attn_bwd_pair(slot, rs, ps, bh, mk, scale, db);
-      else
-        attn_fwd_pair(slot, rs, ps, bh, mk, scale);
+      unsigned char* slot = buf + win * kRows * rs + hl * kHD * sizeof(T);
+      if constexpr (BWD) {
+        if constexpr (sizeof(T) == 4)
+          attn_bwd_pair_f32(slot, rs, ps, bh, mk, scale, db);
+        else
+          attn_bwd_pair(slot, rs, ps, bh, mk, scale, db);
+      } else {
+        if constexpr (sizeof(T) == 4)
+          attn_fwd_pair_f32(slot, rs, ps, bh, mk, scale);
+        else
+          attn_fwd_pair(slot, rs, ps, bh, mk, scale);
+      }
     }
     __syncthreads();   // every warp's results are in the tile
     store(buf, tok);
@@ -483,9 +535,9 @@ __device__ __forceinline__ void attn_tc(
   if constexpr (BWD) {
     // d(bias): the four window slots of each head added in order
     __syncthreads();
-    float* red = reinterpret_cast<float*>(sm);   // [hg][kAttnWin][32][8]
+    float* red = reinterpret_cast<float*>(sm);   // [hg][WIN][32][8]
     float4* mine = reinterpret_cast<float4*>(
-        red + ((hl * kAttnWin + win) * 32 + lane) * 8);
+        red + ((hl * WIN + win) * 32 + lane) * 8);
     mine[0] = make_float4(db[0], db[1], db[2], db[3]);
     mine[1] = make_float4(db[4], db[5], db[6], db[7]);
     __syncthreads();
@@ -495,8 +547,8 @@ __device__ __forceinline__ void attn_tc(
       const int k = (col >> 3) * 4 + (row >> 3) * 2 + (col & 1);
       float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kAttnWin; ++w)
-        sum += red[((h * kAttnWin + w) * 32 + ln) * 8 + k];
+      for (int w = 0; w < WIN; ++w)
+        sum += red[((h * WIN + w) * 32 + ln) * 8 + k];
       part[((size_t)blockIdx.x * nh + h0 + h) * kRows * kRows + e] = sum;
     }
   }
@@ -506,7 +558,8 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attn_fwd_tc_kernel(
     const bf16* __restrict__ qkv, bf16* __restrict__ out,
     const float* __restrict__ bias, const float* __restrict__ mask,
     const AttnGeom g, int nh, int hg, float scale) {
-  attn_tc<false>(qkv, nullptr, out, bias, mask, nullptr, g, nh, hg, scale);
+  attn_tc<bf16, false, kAttnWin>(qkv, nullptr, out, bias, mask, nullptr, g,
+                                 nh, hg, scale);
 }
 
 __global__ void __launch_bounds__(kAttnThreads, 2) attn_bwd_tc_kernel(
@@ -514,41 +567,79 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attn_bwd_tc_kernel(
     bf16* __restrict__ dqkv, const float* __restrict__ bias,
     const float* __restrict__ mask, float* __restrict__ part,
     const AttnGeom g, int nh, int hg, float scale) {
-  attn_tc<true>(qkv, dout, dqkv, bias, mask, part, g, nh, hg, scale);
+  attn_tc<bf16, true, kAttnWin>(qkv, dout, dqkv, bias, mask, part, g, nh,
+                                hg, scale);
+}
+
+__global__ void __launch_bounds__(kAttnF32Threads, kAttnF32FwdBlocks)
+    attn_fwd_tf32_kernel(const float* __restrict__ qkv,
+                         float* __restrict__ out,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ mask, const AttnGeom g,
+                         int nh, int hg, float scale) {
+  attn_tc<float, false, kAttnF32Win>(qkv, nullptr, out, bias, mask,
+                                     nullptr, g, nh, hg, scale);
+}
+
+__global__ void __launch_bounds__(kAttnF32Threads, kAttnF32BwdBlocks)
+    attn_bwd_tf32_kernel(const float* __restrict__ qkv,
+                         const float* __restrict__ dout,
+                         float* __restrict__ dqkv,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ mask,
+                         float* __restrict__ part, const AttnGeom g, int nh,
+                         int hg, float scale) {
+  attn_tc<float, true, kAttnF32Win>(qkv, dout, dqkv, bias, mask, part, g,
+                                    nh, hg, scale);
 }
 
 // Plan (ops/attn_core.py:attn_core_plan): ctas along the tiles, hg heads a
 // group, smem bytes.  The launch is refused, not reshaped, when the plan
 // and the kernel's needs differ.
-cudaError_t launch_attn_tc(bool bwd, const bf16* qkv, const bf16* dout,
-                           bf16* out, const float* bias, const float* mask,
-                           float* part, int B, int H, int W, int C, int nh,
-                           int wh, int ww, int sh, int sw, int ctas, int hg,
-                           int smem, float scale, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_attn_tc(bool bwd, const T* qkv, const T* dout, T* out,
+                           const float* bias, const float* mask, float* part,
+                           int B, int H, int W, int C, int nh, int wh, int ww,
+                           int sh, int sw, int ctas, int hg, int smem,
+                           float scale, cudaStream_t stream) {
+  constexpr bool f32 = sizeof(T) == 4;
+  const int max_group = f32 ? kAttnF32Group : kAttnMaxGroup;
+  const int win = f32 ? kAttnF32Win : kAttnWin;
   if (wh * ww != kRows || C != nh * kHD || B <= 0 || H <= 0 || W <= 0 ||
-      H % wh || W % ww || sh < 0 || sw < 0 || hg < 1 || hg > kAttnMaxGroup ||
+      H % wh || W % ww || sh < 0 || sw < 0 || hg < 1 || hg > max_group ||
       nh % hg || nh / hg > 65535 || (bwd && !part))
     return cudaErrorInvalidValue;
   AttnGeom g;
   g.H = H, g.W = W, g.C = C, g.wh = wh, g.ww = ww, g.sh = sh, g.sw = sw;
   g.nWw = W / ww, g.nW = (H / wh) * g.nWw;
   g.windows = B * g.nW;
-  g.tiles = (g.windows + kAttnWin - 1) / kAttnWin;
-  const int need = 2 * kAttnRows * (hg * (bwd ? 4 : 3) * 64 + 16);
+  g.tiles = (g.windows + win - 1) / win;
+  const int need = attn_smem(sizeof(T), bwd ? 4 : 3, hg, win);
   if (smem != need || ctas < 1 || ctas > g.tiles) return cudaErrorInvalidValue;
   const dim3 grid(ctas, nh / hg);
+  const int threads = 32 * win * hg;
   cudaError_t err;
-  if (bwd) {
-    if ((err = prepare_smem(attn_bwd_tc_kernel, need)) != cudaSuccess)
-      return err;
-    attn_bwd_tc_kernel<<<grid, 32 * kAttnWin * hg, need, stream>>>(
-        qkv, dout, out, bias, mask, part, g, nh, hg, scale);
+#define TULIP_ATTN_LAUNCH(KERNEL, ...)                                   \
+  if ((err = prepare_smem(KERNEL, need)) != cudaSuccess) return err;     \
+  KERNEL<<<grid, threads, need, stream>>>(__VA_ARGS__)
+  if constexpr (f32) {
+    if (bwd) {
+      TULIP_ATTN_LAUNCH(attn_bwd_tf32_kernel, qkv, dout, out, bias, mask,
+                        part, g, nh, hg, scale);
+    } else {
+      TULIP_ATTN_LAUNCH(attn_fwd_tf32_kernel, qkv, out, bias, mask, g, nh,
+                        hg, scale);
+    }
   } else {
-    if ((err = prepare_smem(attn_fwd_tc_kernel, need)) != cudaSuccess)
-      return err;
-    attn_fwd_tc_kernel<<<grid, 32 * kAttnWin * hg, need, stream>>>(
-        qkv, out, bias, mask, g, nh, hg, scale);
+    if (bwd) {
+      TULIP_ATTN_LAUNCH(attn_bwd_tc_kernel, qkv, dout, out, bias, mask, part,
+                        g, nh, hg, scale);
+    } else {
+      TULIP_ATTN_LAUNCH(attn_fwd_tc_kernel, qkv, out, bias, mask, g, nh, hg,
+                        scale);
+    }
   }
+#undef TULIP_ATTN_LAUNCH
   return cudaGetLastError();
 }
 
@@ -556,8 +647,7 @@ cudaError_t launch_attn_tc(bool bwd, const bf16* qkv, const bf16* dout,
 
 }  // namespace tulip
 
-// fp32: the FMA kernel, the plan (ctas, hg, smem) not read.  bf16: the
-// mma.sync kernel under that plan.
+// dtype 0 fp32 (split TF32), 1 bf16, under the plan (ctas, hg, smem).
 extern "C" int tulip_attn_fwd(int dtype, const void* qkv, void* out,
                               const void* bias, const void* mask, int B,
                               int H, int W, int C, int nh, int wh, int ww,
@@ -568,19 +658,20 @@ extern "C" int tulip_attn_fwd(int dtype, const void* qkv, void* out,
   const float* b = static_cast<const float*>(bias);
   const float* m = static_cast<const float*>(mask);
   if (dtype == 0)
-    return tulip::launch_attn_fwd(static_cast<const float*>(qkv),
-                                  static_cast<float*>(out), b, m, B, H, W, C,
-                                  nh, wh, ww, sh, sw, scale, s);
+    return tulip::tc::launch_attn_tc<float>(
+        false, static_cast<const float*>(qkv), nullptr,
+        static_cast<float*>(out), b, m, nullptr, B, H, W, C, nh, wh, ww, sh,
+        sw, ctas, hg, smem, scale, s);
   if (dtype == 1)
-    return tulip::tc::launch_attn_tc(
+    return tulip::tc::launch_attn_tc<bf16>(
         false, static_cast<const bf16*>(qkv), nullptr, static_cast<bf16*>(out),
         b, m, nullptr, B, H, W, C, nh, wh, ww, sh, sw, ctas, hg, smem, scale,
         s);
   return cudaErrorInvalidValue;
 }
 
-// part: (nsplit, nh, 16, 16) fp32 d(bias) partials, one row per split
-// (fp32) or per CTA along the tiles (bf16: nsplit = the plan's ctas)
+// part: (ctas, nh, 16, 16) fp32 d(bias) partials, one row per CTA along
+// the tiles (nsplit = the plan's ctas)
 extern "C" int tulip_attn_bwd(int dtype, const void* qkv, const void* dout,
                               void* dqkv, const void* bias, const void* mask,
                               void* part, int B, int H, int W, int C, int nh,
@@ -591,12 +682,12 @@ extern "C" int tulip_attn_bwd(int dtype, const void* qkv, const void* dout,
   const float* b = static_cast<const float*>(bias);
   const float* m = static_cast<const float*>(mask);
   if (dtype == 0)
-    return tulip::launch_attn_bwd(
-        static_cast<const float*>(qkv), static_cast<const float*>(dout),
+    return tulip::tc::launch_attn_tc<float>(
+        true, static_cast<const float*>(qkv), static_cast<const float*>(dout),
         static_cast<float*>(dqkv), b, m, static_cast<float*>(part), B, H, W,
-        C, nh, wh, ww, sh, sw, nsplit, scale, s);
+        C, nh, wh, ww, sh, sw, nsplit, hg, smem, scale, s);
   if (dtype == 1)
-    return tulip::tc::launch_attn_tc(
+    return tulip::tc::launch_attn_tc<bf16>(
         true, static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
         static_cast<bf16*>(dqkv), b, m, static_cast<float*>(part), B, H, W, C,
         nh, wh, ww, sh, sw, nsplit, hg, smem, scale, s);

@@ -16,11 +16,12 @@ plain ``F.linear`` around it, as they were XLA GEMMs around the TPU core.
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 a kernel for a CUDA tensor; any other device raises.  The dtype decides
-the kernel: bf16 runs ``attn_fwd_tc_kernel`` / ``attn_bwd_tc_kernel``
-(tiles of four windows and a group of heads, one warp per window and head
-on ``mma.sync``) under the launch plan :func:`attn_core_plan`; fp32 runs
-``attn_fwd_kernel`` / ``attn_bwd_kernel``, the FMA kernels of the parity
-path.
+the kernel, both under the launch plan :func:`attn_core_plan` (tiles of
+a few windows and a group of heads, one warp per window and head on
+``mma.sync``): bf16 runs ``attn_fwd_tc_kernel`` / ``attn_bwd_tc_kernel``
+(bf16 products, fp32 sums), fp32 ``attn_fwd_tf32_kernel`` /
+``attn_bwd_tf32_kernel`` (split TF32: fp32-accurate products on the
+tensor cores).
 """
 
 from __future__ import annotations
@@ -34,46 +35,67 @@ from .window_msa import SM_SMEM
 from ..models.layers import wide
 from ..parallel.halo import roll_hw
 
-_BWD_BLOCKS = 2048   # CTAs of the fp32 backward: heads x window splits
-_TILE_WINDOWS = 4    # windows of 16 tokens per tile (csrc kAttnWin)
-_MAX_GROUP = 3       # heads per group, at most (kAttnMaxGroup)
-# registers a thread may take: the kernels are built for two CTAs of 384
-# threads per SM (__launch_bounds__(384, 2)) out of the SM's 65,536
-_REG_CAP = 65536 // (2 * 32 * _TILE_WINDOWS * _MAX_GROUP)
+# windows of 16 tokens a tile and heads a group, at most, by element size:
+# bf16 kAttnWin, kAttnMaxGroup; fp32 kAttnF32Win, kAttnF32Group.  fp32
+# rows are twice as long, so its tile is half as tall: two windows of three
+# heads, 75 KB forward (three blocks an SM) and 99 KB backward (two).  Of
+# seven shapes timed, groups of three heads are 7-20 % faster than smaller
+# ones, and two windows tie with one (PERF.md, section 6)
+_TILE_WINDOWS = {2: 4, 4: 2}
+_MAX_GROUP = {2: 3, 4: 3}
 
 
-def attn_core_plan(T: int, C: int, nh: int, backward: bool) -> dict:
-    """Launch plan of the bf16 kernels (``csrc/attn_core.cu``
-    attn_fwd_tc_kernel, attn_bwd_tc_kernel), grid (ctas, groups), from the
-    shape alone (T tokens of C = 32 nh channels):
+def _smem(esz: int, parts: int, hg: int) -> int:
+    """Two tiles of 16 win rows of hg heads' parts of 32 elements, 16 bytes
+    of pad a row (csrc attn_smem)."""
+    return 2 * 16 * _TILE_WINDOWS[esz] * (hg * parts * 32 * esz + 16)
 
-    windows  T / 16 windows of 16 tokens over the batch;
-    tiles    ceil(windows / 4): 64 token rows each, the last one short
-             where 4 does not divide the windows;
-    hg       heads per group: the largest of 3, 2, 1 that divides nh; a
-             CTA has 128 hg threads, one warp per window and head of a
-             tile, and keeps its group for its whole walk;
-    groups   nh / hg, along grid.y;
-    ctas     CTAs along the tiles (grid.x): as many as the SMs hold at
-             once (shared memory, registers) over the groups, at most the
-             tiles; CTA x walks tiles x, x + ctas, x + 2 ctas, ...;
-    smem     two tiles of 64 rows of 64 hg parts + 16 bytes (parts q, k, v
-             and, backward, dO); the C entry point recomputes it and
-             refuses a plan that differs;
-    part     the backward's fp32 d(bias) partials, one row of nh 16 x 16
-             per CTA along the tiles: what ``colsum`` adds in CTA order."""
+
+def attn_core_plan(T: int, C: int, nh: int, backward: bool,
+                   esz: int = 2) -> dict:
+    """Launch plan of the kernels (``csrc/attn_core.cu``
+    attn_{fwd,bwd}_tc_kernel for esz 2, bf16; attn_{fwd,bwd}_tf32_kernel for
+    esz 4, fp32), grid (ctas, groups), from the shape alone (T tokens of C
+    = 32 nh channels):
+
+    windows       T / 16 windows of 16 tokens over the batch;
+    tile_windows  windows a tile (win): bf16 4, fp32 2;
+    tiles         ceil(windows / win): 16 win token rows each, the last one
+                  short where win does not divide the windows;
+    hg            heads per group: the largest divisor of nh up to 3; a CTA
+                  has 32 win hg threads, one warp per window and head of a
+                  tile, and keeps its group for its whole walk;
+    groups        nh / hg, along grid.y;
+    per_sm        blocks an SM holds at once: those the kernel is built for
+                  (bf16 two of 384 threads; fp32 what shared memory holds,
+                  three forward and two backward at hg 3), more where the
+                  group is smaller;
+    ctas          CTAs along the tiles (grid.x): per_sm on every SM over
+                  the groups, no second wave, at most the tiles; CTA x walks
+                  tiles x, x + ctas, ...;
+    smem          two tiles of 16 win rows of 32 esz hg parts + 16 bytes
+                  (parts q, k, v and, backward, dO); the C entry point
+                  recomputes it and refuses a plan that differs;
+    part          the backward's fp32 d(bias) partials, one row of nh 16 x
+                  16 per CTA along the tiles: what ``colsum`` adds in CTA
+                  order."""
     windows = T // 16
-    tiles = -(-windows // _TILE_WINDOWS)
-    hg = next(d for d in range(_MAX_GROUP, 0, -1) if nh % d == 0)
-    threads = 32 * _TILE_WINDOWS * hg
+    win = _TILE_WINDOWS[esz]
+    tiles = -(-windows // win)
+    hg = next(d for d in range(_MAX_GROUP[esz], 0, -1) if nh % d == 0)
+    threads = 32 * win * hg
     parts = 4 if backward else 3
-    smem = 2 * 16 * _TILE_WINDOWS * (64 * hg * parts + 16)
-    per_sm = min(SM_SMEM // (smem + 1024), 65536 // (threads * _REG_CAP))
+    smem = _smem(esz, parts, hg)
+    # the launch bounds' blocks an SM at the largest group: bf16 two of 384
+    # threads; fp32 as many as shared memory holds
+    bound = (2 if esz == 2 else
+             SM_SMEM // (_smem(esz, parts, _MAX_GROUP[esz]) + 1024))
+    per_sm = min(SM_SMEM // (smem + 1024), bound * _MAX_GROUP[esz] // hg)
     groups = nh // hg
-    ctas = min(tiles, -(-(per_sm * NUM_SMS) // groups))
-    return dict(windows=windows, tiles=tiles, hg=hg, groups=groups,
-                threads=threads, ctas=ctas, smem=smem,
-                part=(ctas, nh * 256))
+    ctas = min(tiles, max(1, per_sm * NUM_SMS // groups))
+    return dict(windows=windows, tile_windows=win, tiles=tiles, hg=hg,
+                groups=groups, threads=threads, ctas=ctas, smem=smem,
+                per_sm=per_sm, part=(ctas, nh * 256))
 
 
 def _windows(t, window, shift):
@@ -159,6 +181,7 @@ def _check(qkv, bias, mask, window, what):
             f"{what} kernel takes 16-token windows and head dim 32; got "
             f"window {window}, C={C}, heads={nh}, grid {H}x{W}")
     dev = qkv.device
+    build.dtype_code(qkv)   # fp32 or bf16 (the plan's element size)
     build.require(qkv, "qkv", dev, qkv.dtype, (B, H, W, C3))
     build.require(bias, "bias", dev, torch.float32, (nh, 16, 16))
     if mask is not None:
@@ -174,12 +197,11 @@ def attn_core_fwd(qkv, bias, mask, *, window, shift):
     if qkv.device.type != "cuda":
         raise build.not_cuda(qkv)
     B, H, W, C, nh = _check(qkv, bias, mask, window, "attn_core")
+    build.require_aligned("qkv", qkv)
     out = torch.empty((B, H, W, C), device=qkv.device, dtype=qkv.dtype)
-    plan = (0, 0, 0)   # the fp32 kernel takes none
-    if qkv.dtype == torch.bfloat16:
-        build.require_aligned("qkv", qkv)
-        p = attn_core_plan(B * H * W, C, nh, backward=False)
-        plan = (p["ctas"], p["hg"], p["smem"])
+    p = attn_core_plan(B * H * W, C, nh, backward=False,
+                       esz=qkv.element_size())
+    plan = (p["ctas"], p["hg"], p["smem"])
     lib = build.load()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -196,9 +218,9 @@ attn_core_fwd.launches = 0
 
 
 def attn_core_bwd(qkv, bias, mask, dout, *, window, shift):
-    """Backward (K9): d(bias) partials from the kernel (one row per window
-    split in fp32, per CTA along the tiles in bf16), summed by
-    ``tulip_colsum``.  Arguments as in :func:`attn_core_bwd_ref`."""
+    """Backward (K9): d(bias) partials from the kernel (one row per CTA
+    along the tiles), summed by ``tulip_colsum``.  Arguments as in
+    :func:`attn_core_bwd_ref`."""
     if qkv.device.type == "cpu":
         return attn_core_bwd_ref(qkv, bias, mask, dout, window=window,
                                  shift=shift)
@@ -206,14 +228,11 @@ def attn_core_bwd(qkv, bias, mask, dout, *, window, shift):
         raise build.not_cuda(qkv)
     B, H, W, C, nh = _check(qkv, bias, mask, window, "attn_core backward")
     build.require(dout, "dout", qkv.device, qkv.dtype, (B, H, W, C))
-    if qkv.dtype == torch.bfloat16:
-        build.require_aligned("qkv", qkv)
-        build.require_aligned("dout", dout)
-        p = attn_core_plan(B * H * W, C, nh, backward=True)
-        nsplit, hg, smem = p["ctas"], p["hg"], p["smem"]
-    else:
-        windows = B * (H // window[0]) * (W // window[1])
-        nsplit, hg, smem = max(1, min(windows, _BWD_BLOCKS // nh, 65535)), 0, 0
+    build.require_aligned("qkv", qkv)
+    build.require_aligned("dout", dout)
+    p = attn_core_plan(B * H * W, C, nh, backward=True,
+                       esz=qkv.element_size())
+    nsplit, hg, smem = p["ctas"], p["hg"], p["smem"]
     dqkv = torch.empty_like(qkv)
     part = torch.empty((nsplit, nh * 256), device=qkv.device,
                        dtype=torch.float32)

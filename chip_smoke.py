@@ -28,8 +28,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
    tensor-core kernels (K3, K4, K10, K11, tn_gemm and the attention
    half-block of K1, K2, K12, K13) must hold HGMMA instructions in their
    SASS, the bf16 training attention core (K8, K9) HMMA (mma.sync), the
-   bf16 LayerNorm kernels (K14, K15) 128-bit global loads and stores
-   (LDG.E.128 / STG.E.128), and the fp32 split-TF32 kernels (K3's
+   LayerNorm register kernels (K14, K15) in bf16 and in fp32 128-bit
+   global loads and stores (LDG.E.128 / STG.E.128), with ptxas' registers
+   and spills of each of their 38 instantiations (no fp32 one may spill),
+   and the fp32 split-TF32 kernels (K3's
    two_matmul_tf32_kernel and linear_tf32_kernel, K4's
    ln_linear_tf32_kernel, the half-block's window_msa_tf32_kernel) HGMMA
    with TF32 operands, the half-block also HMMA with TF32 operands, and
@@ -40,8 +42,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    HMMA with TF32 operands and no spill; no fp32 FMA K4, K10, K11,
    tn_gemm, K8 or K9 (ln_linear_kernel, two_matmul_bwd_kernel,
    ln_linear_bwd_kernel, tn_gemm_kernel, attn_fwd_kernel, attn_bwd_kernel)
-   is left in the library; ptxas' spills of the split-TF32 kernels are
-   printed.
+   and no first-port K14 / K15 (ln_fwd_kernel, ln_bwd_kernel) is left in
+   the library; ptxas' spills of the split-TF32 kernels are printed.
 3. kernels: every kernel of the main path against its plain PyTorch version
    on the card, at the flagship shapes (TULIP-base, DurLAR 32x2048, batch 2),
    in bf16 (limit 2e-2 of max|ref|) and fp32 (limit 1e-4, TF32 off);
@@ -234,9 +236,12 @@ K10, K11, K12, K13 (split TF32) too; and K14 / K15 (LayerNorm forward and backwa
 dx, dw, db) at the four norm1 shapes of the batch-8 train step, at the
 batch-1 step's, at a ragged token count, at TULIP-large's C 1,536 and at
 widths whose chunks do not split evenly over a row's lanes, in bf16 and
-fp32, against their plain versions (the bf16 cases also twice for the same
-bits; K15 one launch and no colsum in bf16; bf16 widths off the plan
-refused); beside K14 / K15 it times F.layer_norm and its
+fp32, and at fp32 widths off the register form (C 1,544, 98: one warp a
+row), against their plain versions (every case also twice for the same
+bits; K15 one launch and no colsum in both types; bf16 widths off the plan
+refused, fp32 C 100 / 1,544 / 2,048 taken; a row's y and dx the same bits
+normed alone, with one image's rows or in the batch-8 matrix,
+check_ln_rows); beside K14 / K15 it times F.layer_norm and its
 backward, beside K8 / K9 F.scaled_dot_product_attention and its backward,
 on the same tensors (the library call: a yardstick, used nowhere in the
 port).  Every case also gets its bound: the larger of its bytes over 3.35
@@ -350,9 +355,15 @@ TENSOR_CORE_KERNELS = ("two_matmul_tc_kernel", "ln_linear_tc_kernel",
 # the bf16 training attention core (K8, K9), whose products must be
 # warp-level tensor-core instructions (HMMA: mma.sync)
 MMA_SYNC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_tc_kernel")
-# the bf16 LayerNorm kernels (K14, K15), whose rows must move in 16-byte
-# global loads and stores (LDG.E.128 / STG.E.128 in the SASS)
-WIDE_ACCESS_KERNELS = ("ln_fwd_reg_kernel", "ln_bwd_reg_kernel")
+# the LayerNorm kernels (K14, K15) of the register form in both types, by
+# the first template argument of their mangled names, whose rows must move
+# in 16-byte global loads and stores (LDG.E.128 / STG.E.128 in the SASS)
+WIDE_ACCESS_KERNELS = ("ln_fwd_reg_kernelI13__nv_bfloat16",
+                       "ln_bwd_reg_kernelI13__nv_bfloat16",
+                       "ln_fwd_reg_kernelIf", "ln_bwd_reg_kernelIf")
+# every LayerNorm kernel: ptxas' registers and spills per instantiation
+LN_KERNELS = ("ln_fwd_reg_kernel", "ln_bwd_reg_kernel",
+              "ln_fwd_row_f32_kernel", "ln_bwd_row_f32_kernel")
 # the fp32 kernels of K3 (fused, and the two passes of its wide form), of
 # K4, K10, K11, the weight-gradient product and the attention half-block
 # (K1, K2, K12, K13): split TF32 on the tensor cores, so HGMMA with TF32
@@ -367,10 +378,11 @@ TF32_KERNELS = ("two_matmul_tf32_kernel", "linear_tf32_kernel",
                 "ln_linear_bwd_dy_tf32_kernel",
                 "tn_gemm_tf32_kernel") + TF32_MMA_SYNC_KERNELS
 # the fp32 FMA kernels that the split-TF32 ones replaced (K4, K10, K11,
-# the weight-gradient product, K8 and K9): none may be built
+# the weight-gradient product, K8 and K9) and the one-warp-a-row LayerNorm
+# kernels that the register form replaced (K14, K15): none may be built
 FMA_GONE = ("ln_linear_kernel", "two_matmul_bwd_kernel",
             "ln_linear_bwd_kernel", "tn_gemm_kernel", "attn_fwd_kernel",
-            "attn_bwd_kernel")
+            "attn_bwd_kernel", "ln_fwd_kernel", "ln_bwd_kernel")
 # the ops/ wrappers whose fp32 cases run those kernels (checked for equal
 # bits over two runs).  Every fp32 case's bound, theirs and the FMA
 # kernels' alike, is taken at the split-TF32 rate: the least time for
@@ -754,7 +766,8 @@ def check_deterministic(torch, device, cases):
     summed inside its launch) and tn_gemm on their own, bf16; and the
     fp32 split-TF32 kernels (K1, K2, K12, K13, K3, K4 with their sum
     passes, K10 and K11 with their finish kernels and column sums, K8, K9
-    with its d(bias) column sum, and tn_gemm on its own):
+    with its d(bias) column sum, and tn_gemm on its own) and the fp32
+    LayerNorm kernels (K14, K15, both forms):
     two runs on the same inputs must give the same bits (no atomic sums,
     every cross-block sum in a fixed order)."""
     from tulip_tpu_torch.ops import reduce as R
@@ -765,7 +778,8 @@ def check_deterministic(torch, device, cases):
                           "attn_core_fwd", "attn_core_bwd", "ln_fwd",
                           "ln_bwd")
             and ("bfloat16" in label
-                 or ("float32" in label and kernel in SPLIT_TF32))]
+                 or ("float32" in label
+                     and kernel in SPLIT_TF32 + ("ln_fwd", "ln_bwd")))]
     g = torch.Generator().manual_seed(4)
     for dtype in (torch.bfloat16, torch.float32):
         for T, M, N in ((131072, 384, 96), (2048, 3072, 768),
@@ -786,7 +800,8 @@ def check_deterministic(torch, device, cases):
     print(f"deterministic: {len(runs) - len(differ)} of {len(runs)} bf16 "
           f"K3 / K4 / K10 / K11 / K1 / K2 / K12 / K13 / K8 / K9 / K14 / K15 "
           f"/ tn_gemm and fp32 K1 / K2 / K12 / K13 / K3 / K4 / K10 / K11 / "
-          f"K8 / K9 / tn_gemm cases bit-identical over two runs", flush=True)
+          f"K8 / K9 / K14 / K15 / tn_gemm cases bit-identical over two runs",
+          flush=True)
     if differ:
         raise SystemExit(f"two runs differ: {differ}")
 
@@ -1203,8 +1218,10 @@ def more_ln_cases(torch, device):
     """K14 / K15 off the batch-8 shapes: the batch-1 step's norm1 shapes,
     a ragged token count (131,067 x 96: the last row group and the last
     CTA's range short), TULIP-large's deepest stage (C 1,536: six 16-byte
-    chunks a lane) and widths whose chunks do not split evenly over the
-    lanes of a row (C 72, 40), in bf16 and fp32."""
+    chunks a lane in bf16, twelve in fp32, the wide instantiation) and
+    widths whose chunks do not split evenly over the lanes of a row (C 72,
+    40), in bf16 and fp32; and fp32 widths off the register form, one warp
+    a row (C 1,544 and 98)."""
     g = torch.Generator().manual_seed(5)
 
     def rn(*shape, scale=1.0, shift=0.0):
@@ -1219,24 +1236,32 @@ def more_ln_cases(torch, device):
                            (TRAIN_BATCH * 2 * 32, 1536, " large"),
                            (1001, 72, " uneven"), (333, 40, " uneven")):
             cases += ln_cases(torch, device, rn, dtype, N, C, what, False)
+    for N, C in ((333, 1544), (4099, 98)):
+        cases += ln_cases(torch, device, rn, torch.float32, N, C,
+                          " any width", False)
     return cases
 
 
 def check_ln_launches(torch, device):
-    """K15 is one launch in bf16 (no colsum) and K14 / K15 refuse bf16
-    widths their plan does not take; fp32 keeps the parity kernels and
-    their colsum."""
+    """K15 is one launch and no colsum in both types, in fp32 at the
+    register form's widths (C 192, C 1,536's wide instantiation) and one
+    warp a row (C 98); K14 / K15 refuse bf16 widths their plan does not
+    take (C 100), and take those widths in fp32 (C 100, 1,544, 2,048), as
+    an fp32 x off a 16-byte boundary (copied), within 1e-4 of max|ref| of
+    their plain versions."""
     from tulip_tpu_torch.ops import ln, reduce as R
     g = torch.Generator().manual_seed(8)
     got = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        x, gr = (torch.randn(4096, 192, generator=g).to(device, dtype)
+    for dtype, C in ((torch.bfloat16, 192), (torch.float32, 192),
+                     (torch.float32, 1536), (torch.float32, 98)):
+        x, gr = (torch.randn(4096, C, generator=g).to(device, dtype)
                  for _ in range(2))
-        w = torch.randn(192, generator=g).to(device)
+        w = torch.randn(C, generator=g).to(device)
         R.colsum.launches = ln.ln_bwd.launches = 0
         ln.ln_bwd(x, w, gr)
         torch.cuda.synchronize()
-        got[str(dtype)] = (ln.ln_bwd.launches, R.colsum.launches)
+        got[f"{str(dtype)[6:]} C={C}"] = (ln.ln_bwd.launches,
+                                          R.colsum.launches)
     refused = []
     for fn in (lambda x, w: ln.ln_fwd(x, w, w),
                lambda x, w: ln.ln_bwd(x, w, x)):
@@ -1245,11 +1270,66 @@ def check_ln_launches(torch, device):
             fn(x, torch.ones(100, device=device))
         except NotImplementedError:
             refused.append(True)
+    taken = {}
+    for C in (100, 1544, 2048):
+        x, gr = (torch.randn(64, C, generator=g).to(device)
+                 for _ in range(2))
+        w, b = (torch.randn(C, generator=g).to(device) for _ in range(2))
+        errs = [rel_err(torch, ln.ln_fwd(x, w, b), ln.layer_norm_ref(x, w, b))]
+        errs += [rel_err(torch, o, r) for o, r in
+                 zip(ln.ln_bwd(x, w, gr), ln.layer_norm_bwd_ref(x, w, gr))]
+        taken[C] = (ln.ln_plan(64, C, torch.float32)["kernel"], max(errs))
+    # an fp32 x and g 4 bytes off a 16-byte boundary: copied, not refused
+    buf = torch.randn(2, 64 * 96 + 1, generator=g).to(device)
+    x, gr = (t[1:].view(64, 96) for t in buf)
+    w, b = (torch.randn(96, generator=g).to(device) for _ in range(2))
+    errs = [rel_err(torch, ln.ln_fwd(x, w, b), ln.layer_norm_ref(x, w, b))]
+    errs += [rel_err(torch, o, r) for o, r in
+             zip(ln.ln_bwd(x, w, gr), ln.layer_norm_bwd_ref(x, w, gr))]
+    taken["96 misaligned"] = (ln.ln_plan(64, 96, torch.float32)["kernel"],
+                              max(errs))
     print(f"ln launches: (K15 calls, colsum launches) of one ln_bwd call "
-          f"{got}; bf16 C=100 refused by K14 / K15: {refused}", flush=True)
-    if (got["torch.bfloat16"] != (1, 0) or got["torch.float32"][1] < 1
-            or refused != [True, True]):
-        raise SystemExit("K14 / K15 launch or refusal check failed")
+          f"{got}; bf16 C=100 refused by K14 / K15: {refused}; fp32 taken "
+          f"(form, worst err/max|ref| of y, dx, dw, db): {taken}",
+          flush=True)
+    if (any(v != (1, 0) for v in got.values()) or refused != [True, True]
+            or any(e > TOL["float32"] for _, e in taken.values())):
+        raise SystemExit("K14 / K15 launch, refusal or width check failed")
+
+
+def check_ln_rows(torch, device):
+    """K14 / K15 give a row the same bits whatever else its call holds
+    (ops/ln.py:ln_plan assigns a row's lanes by C alone): at each norm1
+    shape of the batch-8 step and at TULIP-large's C 1,536, in fp32 and
+    bf16, y of rows normed alone (row 0, a row inside the matrix, the last
+    row) and of one image's rows equals the same rows of y over the whole
+    matrix (torch.equal), and so does dx of K15."""
+    from tulip_tpu_torch.ops import ln
+    g = torch.Generator().manual_seed(9)
+    shapes = [(TRAIN_BATCH * H * W, C) for (H, W), C, _ in STAGES]
+    shapes.append((TRAIN_BATCH * 2 * 32, 1536))
+    same = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for N, C in shapes:
+            x, gr = (torch.randn(N, C, generator=g).mul(2).add(0.5)
+                     .to(device, dtype) for _ in range(2))
+            w, b = (torch.randn(C, generator=g).mul(0.1).add(1.0)
+                    .to(device) for _ in range(2))
+            y, dx = ln.ln_fwd(x, w, b), ln.ln_bwd(x, w, gr)[0]
+            ok = []
+            for r0, r1 in ((0, 1), (N // 2 + 3, N // 2 + 4), (N - 1, N),
+                           (0, N // TRAIN_BATCH)):
+                ok.append(torch.equal(ln.ln_fwd(x[r0:r1], w, b), y[r0:r1]))
+                ok.append(torch.equal(
+                    ln.ln_bwd(x[r0:r1].contiguous(), w,
+                              gr[r0:r1].contiguous())[0], dx[r0:r1]))
+            same[f"{str(dtype)[6:]} N={N} C={C}"] = all(ok)
+    torch.cuda.synchronize()
+    print(f"K14 / K15 rows alone and one image's rows vs in the batch-8 "
+          f"matrix, y and dx bit-equal: {same}", flush=True)
+    if not all(same.values()):
+        raise SystemExit("K14 / K15's output depends on the call's rows")
+    return same
 
 
 def check_f32_refusals(torch, device):
@@ -3897,7 +3977,9 @@ def profile_paths(torch, dev, tree):
     forward of the default evaluation (batch 1 and 8, 3 each), 3 bf16 train
     steps of batch 8, without and with TULIP_TPU_LN_PALLAS=1, and 3 fp32
     train steps of batch 8 (--precision fp32), all at the
-    flagship size after a warm-up: per path
+    flagship size, then the same fp32 eval forward at batch 8 and 3 fp32
+    steps of a --swin_v2 TULIP-base with the flagship heads (K14 / K15 31
+    a forward and a step), after a warm-up: per path
     the wall ms per iteration, the device's busy share and the device ms
     per iteration of every kernel name above 0.5 % (the port's kernels by
     their C++ names, the rest by PyTorch's; the attention half-block's
@@ -3998,6 +4080,32 @@ def profile_paths(torch, dev, tree):
         lambda: step32(x, t, 5e-4, gen), 3)
     del tm, step, step32
     torch.cuda.empty_cache()
+    # Swin-v2 with the flagship heads (--swin_v2, phase 11's (a) weights):
+    # its post-norms run K14 / K15, 31 a forward and a step.  The default
+    # evaluation's fp32 forward at batch 8 and the fp32 step
+    # (--precision fp32)
+    v2_weights = init_params(tulip_base(swin_v2=True, **FLAGSHIP).cfg,
+                             torch.Generator().manual_seed(1))
+    v2 = tulip_base(swin_v2=True, **FLAGSHIP)
+    v2.load_state_dict(v2_weights, strict=True)
+    v2 = v2.to(dev)
+    fwd_v2 = E._make_eval_forward(v2, "durlar", True, E._GATES,
+                                  torch.float32)
+    low, high = load_batches(data_root, 8, 2048)[0]
+    x8 = torch.from_numpy(low["sample"]).to(dev)
+    t8 = torch.from_numpy(high["sample"]).to(dev)
+    with torch.no_grad():
+        run("eval forward fp32 batch 8 swin_v2", lambda: fwd_v2(x8, t8), 3)
+    del v2, fwd_v2, x8, t8
+    tv2 = tulip_base(swin_v2=True, drop_path_rate=0.1, **FLAGSHIP)
+    tv2.load_state_dict(v2_weights, strict=True)
+    tv2 = tv2.to(dev)
+    step_v2 = make_train_step(tv2, make_optimizer(tv2, 0.01),
+                              compute_dtype=torch.float32)
+    run(f"train step fp32 batch {TRAIN_BATCH} swin_v2",
+        lambda: step_v2(x, t, 5e-4, gen), 3)
+    del tv2, step_v2
+    torch.cuda.empty_cache()
     report["attn"] = profile_attn(torch, dev, lags)
     report["k3_plan"] = k3_plan_ab(torch, dev)
     report["nn"] = profile_nn(torch, dev, data_root, weights, lags)
@@ -4032,6 +4140,38 @@ def kernel_spills(log, names):
             out.setdefault(current, []).append(line.split("ptxas")[-1]
                                                .strip(" :"))
     return out
+
+
+def ln_resources(log):
+    """{LayerNorm kernel instantiation: (registers, spill store bytes,
+    spill load bytes)} from an nvcc -Xptxas -v log (LN_KERNELS, the
+    register form named by type and chunks a lane: "ln_bwd_reg_kernel<f32,
+    6>"); None where this process loaded a library built before (no
+    log)."""
+    import re
+    if not log:
+        return None
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = None
+            name = max((k for k in LN_KERNELS if k in line), key=len,
+                       default=None)
+            if name:
+                m = re.search(name + r"I(f|13__nv_bfloat16)Li(\d+)E", line)
+                current = (name if m is None else
+                           f"{name}<{'f32' if m[1] == 'f' else 'bf16'}, "
+                           f"{m[2]}>")
+                out[current] = [None, 0, 0]
+        elif current and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            out[current][1:] = [int(m[1]), int(m[2])]
+        elif current and "Used" in line and "registers" in line:
+            out[current][0] = int(re.search(r"Used (\d+) registers",
+                                            line)[1])
+            current = None
+    return {k: tuple(v) for k, v in sorted(out.items())}
 
 
 # K5's kernels by name -> class of its breakdown; PyTorch's kernels in a
@@ -4162,40 +4302,43 @@ def profile_attn(torch, dev, lags=None):
 
 
 def profile_ln(torch, dev, lags=None):
-    """K14 and K15 in bf16 at the norm1 shapes of the batch-8 and batch-1
-    train steps, by torch.profiler: device us per call (mean of 10; K15
-    with every kernel it launches) beside F.layer_norm's and its
+    """K14 and K15 in bf16 and fp32 at the norm1 shapes of the batch-8 and
+    batch-1 train steps, by torch.profiler: device us per call (mean of
+    10; K15 with every kernel it launches) beside F.layer_norm's and its
     backward's device time on the same tensors and the bound (work_ln),
     and the sums per train step (each shape's launches in a step: four at
-    C 96, 192 and 384, two at C 768)."""
+    C 96, 192 and 384, two at C 768; fp32 keys start "fp32")."""
     g = torch.Generator().manual_seed(6)
 
     def rn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=g) * scale + shift
 
     rows, step = [], {}
-    for batch in (TRAIN_BATCH, 1):
-        for (H, W), C, _ in STAGES:
-            per_step = 2 if C == 768 else 4
-            for _, knum, label, kfn, _, _, extra in ln_cases(
-                    torch, dev, rn, torch.bfloat16, batch * H * W, C,
-                    f" batch {batch}", True, per_step):
-                kern = device_us(torch, kfn, lags=lags)
-                lib = sum(device_us(torch, extra["library"],
-                                    lags=lags).values())
-                bound = bound_ms(*extra["work"], "bfloat16")[0] * 1e3
-                total = sum(kern.values())
-                for key, v in ((knum, total), (knum + " bound", bound),
-                               (knum + " library", lib)):
-                    key = f"{key} batch {batch}"
-                    step[key] = step.get(key, 0.0) + v * per_step
-                rows.append(dict(label=label, device_us=total, kernels=kern,
-                                 library_us=lib, bound_us=bound))
-                print(f"profile {label}: device {total:.2f} us "
-                      f"({100 * bound / total:.0f} % of the bound "
-                      f"{bound:.2f}), library {lib:.2f} us; "
-                      + ", ".join(f"{k.split('(')[0][-28:]} {v:.2f}"
-                                  for k, v in kern.items()), flush=True)
+    for dtype, kind, pre in ((torch.bfloat16, "bfloat16", ""),
+                             (torch.float32, "split_tf32", "fp32 ")):
+        for batch in (TRAIN_BATCH, 1):
+            for (H, W), C, _ in STAGES:
+                per_step = 2 if C == 768 else 4
+                for _, knum, label, kfn, _, _, extra in ln_cases(
+                        torch, dev, rn, dtype, batch * H * W, C,
+                        f" batch {batch}", True, per_step):
+                    kern = device_us(torch, kfn, lags=lags)
+                    lib = sum(device_us(torch, extra["library"],
+                                        lags=lags).values())
+                    bound = bound_ms(*extra["work"], kind)[0] * 1e3
+                    total = sum(kern.values())
+                    for key, v in ((knum, total), (knum + " bound", bound),
+                                   (knum + " library", lib)):
+                        key = f"{pre}{key} batch {batch}"
+                        step[key] = step.get(key, 0.0) + v * per_step
+                    rows.append(dict(label=label, device_us=total,
+                                     kernels=kern, library_us=lib,
+                                     bound_us=bound))
+                    print(f"profile {label}: device {total:.2f} us "
+                          f"({100 * bound / total:.0f} % of the bound "
+                          f"{bound:.2f}), library {lib:.2f} us; "
+                          + ", ".join(f"{k.split('(')[0][-28:]} {v:.2f}"
+                                      for k, v in kern.items()), flush=True)
     print("profile K14 / K15 per train step, device us: "
           + ", ".join(f"{k} {v:.1f}" for k, v in step.items()), flush=True)
     return dict(rows=rows, per_step_us=step)
@@ -5347,7 +5490,8 @@ def main() -> int:
     hmma = {k: hmma[k] for k in MMA_SYNC_KERNELS}
     print(f"build: tensor-core instructions in the bf16 kernels: HGMMA "
           f"{hgmma}, HMMA (mma.sync) {hmma}; 128-bit global loads / stores "
-          f"(LDG.E.128 / STG.E.128) of the bf16 LayerNorm kernels {wide}; "
+          f"(LDG.E.128 / STG.E.128) of the LayerNorm register kernels in "
+          f"bf16 and fp32 {wide}; "
           f"(HGMMA, HMMA with TF32 operands) of the fp32 split-TF32 "
           f"kernels {tf32}", flush=True)
     if not (all(tf32[k][0] for k in TF32_KERNELS
@@ -5358,6 +5502,14 @@ def main() -> int:
                          f"tensor-core instructions: {tf32}")
     if spills and any(k in spills for k in TF32_MMA_SYNC_KERNELS):
         raise SystemExit(f"the fp32 K8 / K9 kernels spill: {spills}")
+    ln_res = ln_resources(build.build_log)
+    print(f"build: LayerNorm kernels (K14 / K15), (registers, spill store / "
+          f"load bytes) per instantiation: {ln_res}", flush=True)
+    ln_spill = [k for k, (_, st, ld) in (ln_res or {}).items()
+                if (st or ld) and "bf16" not in k]
+    if ln_res is not None and (ln_spill or len(ln_res) != 38):
+        raise SystemExit(f"the fp32 LayerNorm kernels spill {ln_spill}, or "
+                         f"not all 38 LayerNorm kernels were built: {ln_res}")
     fma = [f for f in functions if any(k in f for k in FMA_GONE)]
     print(f"build: {len(functions)} functions in the library, fp32 FMA "
           f"K4 / K10 / K11 / tn_gemm / K8 / K9 ({', '.join(FMA_GONE)}) "
@@ -5369,8 +5521,8 @@ def main() -> int:
     if not all(hmma.values()):
         raise SystemExit(f"a bf16 mma.sync kernel holds no HMMA: {hmma}")
     if not all(n > 0 for pair in wide.values() for n in pair):
-        raise SystemExit(f"a bf16 LayerNorm kernel lacks 128-bit global "
-                         f"loads or stores: {wide}")
+        raise SystemExit(f"a LayerNorm register kernel lacks 128-bit "
+                         f"global loads or stores: {wide}")
 
     # -- 3. kernels vs plain ----------------------------------------------
     cases = kernel_cases(torch, dev)
@@ -5388,6 +5540,7 @@ def main() -> int:
     layouts += more_ln_cases(torch, dev)
     table += check_kernel_cases(torch, [c + (10,) for c in layouts])
     check_ln_launches(torch, dev)
+    ln_rows = check_ln_rows(torch, dev)
     check_f32_refusals(torch, dev)
     check_ln_linear_rows(torch, dev)
     bwd_rows = check_bwd_rows(torch, dev)
@@ -5596,8 +5749,10 @@ def main() -> int:
                        classifier=classifier_report,
                        build=dict(seconds=build_s, nvcc_seconds=nvcc_s,
                                   tf32_hgmma_hmma=tf32, spills=spills,
+                                  ln_registers_spills=ln_res,
                                   fma_kernels=fma),
                        bwd_rows_bit_equal=bwd_rows,
+                       ln_rows_bit_equal=ln_rows,
                        whole_model=dict(bf16=err_bf16, fp32=err_fp32)), f,
                   indent=1)
     print(json.dumps({"kernels": kernels}))

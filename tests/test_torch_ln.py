@@ -186,7 +186,8 @@ PLAN_SHAPES = sorted(
 
 def _walk(plan, N):
     """Rows in the order the kernels visit them: CTA i's range, its warp w
-    taking the row groups w, w + 8, ... of it (fp32: one row a warp)."""
+    taking the row groups w, w + 8, ... of it (the fp32 one-warp-a-row
+    form and 32 lanes a row: one row a group)."""
     rows, rpc = plan["rows"], plan["rows_per_cta"]
     order = []
     for c in range(plan["ctas"]):
@@ -199,43 +200,83 @@ def _walk(plan, N):
     return np.concatenate(order)
 
 
-@pytest.mark.parametrize("backward", [False, True])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("N,C", PLAN_SHAPES)
-def test_ln_plan_covers_every_row_once(N, C, dtype, backward):
-    """Every row once, CTA ranges contiguous, disjoint and in order; every
-    16-byte chunk of a row held by one lane of its group; the grid and the
-    partials within what the kernels were built for."""
-    p = TL.ln_plan(N, C, getattr(torch, dtype), backward=backward)
-    assert p == TL.ln_plan(N, C, getattr(torch, dtype), backward=backward)
+def _check_grid(p, N, C, backward):
+    """Every row once in the kernels' walk, CTA ranges contiguous, disjoint
+    and in order; the grid and the partials within what the kernels were
+    built for."""
     seen = np.bincount(_walk(p, N), minlength=N)
     assert seen.shape == (N,) and (seen == 1).all()
     rpc, ctas = p["rows_per_cta"], p["ctas"]
     assert (ctas - 1) * rpc < N <= ctas * rpc and rpc % p["rows"] == 0
-    assert p["part"] == ((ctas, 2 * C) if backward else None)
-    if dtype == "float32":
-        assert p["lanes"] == 32 and p["rows"] == 1
-        return
-    L, cpl, chunks = p["lanes"], p["cpl"], C // 8
-    assert L & (L - 1) == 0 and L * p["rows"] == 32 and cpl <= TL._MAX_CPL
-    held = sorted(s + k * L for s in range(L) for k in range(cpl)
-                  if s + k * L < chunks)
-    assert held == list(range(chunks))
-    assert ctas <= TL._blocks_per_sm(cpl) * TL.NUM_SMS
+    assert p["part"] == ((ctas, TL._stride(C)) if backward else None)
+    assert ctas <= TL._blocks_per_sm(p["cpl"]) * TL.NUM_SMS
     if backward:
         # every CTA in one group of the ordered sum, every group in the
         # final one, and the counters within the workspace's
         group = p["group"]
         n_groups = -(-ctas // group)
-        assert p["gpart"] == (n_groups, 2 * C)
+        assert p["gpart"] == (n_groups, TL._stride(C))
         assert (n_groups - 1) * group < ctas <= n_groups * group
         assert 1 + n_groups <= TL._TICKETS
 
 
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("N,C", PLAN_SHAPES)
+def test_ln_plan_covers_every_row_once(N, C, dtype, backward):
+    """The register form in both types: every row once, CTA ranges
+    contiguous, disjoint and in order; every 16-byte chunk of a row (8 bf16
+    or 4 fp32 values) held by one lane of its group; the grid and the
+    partials within what the kernels were built for."""
+    td = getattr(torch, dtype)
+    p = TL.ln_plan(N, C, td, backward=backward)
+    assert p == TL.ln_plan(N, C, td, backward=backward)
+    assert p["kernel"] == "reg"
+    _check_grid(p, N, C, backward)
+    L, cpl, chunks = p["lanes"], p["cpl"], C // TL._CHUNK[td]
+    assert C % TL._CHUNK[td] == 0 and TL._stride(C) == 2 * C
+    assert L & (L - 1) == 0 and L * p["rows"] == 32
+    assert cpl <= TL._MAX_CPL[td] and (cpl <= TL._REG_CPL or L == 32)
+    held = sorted(s + k * L for s in range(L) for k in range(cpl)
+                  if s + k * L < chunks)
+    assert held == list(range(chunks))
+
+
+# fp32 widths off the register form: not whole 16-byte chunks, or above
+# 1,536
+ROW_SHAPES = [(64, 1544), (333, 2048), (4099, 98), (7, 3), (1, 1),
+              (513, 1540), (131067, 6)]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("N,C", ROW_SHAPES)
+def test_ln_plan_f32_any_width_covers_every_row_once(N, C, backward):
+    """fp32 widths the register form does not take run one warp a row
+    (ln_*_row_f32_kernel): the same walk, every row once, the partial rows
+    padded to whole float4; bf16 refuses them."""
+    p = TL.ln_plan(N, C, torch.float32, backward=backward)
+    assert p == TL.ln_plan(N, C, torch.float32, backward=backward)
+    assert (p["kernel"], p["lanes"], p["cpl"], p["rows"]) == ("row", 32,
+                                                              None, 1)
+    _check_grid(p, N, C, backward)
+    assert TL._stride(C) % 4 == 0 and 0 <= TL._stride(C) - 2 * C < 4
+    with pytest.raises(NotImplementedError):
+        TL.ln_plan(N, C, torch.bfloat16, backward=backward)
+
+
+def _form(C, dtype):
+    p = TL.ln_plan(8 * 4096, C, dtype)
+    return p["kernel"], p["lanes"], p["cpl"]
+
+
 def test_ln_plan_step_shapes():
-    """At the flagship's widths each lane holds three chunks, L = C / 24,
-    and TULIP-large's C 1,536 six; widths the bf16 kernels do not take
-    raise, fp32 takes any."""
+    """At the flagship's widths each bf16 lane holds three chunks, L = C /
+    24, and TULIP-large's C 1,536 six; widths the bf16 kernels do not take
+    raise.  fp32 takes every width: the register form at the flagship's
+    (three chunks a lane, C 768 six), TULIP-large's C 1,536 (twelve: the
+    wide instantiation, sums in shared memory), C 100, 72 and 40 (whole
+    chunks, not whole lanes); one warp a row at C 1,544, 2,048 and widths
+    that are not whole chunks."""
     for C, L in ((96, 4), (192, 8), (384, 16), (768, 32)):
         p = TL.ln_plan(8 * 4096, C, torch.bfloat16)
         assert (p["lanes"], p["cpl"], p["rows"]) == (L, 3, 32 // L)
@@ -243,7 +284,22 @@ def test_ln_plan_step_shapes():
     for C in (100, 1544, 2048):
         with pytest.raises(NotImplementedError):
             TL.ln_plan(64, C, torch.bfloat16)
-        assert TL.ln_plan(64, C, torch.float32)["kernel"] == "warp"
+    f32 = {C: _form(C, torch.float32) for C in
+           (96, 192, 384, 768, 1536, 100, 72, 40, 1544, 2048, 98, 3)}
+    assert f32 == {96: ("reg", 8, 3), 192: ("reg", 16, 3),
+                   384: ("reg", 32, 3), 768: ("reg", 32, 6),
+                   1536: ("reg", 32, 12), 100: ("reg", 8, 4),
+                   72: ("reg", 4, 5), 40: ("reg", 2, 5),
+                   1544: ("row", 32, None), 2048: ("row", 32, None),
+                   98: ("row", 32, None), 3: ("row", 32, None)}
+    # every width a configuration of the JAX package reaches takes the
+    # register form: the stages' widths, which norm1, the post-norms,
+    # PatchExpanding (half the width it expands) / FinalPatchExpanding /
+    # norm_up and the classifier's merges and final norm all take
+    for model in ("tulip_base", "tulip_large"):
+        cfg = model_config(model, (32, 2048), (128, 2048))
+        for s in range(len(cfg.depths)):
+            assert _form(cfg.embed_dim << s, torch.float32)[0] == "reg"
 
 
 def _replay_bwd(x, w, g, eps, plan):
@@ -252,7 +308,9 @@ def _replay_bwd(x, w, g, eps, plan):
     it visits in order, the warp's row groups by the xor butterfly, the
     CTA's warps in warp order into one (2, C) partial, the partials of each
     group of plan["group"] CTAs in CTA order, then the group sums in group
-    order."""
+    order.  The fp32 wide instantiations (sums in shared memory) and
+    ln_bwd_row_f32_kernel take one row a warp at a time (no butterfly) in
+    the same order."""
     N, C = x.shape
     x32, g32, w32 = wide(x), wide(g), w.float()
     mean = x32.mean(-1, keepdim=True)
@@ -305,7 +363,7 @@ def test_bwd_summation_order_matches_plain_and_jax(N, C, dtype):
     td = getattr(torch, dtype)
     xt, gt, wt = (torch.from_numpy(x).to(td), torch.from_numpy(g).to(td),
                   torch.from_numpy(w))
-    plan = TL.ln_plan(N, C, torch.bfloat16, backward=True)
+    plan = TL.ln_plan(N, C, td, backward=True)
     assert plan["ctas"] > plan["group"] > 1
     got = _replay_bwd(xt, wt, gt, EPS, plan)
     assert all(torch.equal(a, b_) for a, b_ in
@@ -323,3 +381,31 @@ def test_bwd_summation_order_matches_plain_and_jax(N, C, dtype):
     assert _rel(got[0].float().numpy(), f32(jdx)) <= tol
     assert _rel(got[1].numpy(), f32(jdw)[0]) <= tol
     assert _rel(got[2].numpy(), f32(jdb)[0]) <= tol
+
+
+@pytest.mark.parametrize("N,C,kernel,cpl", [(1001, 1536, "reg", 12),
+                                            (333, 1544, "row", None),
+                                            (1001, 98, "row", None)])
+def test_bwd_summation_order_f32_wide_and_row(N, C, kernel, cpl):
+    """The fp32 forms past three chunks a lane's registers: the wide
+    register instantiation at TULIP-large's C 1,536 (dw / db in shared
+    memory) and one warp a row at C 1,544 and 98.  The replay of their
+    summation order against layer_norm_bwd_ref and the JAX layer_norm_vjp
+    in interpret mode, 1e-5 of max|ref|; two replays give the same bits."""
+    x, w, b, g = _case(N, C, seed=C)
+    xt, gt, wt = (torch.from_numpy(a) for a in (x, g, w))
+    plan = TL.ln_plan(N, C, torch.float32, backward=True)
+    assert (plan["kernel"], plan["cpl"], plan["rows"]) == (kernel, cpl, 1)
+    assert plan["ctas"] > plan["group"] > 1
+    got = _replay_bwd(xt, wt, gt, EPS, plan)
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip(got, _replay_bwd(xt, wt, gt, EPS, plan)))
+    for a, r in zip(got, TL.layer_norm_bwd_ref(xt, wt, gt, EPS)):
+        assert _rel(a.numpy(), r.numpy()) <= 1e-5
+    _, vjp = jax.vjp(lambda x_, w_, b_: layer_norm_vjp(x_, w_, b_, EPS),
+                     jnp.asarray(x), jnp.asarray(w).reshape(1, -1),
+                     jnp.asarray(b).reshape(1, -1))
+    jdx, jdw, jdb = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    assert _rel(got[0].numpy(), jdx) <= TOL["float32"]
+    assert _rel(got[1].numpy(), jdw[0]) <= TOL["float32"]
+    assert _rel(got[2].numpy(), jdb[0]) <= TOL["float32"]

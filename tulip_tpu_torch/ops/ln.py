@@ -7,13 +7,13 @@ tensors and launch the kernels for CUDA tensors; any other device raises.
 :func:`layer_norm_fn` is the differentiable entry: it saves x and w only,
 and its backward recomputes the row statistics.
 
-The dtype decides the kernel.  bf16 runs ``ln_fwd_reg_kernel`` /
-``ln_bwd_reg_kernel`` (rows held in registers as 16-byte chunks, a
-persistent grid; the backward's dw / db summed to the end in the same
-launch) under the launch plan :func:`ln_plan`, for C a multiple of 8 up to
-1,536; other bf16 widths raise.  fp32 runs ``ln_fwd_kernel`` /
-``ln_bwd_kernel``, one warp per row, the parity path, whose backward
-partials ``colsum`` adds.
+Both dtypes run ``ln_fwd_reg_kernel`` / ``ln_bwd_reg_kernel`` (rows held in
+registers as 16-byte chunks, a persistent grid; the backward's dw / db
+summed to the end in the same launch) under the launch plan
+:func:`ln_plan`, for C a whole number of chunks up to 1,536.  Other bf16
+widths raise; other fp32 widths (C % 4 != 0, or over 1,536) run
+``ln_fwd_row_f32_kernel`` / ``ln_bwd_row_f32_kernel``, one warp a row,
+whose backward ends its sums in its launch too.
 
 w and b are read as fp32 whatever the activation dtype (the train step
 keeps fp32 master weights); dw and db are summed in fp32 and returned in
@@ -28,31 +28,42 @@ import torch
 
 from . import build
 from .mlp import NUM_SMS
-from .reduce import colsum
 from ..models.layers import layer_norm, wide
 
 _WARPS = 8             # csrc/ln.cu kLnWarps: warps per block
-_TARGET_BLOCKS = 1024  # fp32: partial (2, C) sums the backward writes, at most
-_CHUNK = 8             # bf16 values in a 16-byte chunk
-_MAX_CPL = 6           # csrc/ln.cu lnr::kMaxCpl: chunks a lane holds, at most
+_CHUNK = {torch.bfloat16: 8, torch.float32: 4}   # values in a 16-byte chunk
+_MAX_CPL = {torch.bfloat16: 6, torch.float32: 12}   # csrc/ln.cu max_cpl
+_REG_CPL = 6           # csrc/ln.cu kRegCpl: above it fp32's sums leave registers
 
 
-def _blocks_per_sm(cpl: int) -> int:
-    """CTAs of 256 threads an SM holds: what csrc/ln.cu lnr::blocks_per_sm
-    builds each kernel for."""
-    return 2 if cpl <= 3 else 1
+def _blocks_per_sm(cpl) -> int:
+    """CTAs of 256 threads an SM holds: what csrc/ln.cu blocks_per_sm
+    builds each register kernel for (cpl None: the one-warp-a-row form)."""
+    return 2 if cpl is None or cpl <= 3 else 1
+
+
+def _stride(C: int) -> int:
+    """Floats of a [dw | db] partial row: 2C rounded up to whole float4."""
+    return -(-2 * C // 4) * 4
 
 
 def ln_plan(N: int, C: int, dtype, backward: bool = False) -> dict:
     """Launch plan of the LayerNorm kernels from the shape and dtype alone.
 
-    bf16 (``ln_fwd_reg_kernel`` / ``ln_bwd_reg_kernel``):
-
+    kernel        "reg" (``ln_fwd_reg_kernel`` / ``ln_bwd_reg_kernel``)
+                  where C is a whole number of 16-byte chunks (8 bf16, 4
+                  fp32 values) that 32 lanes hold in at most ``_MAX_CPL``
+                  chunks each (C <= 1,536 in both types); else, fp32 only,
+                  "row" (``ln_fwd_row_f32_kernel`` /
+                  ``ln_bwd_row_f32_kernel``: one warp a row, 4-byte
+                  accesses).  Other bf16 widths raise NotImplementedError;
     lanes         L, the lanes of a row's group: the largest power of two
-                  up to 32 with 3 L <= C / 8, the row's 16-byte chunks (1
-                  for fewer chunks); lane s of the group holds chunks s,
+                  up to 32 with 3 L <= C / chunk, the row's 16-byte chunks
+                  (1 for fewer chunks); lane s of the group holds chunks s,
                   s + L, ... (``cpl`` of them, the last past the row's end
-                  where L does not divide the chunks);
+                  where L does not divide the chunks; above ``_REG_CPL``,
+                  fp32 only, the forward reads w / b and the backward keeps
+                  its dw / db sums in shared memory).  "row": 32, cpl None;
     rows          32 / L rows a warp takes at a time (a row group);
     ctas          the persistent grid: as many CTAs as the SMs hold at
                   once, fewer where the row groups do not give each warp
@@ -60,54 +71,41 @@ def ln_plan(N: int, C: int, dtype, backward: bool = False) -> dict:
     rows_per_cta  CTA i takes rows [i rows_per_cta, (i + 1) rows_per_cta),
                   a multiple of ``rows``; its warp w takes the row groups
                   w, w + 8, w + 16, ... of that range;
-    group         backward: the CTAs whose (2, C) fp32 partials [dw | db]
-                  the last of them adds in CTA order (ceil(sqrt(ctas)));
-                  the last of those group sums adds them in group order;
-    part, gpart   backward: the shapes of the partials (ctas, 2C) and of
-                  the group sums (ceil(ctas / group), 2C).
-
-    fp32 (``ln_fwd_kernel`` / ``ln_bwd_kernel``): one warp per row
-    (``lanes`` 32, lanes strided over the columns), 8 rows per block
-    forward; backward blocks of a multiple of 8 rows, at most about
-    _TARGET_BLOCKS of them, whose (blocks, 2C) partials ``colsum`` adds.
-
-    Raises NotImplementedError for bf16 widths the kernels do not take (C
-    not a multiple of 8, or over 1,536)."""
+    group         backward: the CTAs whose fp32 partials [dw | db] the last
+                  of them adds in CTA order (ceil(sqrt(ctas))); the last of
+                  those group sums adds them in group order;
+    part, gpart   backward: the shapes of the partials (ctas, S) and of
+                  the group sums (ceil(ctas / group), S), S = 2C rounded
+                  up to a multiple of 4 (:func:`_stride`)."""
     if N <= 0 or C <= 0:
         raise ValueError(f"LayerNorm of an empty matrix ({N}, {C})")
-    if dtype == torch.float32:
-        if backward:
-            rpc = -(-N // _TARGET_BLOCKS)
-            rpc = max(_WARPS, -(-rpc // _WARPS) * _WARPS)
-        else:
-            rpc = _WARPS
-        ctas = -(-N // rpc)
-        return dict(kernel="warp", lanes=32, cpl=None, rows=1, ctas=ctas,
-                    rows_per_cta=rpc, group=None,
-                    part=(ctas, 2 * C) if backward else None, gpart=None)
-    if dtype != torch.bfloat16:
+    if dtype not in _CHUNK:
         raise TypeError(f"LayerNorm kernels take float32 or bfloat16, got "
                         f"{dtype}")
-    chunks = C // _CHUNK
-    lanes = 1
-    while lanes < 32 and 3 * 2 * lanes <= chunks:
-        lanes *= 2
-    cpl = -(-chunks // lanes)
-    if C % _CHUNK or cpl > _MAX_CPL:
+    chunk = _CHUNK[dtype]
+    chunks = C // chunk
+    if C % chunk == 0 and chunks <= 32 * _MAX_CPL[dtype]:
+        lanes = 1
+        while lanes < 32 and 3 * 2 * lanes <= chunks:
+            lanes *= 2
+        kernel, cpl = "reg", -(-chunks // lanes)
+    elif dtype == torch.bfloat16:
         raise NotImplementedError(
-            f"the bf16 LayerNorm kernels take C a multiple of {_CHUNK} up to "
-            f"{32 * _MAX_CPL * _CHUNK}; got C={C}")
+            f"the bf16 LayerNorm kernels take C a multiple of {chunk} up to "
+            f"{32 * _MAX_CPL[dtype] * chunk}; got C={C}")
+    else:
+        kernel, lanes, cpl = "row", 32, None
     rows = 32 // lanes
     groups = -(-N // rows)
     ctas = min(_blocks_per_sm(cpl) * NUM_SMS, -(-groups // _WARPS))
     rpc = -(-groups // ctas) * rows
     ctas = -(-N // rpc)
-    plan = dict(kernel="reg", lanes=lanes, cpl=cpl, rows=rows, ctas=ctas,
+    plan = dict(kernel=kernel, lanes=lanes, cpl=cpl, rows=rows, ctas=ctas,
                 rows_per_cta=rpc, group=None, part=None, gpart=None)
     if backward:
         group = math.isqrt(ctas - 1) + 1
-        plan.update(group=group, part=(ctas, 2 * C),
-                    gpart=(-(-ctas // group), 2 * C))
+        plan.update(group=group, part=(ctas, _stride(C)),
+                    gpart=(-(-ctas // group), _stride(C)))
     return plan
 
 
@@ -139,9 +137,19 @@ def _check(x2d, w, what):
     build.dtype_code(x2d)
     if tuple(w.shape) != (C,):
         raise ValueError(f"w has shape {tuple(w.shape)}, expected {(C,)}")
-    if x2d.dtype == torch.bfloat16:
-        build.require_aligned("x", x2d)
     return N, C
+
+
+def _aligned(t, name):
+    """t where it starts on a 16-byte boundary (the register kernels move
+    rows in 16-byte pieces).  bf16 raises otherwise; an fp32 t, which the
+    kernels took at any alignment before they held rows in registers, is
+    copied to a fresh, aligned tensor (the same values, so the same
+    result)."""
+    if t.data_ptr() % 16 and t.dtype == torch.float32:
+        return t.clone()
+    build.require_aligned(name, t)
+    return t
 
 
 def _f32(t, name, device, C):
@@ -155,7 +163,7 @@ def _f32(t, name, device, C):
     return t
 
 
-# (device index, stream) -> [fp32 scratch, tickets] of the bf16 backward.
+# (device index, stream) -> [fp32 scratch, tickets] of the backward.
 # The tickets are 0 between launches (the CTAs that draw the last ones
 # reset them), so the launches of one stream, which run one after another,
 # share them; two streams never do.  The scratch grows to the largest
@@ -183,6 +191,8 @@ def ln_fwd(x2d, w, b, eps: float = 1e-6):
     dev = x2d.device
     wf, bf = _f32(w, "w", dev, C), _f32(b, "b", dev, C)
     p = ln_plan(N, C, x2d.dtype)
+    if p["kernel"] == "reg":
+        x2d = _aligned(x2d, "x")
     lib = build.load()
     y = torch.empty_like(x2d)
     with torch.cuda.device(dev):
@@ -200,8 +210,8 @@ ln_fwd.launches = 0
 
 def ln_bwd(x2d, w, g, eps: float = 1e-6):
     """(dx, dw, db) of :func:`ln_fwd` at upstream gradient g (N, C) in x's
-    dtype; dw and db are fp32.  bf16: one launch (dx and, from the last
-    CTA, dw and db); fp32: the kernel, then ``colsum`` of its partials."""
+    dtype; dw and db are fp32.  One launch: dx and, from the last CTA, dw
+    and db."""
     if x2d.device.type == "cpu":
         return layer_norm_bwd_ref(x2d, w, g, eps)
     if x2d.device.type != "cuda":
@@ -211,32 +221,26 @@ def ln_bwd(x2d, w, g, eps: float = 1e-6):
     build.require(g, "g", dev, x2d.dtype, (N, C))
     wf = _f32(w, "w", dev, C)
     p = ln_plan(N, C, x2d.dtype, backward=True)
+    if p["kernel"] == "reg":
+        x2d, g = _aligned(x2d, "x"), _aligned(g, "g")
     lib = build.load()
     dx = torch.empty_like(x2d)
+    S = p["part"][1]
+    dwdb = torch.empty(S, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if x2d.dtype == torch.bfloat16:
-            build.require_aligned("g", g)
-            n_part = p["part"][0] * 2 * C
-            scratch, tickets = _bwd_workspace(
-                dev, stream, n_part + p["gpart"][0] * 2 * C)
-            part, gpart = scratch, scratch[n_part:]
-            dwdb = torch.empty((2, C), device=dev, dtype=torch.float32)
-            group = p["group"]
-        else:
-            part = torch.empty(p["part"], device=dev, dtype=torch.float32)
-            gpart = tickets = dwdb = None
-            group = 0
+        n_part = p["part"][0] * S
+        scratch, tickets = _bwd_workspace(dev, stream,
+                                          n_part + p["gpart"][0] * S)
         err = lib.tulip_ln_bwd(
             build.dtype_code(x2d), x2d.data_ptr(), wf.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), part.data_ptr(), build.ptr(gpart),
-            build.ptr(tickets), build.ptr(dwdb), N, C, p["lanes"],
-            p["rows_per_cta"], p["ctas"], group, float(eps), stream)
+            g.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+            scratch[n_part:].data_ptr(), tickets.data_ptr(),
+            dwdb.data_ptr(), N, C, p["lanes"], p["rows_per_cta"], p["ctas"],
+            p["group"], float(eps), stream)
     build.check(lib, err, "ln_bwd")
     ln_bwd.launches += 1
-    if dwdb is None:
-        dwdb = colsum(part).view(2, C)
-    return dx, dwdb[0], dwdb[1]
+    return dx, dwdb[:C], dwdb[C:2 * C]
 
 
 ln_bwd.launches = 0
